@@ -1,0 +1,428 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's dense inference path on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each reported on its own lines; any failure exits non-zero:
+  1. device  - the card's name and power limit (nvidia-smi);
+  2. build   - compile the CUDA kernels of src/repro_torch/kernels/csrc;
+  3. kernels - each kernel against its plain PyTorch version at the shapes
+               of the main path and the edge cases of the JAX tests, timed
+               beside its plain version, its bound and a library call;
+  4. forward - qwen3-8b at full width and depth (random bf16 weights from a
+               seeded generator): forward_logits through the kernels against
+               the same forward through the plain versions, in bf16 and, on
+               the same weights cast up, in f32; plus a reduced qwen3-8b in
+               f32 where kernels, plain versions and the cached path agree;
+  5. serve   - ServeEngine.generate on the same model, checked against
+               teacher forcing, and the device's busy share while decoding;
+  6. a JSON line with one entry per kernel, and a last JSON line with the
+     device.
+It imports nothing of the JAX package and never falls back to the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor bf16; f32 CUDA cores
+L2_BYTES = 50 * 2 ** 20
+# Kernel vs plain version. bf16: 2e-2 (tests/test_kernels.py) plus one bf16
+# ulp (2^-7 of the value): both round an f32 result once, and f32 values that
+# differ in the last bits can fall on either side of a bf16 rounding midpoint.
+# f32: 2e-5, as the JAX tests.
+TOL = {torch.bfloat16: (2e-2, 2.0 ** -7), torch.float32: (2e-5, 0.0)}
+# lse is f32 from either input type: log(T) plus the row max, below 20 here;
+# sums of up to 512 terms in another order differ by a few f32 ulps of it.
+LSE_TOL = 1e-4
+# bf16 forward, kernels vs plain versions: the two differ only in rounding,
+# which 36 layers of bf16 carry into the logits (|logit| up to ~6, one bf16
+# ulp there is 2^-5); random weights give near-ties at many positions.
+FORWARD_ARGMAX_MIN = 0.75
+FORWARD_MAX_ABS = 0.5
+# the same model in f32: rounding noise near 1e-5 of the logits
+F32_MAX_ABS = 1e-3
+F32_ARGMAX_MIN = 0.99
+REDUCED_TOL = 1e-4
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def err_vs(out: torch.Tensor, ref: torch.Tensor, dtype) -> tuple[float, bool]:
+    atol, rtol = TOL[dtype]
+    diff = (out.float() - ref.float()).abs()
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+    return float(diff.max()), ok
+
+
+def time_ms(fn, arg_sets, iters: int = 20) -> float:
+    """Mean ms per call over CUDA events, cycling through enough copies of the
+    inputs that the working set exceeds the 50 MB L2."""
+    for a in arg_sets[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def copies(make, nbytes: int):
+    return [make() for _ in range(max(2, math.ceil(2 * L2_BYTES / max(nbytes, 1))))]
+
+
+def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def rmsnorm_phase(dev) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    # (rows, D): forward ln over B*S=1024 rows of d=4096, q/k norms over
+    # B*S*32 and B*S*8 rows of head_dim 128, decode rows (B=4), edge widths
+    cases = [(1024, 4096), (32768, 128), (8192, 128), (4, 4096), (128, 128),
+             (1000, 16), (1000, 80), (1000, 8192), (3, 100)]
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows, D in cases:
+            x = torch.randn(rows, D, generator=g, device=dev).to(dtype)
+            w = (1.0 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype)
+            e, ok = err_vs(rmsnorm_fwd(x, w), ref.rmsnorm(x, w), dtype)
+            worst = max(worst, e)
+            log("kernels", f"rmsnorm {str(dtype)[6:]} rows={rows} D={D} max_abs_err={e:.3e} ok={ok}")
+            check(ok, f"rmsnorm {dtype} ({rows}, {D}) off by {e}")
+
+    rows, D, dtype = 1024, 4096, torch.bfloat16
+    nbytes = (2 * rows * D + D) * 2
+    sets = copies(lambda: (torch.randn(rows, D, generator=g, device=dev).to(dtype),
+                           torch.ones(D, device=dev, dtype=dtype)), nbytes)
+    ms = time_ms(lambda x, w: rmsnorm_fwd(x, w), sets)
+    plain = time_ms(lambda x, w: ref.rmsnorm(x, w), sets)
+    lib = time_ms(lambda x, w: torch.nn.functional.rms_norm(x, (D,), w, 1e-6), sets)
+    bms, by = bound_ms(nbytes, 4.0 * rows * D, torch.float32)
+    log("kernels", f"rmsnorm timing bf16 ({rows}, {D}): kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, torch rms_norm {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    for rows_, D_ in ((32768, 128), (4, 4096)):
+        s2 = copies(lambda: (torch.randn(rows_, D_, generator=g, device=dev).to(dtype),
+                             torch.ones(D_, device=dev, dtype=dtype)), 4 * rows_ * D_)
+        log("kernels", f"rmsnorm timing bf16 ({rows_}, {D_}): kernel "
+            f"{time_ms(lambda x, w: rmsnorm_fwd(x, w), s2):.4f} ms, plain "
+            f"{time_ms(lambda x, w: ref.rmsnorm(x, w), s2):.4f} ms")
+    return {"name": "rmsnorm_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:30",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib}
+
+
+def _qkv_views(B, Hq, Hkv, S, T, D, dtype, g, dev):
+    """q/k/v as the model hands them over: head-transposed views of one
+    projection output when S == T, separate contiguous tensors otherwise."""
+    if S == T:
+        qkv = torch.randn(B, S, (Hq + 2 * Hkv) * D, generator=g, device=dev).to(dtype)
+        q, k, v = torch.split(qkv, [Hq * D, Hkv * D, Hkv * D], dim=-1)
+        return (q.reshape(B, S, Hq, D).transpose(1, 2),
+                k.reshape(B, S, Hkv, D).transpose(1, 2),
+                v.reshape(B, S, Hkv, D).transpose(1, 2))
+    return (torch.randn(B, Hq, S, D, generator=g, device=dev).to(dtype),
+            torch.randn(B, Hkv, T, D, generator=g, device=dev).to(dtype),
+            torch.randn(B, Hkv, T, D, generator=g, device=dev).to(dtype))
+
+
+def flash_phase(dev) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    cases = [  # B, Hq, Hkv, S, T, D, causal
+        (2, 32, 8, 512, 512, 128, True),    # the forward's shape (GQA)
+        (2, 32, 8, 512, 512, 128, False),
+        (1, 8, 1, 512, 512, 64, True),      # MQA
+        (1, 8, 8, 512, 512, 64, False),     # MHA
+        (1, 4, 2, 200, 200, 128, True),     # uneven T
+        (2, 8, 2, 1, 300, 64, True),        # one query against 300 keys
+        (2, 4, 4, 128, 128, 16, True),
+        (1, 4, 2, 256, 256, 32, False),
+        (1, 4, 2, 64, 300, 128, True),      # S < T: q_offset = 236
+    ]
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, Hq, Hkv, S, T, D, causal in cases:
+            q, k, v = _qkv_views(B, Hq, Hkv, S, T, D, dtype, g, dev)
+            out, lse = flash_attention_fwd(q, k, v, causal=causal)
+            out_r, lse_r = ref.flash_attention_fwd_ref(q, k, v, causal=causal)
+            e, ok = err_vs(out, out_r, dtype)
+            e_lse = float((lse - lse_r).abs().max())
+            worst = max(worst, e)
+            log("kernels", f"flash {str(dtype)[6:]} B={B} Hq={Hq} Hkv={Hkv} S={S} T={T} "
+                f"D={D} causal={causal} out_err={e:.3e} lse_err={e_lse:.3e}")
+            check(ok and e_lse <= LSE_TOL,
+                  f"flash {dtype} {(B, Hq, Hkv, S, T, D, causal)} out {e} lse {e_lse}")
+
+    B, Hq, Hkv, S, T, D = 2, 32, 8, 512, 512, 128
+    dtype = torch.bfloat16
+    nbytes = (2 * B * Hq * S * D + 2 * B * Hkv * T * D) * 2 + B * Hq * S * 4
+    pairs = sum(min(T - S + i + 1, T) for i in range(S))  # causal (q, k) pairs
+    ops = 4.0 * B * Hq * D * pairs
+    sets = copies(lambda: _qkv_views(B, Hq, Hkv, S, T, D, dtype, g, dev), nbytes)
+    ms = time_ms(lambda q, k, v: flash_attention_fwd(q, k, v, causal=True), sets)
+    plain = time_ms(lambda q, k, v: ref.flash_attention_fwd_ref(q, k, v, causal=True), sets)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True), sets)
+    bms, by = bound_ms(nbytes, ops, dtype)
+    log("kernels", f"flash timing bf16 {(B, Hq, Hkv, S, T, D)} causal: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{ops / ms / 1e9:.2f} TFLOP/s")
+    return {"name": "flash_attention_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:108",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib}
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: the main path
+# ---------------------------------------------------------------------------
+
+def _plain(cfg):
+    """The same model config through the kernels' plain versions."""
+    return dataclasses.replace(cfg, attn_impl="torch", norm_impl="torch")
+
+
+def reset_counts(counters) -> None:
+    for c in counters:
+        c.launches = 0
+
+
+def reduced_phase(dev) -> None:
+    """Small input, f32: kernels == plain versions, and prefill + decode ==
+    teacher forcing, at the 1e-4 of tests/test_models.py."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+
+    arch = get_reduced("qwen3-8b")
+    params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(3),
+                            torch.float32, dev)
+    toks = torch.randint(0, arch.vocab, (2, 12), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    cfg = lm.ModelCfg(dtype=torch.float32)
+    full = lm.forward_logits(params, arch, cfg, {"tokens": toks})
+    plain = lm.forward_logits(params, arch, _plain(cfg), {"tokens": toks})
+    e_plain = float((full - plain).abs().max())
+    caches = lm.init_caches(arch, cfg, 2, 16, device=dev)
+    lg, caches = lm.prefill(params, arch, cfg, caches, toks[:, :10])
+    e_pre = float((lg - full[:, :10]).abs().max())
+    lg1, caches = lm.decode_step(params, arch, cfg, caches, toks[:, 10:11], 10)
+    lg2, caches = lm.decode_step(params, arch, cfg, caches, toks[:, 11:12], 11)
+    e_dec = max(float((lg1[:, 0] - full[:, 10]).abs().max()),
+                float((lg2[:, 0] - full[:, 11]).abs().max()))
+    log("forward", f"reduced qwen3-8b f32: kernels vs plain {e_plain:.3e}, prefill vs "
+        f"teacher forcing {e_pre:.3e}, decode vs teacher forcing {e_dec:.3e} "
+        f"(bound {REDUCED_TOL})")
+    check(max(e_plain, e_pre, e_dec) <= REDUCED_TOL, "reduced qwen3-8b parity")
+
+
+def forward_phase(dev, arch, params, counters) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.models import lm
+
+    B, S = 2, 512
+    toks = torch.randint(0, arch.vocab, (B, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+    cfg = lm.ModelCfg(dtype=torch.bfloat16)
+    plain_cfg = _plain(cfg)
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    logits = lm.forward_logits(params, arch, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    n1, n2 = rmsnorm_fwd.launches, flash_attention_fwd.launches
+    log("forward", f"qwen3-8b B={B} S={S}: launches rmsnorm {n1} (expect "
+        f"{4 * arch.num_layers + 1}), flash {n2} (expect {arch.num_layers})")
+    check(n1 == 4 * arch.num_layers + 1 and n2 == arch.num_layers, "forward launch counts")
+    check(tuple(logits.shape) == (B, S, arch.vocab), f"logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+
+    ref_logits = lm.forward_logits(params, arch, plain_cfg, {"tokens": toks})
+    max_abs, max_rel, agree = _compare_logits(logits, ref_logits)
+    log("forward", f"bf16 kernels vs plain: max_abs {max_abs:.4f}, max_rel {max_rel:.4e}, "
+        f"argmax agreement {agree:.4f} (bounds: max_abs <= {FORWARD_MAX_ABS}, "
+        f"agreement >= {FORWARD_ARGMAX_MIN})")
+    check(max_abs <= FORWARD_MAX_ABS and agree >= FORWARD_ARGMAX_MIN, "forward parity")
+    del logits, ref_logits
+
+    # warm wall times, in turns: kernels, plain, plain, kernels
+    times = {"kernels": [], "plain": []}
+    for which in ("kernels", "plain", "plain", "kernels"):
+        t0 = time.perf_counter()
+        lm.forward_logits(params, arch, cfg if which == "kernels" else plain_cfg,
+                          {"tokens": toks})
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3)
+    log("forward", f"warm forward wall ms: kernels {times['kernels']}, plain "
+        f"{times['plain']} (first call through the kernels {t_fwd * 1e3:.1f} ms)")
+
+    p32 = lm.cast_params(params, torch.float32)
+    cfg32 = lm.ModelCfg(dtype=torch.float32)
+    l32 = lm.forward_logits(p32, arch, cfg32, {"tokens": toks})
+    r32 = lm.forward_logits(p32, arch, _plain(cfg32), {"tokens": toks})
+    max_abs, max_rel, agree = _compare_logits(l32, r32)
+    log("forward", f"f32 (same weights) kernels vs plain: max_abs {max_abs:.3e}, max_rel "
+        f"{max_rel:.3e}, argmax agreement {agree:.4f} (bounds: max_abs <= {F32_MAX_ABS}, "
+        f"agreement >= {F32_ARGMAX_MIN})")
+    check(max_abs <= F32_MAX_ABS and agree >= F32_ARGMAX_MIN, "f32 forward parity")
+    return {"rmsnorm_fwd": n1, "flash_attention_fwd": n2}
+
+
+def _compare_logits(got, want) -> tuple[float, float, float]:
+    diff = (got.float() - want.float()).abs()
+    max_abs = float(diff.max())
+    return (max_abs, max_abs / float(want.float().abs().max()),
+            float((got.argmax(-1) == want.argmax(-1)).float().mean()))
+
+
+def serve_phase(dev, arch, params, counters) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+
+    B, P, N = 4, 128, 32
+    cfg = lm.ModelCfg(dtype=torch.bfloat16)
+    engine = ServeEngine(arch, cfg, params, max_len=256)
+    prompts = np.random.default_rng(6).integers(0, arch.vocab, size=(B, P))
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    res = engine.generate(prompts, max_new_tokens=N)
+    n1, n2 = rmsnorm_fwd.launches, flash_attention_fwd.launches
+    steps = res.step_times[res.warmup_steps:]
+    med = statistics.median(steps)
+    log("serve", f"qwen3-8b B={B} prompt={P} new={N}: launches rmsnorm {n1} (expect "
+        f"{(N + 1) * (4 * arch.num_layers + 1)}), flash {n2}; prefill "
+        f"{res.prefill_time * 1e3:.2f} ms, median decode step {med * 1e3:.3f} ms "
+        f"(first step {res.step_times[0] * 1e3:.3f} ms), decode {B / med:.1f} tokens/s")
+    check(n1 > 0, "serve path never launched the rmsnorm kernel")
+    check(res.tokens.shape == (B, P + N) and (res.tokens[:, :P] == prompts).all()
+          and res.tokens.min() >= 0 and res.tokens.max() < arch.vocab, "serve tokens")
+    # greedy tokens against teacher forcing over the generated sequence
+    seq = torch.as_tensor(res.tokens, device=dev)
+    with torch.inference_mode():
+        tf = lm.forward_logits(params, arch, cfg, {"tokens": seq[:, :-1]})
+    agree = float((tf[:, P - 1:].argmax(-1) == seq[:, P:]).float().mean())
+    log("serve", f"greedy tokens vs teacher-forced argmax: agreement {agree:.4f} "
+        f"(bound >= {FORWARD_ARGMAX_MIN})")
+    check(agree >= FORWARD_ARGMAX_MIN, "serve vs teacher forcing")
+
+    # device busy share while decoding (warm engine, a few steps)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = engine.generate(prompts, max_new_tokens=4)
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    wall_ms = (res.prefill_time + sum(res.step_times)) * 1e3
+    log("serve", f"profiled generate (prefill + 4 steps): wall {wall_ms:.1f} ms, device "
+        f"kernels {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}")
+    check(busy_ms > 0, "the profiler saw no device time")
+    return {"rmsnorm_fwd": n1, "flash_attention_fwd": n2}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels._build import load_kernels
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    log("device", f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    load_kernels()
+    log("build", f"{time.perf_counter() - t0:.1f} s")
+
+    counters = (rmsnorm_fwd, flash_attention_fwd)
+    with torch.inference_mode():
+        entries = [rmsnorm_phase(dev), flash_phase(dev)]
+        reduced_phase(dev)
+        arch = get_arch("qwen3-8b")
+        t0 = time.perf_counter()
+        params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                                torch.bfloat16, dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        log("forward", f"qwen3-8b params {n_params / 1e9:.3f} B in bf16 "
+            f"({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB), init "
+            f"{time.perf_counter() - t0:.1f} s")
+        fwd = forward_phase(dev, arch, params, counters)
+    srv = serve_phase(dev, arch, params, counters)
+    log("serve", f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+
+    for e in entries:
+        e["launches"] = fwd[e["name"]] + srv[e["name"]]
+        e["kernel_ms"] = e["ms"]
+        check(e["launches"] > 0, f"{e['name']} never launched on the main path")
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,49 @@
+"""Architecture registry of the port: the dense models its slice runs.
+
+Each config module keeps its own copy of the JAX package's ``ARCH`` (the
+published config) and ``reduced()`` (a small same-family config for CPU
+tests). Families the port does not run yet raise.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.core.arch import ModelArch
+
+_MODULES = {"qwen3-8b": "qwen3_8b", "yi-6b": "yi_6b"}
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise KeyError(
+            f"arch {name!r} is not in the port yet; known: "
+            f"{sorted(_MODULES) + sorted(PAPER_MODELS)}"
+        )
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_arch(name: str) -> ModelArch:
+    if name in PAPER_MODELS:
+        return PAPER_MODELS[name]
+    return _module(name).ARCH
+
+
+def get_reduced(name: str) -> ModelArch:
+    return _module(name).reduced()
+
+
+# --- the paper's own evaluation models (dense llama/glm families) ----------
+def _dense(name, L, d, H, kv, ffn, vocab) -> ModelArch:
+    return ModelArch(name=name, family="dense", num_layers=L, hidden=d,
+                     heads=H, kv_heads=kv, ffn=ffn, vocab=vocab)
+
+
+PAPER_MODELS = {
+    "llama2-7b": _dense("llama2-7b", 32, 4096, 32, 32, 11008, 32000),
+    "llama2-13b": _dense("llama2-13b", 40, 5120, 40, 40, 13824, 32000),
+    "llama2-70b": _dense("llama2-70b", 80, 8192, 64, 8, 28672, 32000),
+    "llama3-8b": _dense("llama3-8b", 32, 4096, 32, 8, 14336, 128256),
+    "llama3-70b": _dense("llama3-70b", 80, 8192, 64, 8, 28672, 128256),
+    "glm-67b": _dense("glm-67b", 64, 8192, 64, 64, 22016, 65024),
+    "glm-130b": _dense("glm-130b", 70, 12288, 96, 96, 32768, 150528),
+}

@@ -1,0 +1,73 @@
+"""Plain PyTorch versions of the kernels: the ground truth they are held
+against, and what a kernel wrapper runs for a tensor that lies on the CPU.
+
+Counterparts of ``repro/kernels/ref.py`` (same layouts: q ``(B, Hq, S, D)``,
+k/v ``(B, Hkv, T, D)``; math in float32, cast back to the input dtype).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def _causal_mask(S: int, T: int, q_offset: int, device) -> torch.Tensor:
+    """(S, T) bool: query i sits at absolute position q_offset + i."""
+    q_pos = torch.arange(S, device=device) + q_offset
+    return q_pos[:, None] >= torch.arange(T, device=device)[None, :]
+
+
+def _gqa_logits(q, k, sm_scale: Optional[float]) -> torch.Tensor:
+    """f32 logits (B, Hkv, group, S, T); q-head h reads kv-head h // group."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    if Hq % Hkv:
+        raise ValueError(f"q heads {Hq} not a multiple of kv heads {Hkv}")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, S, D)
+    return torch.einsum("bhgsd,bhtd->bhgst", qf, k.float()) * scale
+
+
+def attention(q, k, v, *, causal: bool = True,
+              sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Reference GQA attention; causal with the queries as the last S of the
+    T keys. Returns (B, Hq, S, D) in q's dtype."""
+    B, Hq, S, D = q.shape
+    T = k.shape[2]
+    logits = _gqa_logits(q, k, sm_scale)
+    if causal:
+        mask = _causal_mask(S, T, T - S, q.device)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgst,bhtd->bhgsd", probs, v.float())
+    return out.reshape(B, Hq, S, D).to(q.dtype)
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
+                            sm_scale: Optional[float] = None,
+                            q_offset: Optional[int] = None):
+    """What the flash-attention kernel returns: ``(out, lse)``, out in q's
+    dtype, lse float32 ``(B, Hq, S)``. ``q_offset`` defaults to T - S and
+    must be >= 0 when causal, so that every query row sees key 0."""
+    B, Hq, S, D = q.shape
+    T = k.shape[2]
+    if q_offset is None:
+        q_offset = T - S
+    logits = _gqa_logits(q, k, sm_scale)
+    if causal:
+        if q_offset < 0:
+            raise ValueError(f"causal attention needs q_offset >= 0, got {q_offset}")
+        mask = _causal_mask(S, T, q_offset, q.device)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None])
+    out = torch.einsum("bhgst,bhtd->bhgsd", probs, v.float())
+    return out.reshape(B, Hq, S, D).to(q.dtype), lse.reshape(B, Hq, S)
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Reference RMSNorm over the last dim."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)

@@ -1,0 +1,240 @@
+"""Dense decoder-only LM: the port's counterpart of ``repro/models/lm.py``,
+dense family only.
+
+Same layouts as the JAX package at the public functions: params are the same
+nested dict, each per-layer leaf stacked on a leading L axis with the same
+names; q/k/v are ``(B, H, S, D)``. A Python loop over layer slices takes the
+place of ``lax.scan``. The KV cache is updated in place (slice assignment at
+``start_pos``) instead of being returned as a new array.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.arch import ModelArch
+from repro_torch.kernels import ops
+from repro_torch.kernels.xla_flash import flash_xla
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelCfg:
+    """Runtime (non-architectural) model options.
+
+    ``attn_impl`` / ``norm_impl``: ``"cuda"`` (the hand-written kernels, the
+    default) or ``"torch"`` (their plain versions). The JAX package's serve
+    knobs (``kv_cache_repeat``, ``kv_scatter_write``, ``kv_cache_quant``,
+    ``decode_dense_attn``) and ``remat`` are not ported yet; passing one is a
+    ``TypeError``."""
+
+    dtype: torch.dtype = torch.bfloat16
+    attn_impl: str = "cuda"
+    norm_impl: str = "cuda"
+    cast_params_in_forward: bool = True  # False => caller pre-casts once
+
+    def __post_init__(self):
+        for field in ("attn_impl", "norm_impl"):
+            if getattr(self, field) not in ops.IMPLS:
+                raise ValueError(f"{field} must be one of {ops.IMPLS}, "
+                                 f"got {getattr(self, field)!r}")
+
+
+def _check_dense(arch: ModelArch) -> None:
+    if arch.family != "dense" or arch.sliding_window:
+        raise NotImplementedError(
+            f"{arch.name}: the port runs the dense family without sliding "
+            f"window only (got family={arch.family!r}, "
+            f"sliding_window={arch.sliding_window})")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _layer_param_templates(arch: ModelArch) -> dict[str, tuple[tuple[int, ...], float]]:
+    """(shape, init_scale) per per-layer tensor, WITHOUT the L axis. Scale 0.0
+    marks the norm weights, initialised to ones."""
+    _check_dense(arch)
+    d, hd = arch.hidden, arch.head_dim
+    H, Hkv = arch.heads, arch.kv_heads
+    fan = 1.0 / (d ** 0.5)
+    out_scale = fan / (2.0 * max(arch.num_layers, 1)) ** 0.5
+    t: dict[str, tuple[tuple[int, ...], float]] = {
+        "attn.wqkv": ((d, (H + 2 * Hkv) * hd), fan),
+        "attn.wo": ((H * hd, d), out_scale),
+    }
+    if arch.qk_norm:
+        t["attn.q_norm"] = ((hd,), 0.0)
+        t["attn.k_norm"] = ((hd,), 0.0)
+    if arch.ffn > 0:
+        t["mlp.wi"] = ((d, 2 * arch.ffn), fan)
+        t["mlp.wo"] = ((arch.ffn, d), out_scale)
+        t["ln2"] = ((d,), 0.0)
+    t["ln1"] = ((d,), 0.0)
+    return t
+
+
+def _normal(shape, scale, generator, dtype, device) -> torch.Tensor:
+    # drawn straight in `dtype`: at full width an f32 draw of the stacked
+    # mlp.wi alone would be a 14.5 GB temporary
+    return torch.randn(shape, generator=generator, dtype=dtype, device=device).mul_(scale)
+
+
+def init_params(arch: ModelArch, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32, device=None) -> dict:
+    """Random params in the JAX package's nested layout, drawn from
+    ``generator`` (which must live on ``device``; ``None`` -> cuda)."""
+    device = resolve_device(device)
+    d = arch.hidden
+    layers: dict[str, Any] = {}
+    for name, (shape, scale) in sorted(_layer_param_templates(arch).items()):
+        full = (arch.num_layers,) + shape
+        if scale == 0.0:
+            arr = torch.ones(full, dtype=dtype, device=device)
+        else:
+            arr = _normal(full, scale, generator, dtype, device)
+        node = layers
+        *parents, last = name.split(".")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = arr
+    params: dict[str, Any] = {
+        "embed": _normal((arch.vocab, d), 1.0 / (d ** 0.5), generator, dtype, device),
+        "layers": layers,
+        "final_norm": torch.ones((d,), dtype=dtype, device=device),
+    }
+    if not arch.tie_embeddings:
+        params["lm_head"] = _normal((d, arch.vocab), 1.0 / (d ** 0.5), generator,
+                                    dtype, device)
+    return params
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def cast_params(params: dict, dtype: torch.dtype) -> dict:
+    """Floating leaves -> ``dtype`` (a leaf already in it is not copied)."""
+    return _tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, params)
+
+
+def _layer(layers: dict, i: int) -> dict:
+    return _tree_map(lambda x: x[i], layers)
+
+
+# ---------------------------------------------------------------------------
+# sub-layers
+# ---------------------------------------------------------------------------
+
+def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
+                   arch: ModelArch, cfg: ModelCfg, cache) -> torch.Tensor:
+    """Self-attention. cache: None (full sequence) or (k, v, start_pos), the
+    layer's cache views, written in place at start_pos."""
+    B, S, _ = h.shape
+    H, Hkv, D = arch.heads, arch.kv_heads, arch.head_dim
+    q, k, v = torch.split(h @ p["wqkv"], [H * D, Hkv * D, Hkv * D], dim=-1)
+    q = q.reshape(B, S, H, D)
+    k = k.reshape(B, S, Hkv, D)
+    v = v.reshape(B, S, Hkv, D)
+    if arch.qk_norm:
+        # normalised before the head transpose: the same numbers as the JAX
+        # package, with rows the norm kernel can read contiguously
+        q = L.norm(q.contiguous(), p["q_norm"], impl=cfg.norm_impl)
+        k = L.norm(k.contiguous(), p["k_norm"], impl=cfg.norm_impl)
+    q = L.rope(q.transpose(1, 2), positions)
+    k = L.rope(k.transpose(1, 2), positions)
+    v = v.transpose(1, 2)
+    if cache is None:
+        out = ops.flash_attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    else:
+        ck, cv, start = cache
+        ck[:, :, start:start + S] = k
+        cv[:, :, start:start + S] = v
+        out = flash_xla(q, ck, cv, q_start=start, kv_valid_len=start + S, causal=True)
+    out = out.transpose(1, 2).reshape(B, S, H * D)
+    return out @ p["wo"]
+
+
+def _layer_fn(arch: ModelArch, cfg: ModelCfg, lp: dict, h: torch.Tensor,
+              positions: torch.Tensor, cache) -> torch.Tensor:
+    a = _attn_sublayer(lp["attn"], L.norm(h, lp["ln1"], impl=cfg.norm_impl),
+                       positions, arch, cfg, cache)
+    h = h + a
+    if arch.ffn > 0:
+        h = h + L.swiglu(lp["mlp"], L.norm(h, lp["ln2"], impl=cfg.norm_impl))
+    return h
+
+
+def _head(params: dict, arch: ModelArch, cfg: ModelCfg, h: torch.Tensor) -> torch.Tensor:
+    h = L.norm(h, params["final_norm"], impl=cfg.norm_impl)
+    head = params["embed"].T if arch.tie_embeddings else params["lm_head"]
+    return h @ head.to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# forward (full sequence)
+# ---------------------------------------------------------------------------
+
+def forward_logits(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict) -> torch.Tensor:
+    """Full-sequence forward over ``batch["tokens"]`` (B, S). Returns (B, S, V)
+    logits. Attention goes through the flash-attention kernel."""
+    _check_dense(arch)
+    if cfg.cast_params_in_forward:
+        params = cast_params(params, cfg.dtype)
+    tokens = batch["tokens"]
+    h = params["embed"][tokens].to(cfg.dtype)
+    positions = torch.arange(h.shape[1], device=h.device)
+    for i in range(arch.num_layers):
+        h = _layer_fn(arch, cfg, _layer(params["layers"], i), h, positions, None)
+    return _head(params, arch, cfg, h)
+
+
+# ---------------------------------------------------------------------------
+# serving: caches / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_caches(arch: ModelArch, cfg: ModelCfg, batch_size: int, max_len: int,
+                device=None) -> dict:
+    """Per-layer-stacked KV caches: ``{"k", "v"}`` of (L, B, Hkv, max_len, D)."""
+    _check_dense(arch)
+    device = resolve_device(device)
+    shape = (arch.num_layers, batch_size, arch.kv_heads, max_len, arch.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+@torch.no_grad()
+def forward_cached(params: dict, arch: ModelArch, cfg: ModelCfg, caches: dict,
+                   tokens: torch.Tensor, start_pos: int):
+    """Shared prefill/decode path: processes S tokens starting at start_pos.
+
+    Writes their K/V into ``caches`` in place and returns ``(logits, caches)``
+    (the same dict), mirroring the JAX signature."""
+    _check_dense(arch)
+    if cfg.cast_params_in_forward:
+        params = cast_params(params, cfg.dtype)
+    h = params["embed"][tokens].to(cfg.dtype)
+    S = h.shape[1]
+    if start_pos + S > caches["k"].shape[3]:
+        raise ValueError(f"positions {start_pos}..{start_pos + S - 1} past the "
+                         f"KV cache of length {caches['k'].shape[3]}")
+    positions = start_pos + torch.arange(S, device=h.device)
+    for i in range(arch.num_layers):
+        cache = (caches["k"][i], caches["v"][i], start_pos)
+        h = _layer_fn(arch, cfg, _layer(params["layers"], i), h, positions, cache)
+    return _head(params, arch, cfg, h), caches
+
+
+def prefill(params, arch, cfg, caches, tokens):
+    return forward_cached(params, arch, cfg, caches, tokens, 0)
+
+
+def decode_step(params, arch, cfg, caches, tokens, position: int):
+    """tokens: (B, 1) new token ids; position: current sequence length."""
+    return forward_cached(params, arch, cfg, caches, tokens, position)

@@ -1,0 +1,144 @@
+"""The port's dense LM against the JAX package's, on the CPU.
+
+Weights come from the JAX package's ``init_params`` and cross through numpy
+(``params_from_numpy``), so both sides run the same model. The JAX side runs
+norms and full-sequence attention through its Pallas kernels (interpret mode),
+as the configuration the port mirrors. f32 throughout; the bound is the 1e-4
+of tests/test_models.py's serve-parity test (f32 matmuls in another order over
+a few layers stay near 1e-6).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_reduced as jax_reduced  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro_torch.configs import get_arch, get_reduced  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+
+TOL = 1e-4
+JCFG = jlm.ModelCfg(dtype=jnp.float32, attn_impl="pallas", norm_impl="pallas")
+CFG = lm.ModelCfg(dtype=torch.float32)
+ARCHS = ["qwen3-8b", "yi-6b"]  # yi-6b: no qk_norm, MQA-like kv=1 when reduced
+
+
+def _setup(name, B=2, S=12, seed=0):
+    jarch = jax_reduced(name)
+    jparams = jlm.init_params(jarch, jax.random.PRNGKey(seed))
+    params = params_from_numpy(jax.device_get(jparams), device="cpu")
+    toks = np.random.default_rng(seed).integers(0, jarch.vocab, size=(B, S)).astype(np.int32)
+    return jarch, get_reduced(name), jparams, params, toks
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_params_from_numpy_keeps_names_and_values(dtype):
+    jarch = jax_reduced("qwen3-8b")
+    jparams = jlm.init_params(jarch, jax.random.PRNGKey(0), dtype=getattr(jnp, dtype))
+    params = params_from_numpy(jax.device_get(jparams), device="cpu")
+    jflat, tflat = _flat(jax.device_get(jparams)), _flat(params)
+    assert sorted(jflat) == sorted(tflat)
+    for name, a in jflat.items():
+        t = tflat[name]
+        assert t.dtype == getattr(torch, dtype), name
+        assert tuple(t.shape) == a.shape, name
+        np.testing.assert_array_equal(t.float().numpy(), np.asarray(a, np.float32))
+    again = params_from_numpy(jax.device_get(jparams), device="cpu", dtype=torch.float32)
+    assert all(t.dtype == torch.float32 for t in _flat(again).values())
+
+
+def test_init_params_matches_the_jax_layout():
+    jarch = jax_reduced("qwen3-8b")
+    jflat = _flat(jax.device_get(jlm.init_params(jarch, jax.random.PRNGKey(0))))
+    tflat = _flat(lm.init_params(get_reduced("qwen3-8b"), torch.Generator().manual_seed(0),
+                                 torch.float32, "cpu"))
+    assert {k: v.shape for k, v in jflat.items()} == {k: tuple(v.shape) for k, v in tflat.items()}
+
+
+def test_full_configs_match_the_jax_package():
+    from repro.configs import PAPER_MODELS, get_arch as jax_arch
+    from repro_torch.configs import PAPER_MODELS as T_PAPER
+
+    for name in ARCHS:
+        ours, theirs = get_arch(name), jax_arch(name)
+        for f in ("num_layers", "hidden", "heads", "kv_heads", "ffn", "vocab",
+                  "head_dim", "qk_norm", "tie_embeddings"):
+            assert getattr(ours, f) == getattr(theirs, f), (name, f)
+        assert ours.total_params() == theirs.total_params()
+        assert get_reduced(name).head_dim == jax_reduced(name).head_dim
+    assert {k: v.total_params() for k, v in T_PAPER.items()} == \
+        {k: v.total_params() for k, v in PAPER_MODELS.items()}
+    with pytest.raises(KeyError):
+        get_arch("mamba2-370m")
+
+
+@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("impl", ["cuda", "torch"])
+def test_forward_logits_matches_jax(name, impl):
+    jarch, arch, jparams, params, toks = _setup(name)
+    want = np.asarray(jlm.forward_logits(jparams, jarch, JCFG, {"tokens": jnp.asarray(toks)}))
+    cfg = lm.ModelCfg(dtype=torch.float32, attn_impl=impl, norm_impl=impl)
+    got = lm.forward_logits(params, arch, cfg, {"tokens": torch.from_numpy(toks).long()})
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_prefill_decode_matches_teacher_forcing(name):
+    """prefill + step-by-step decode == the full forward (tests/test_models.py)."""
+    _, arch, _, params, toks = _setup(name)
+    B, S = toks.shape
+    t = torch.from_numpy(toks).long()
+    full = lm.forward_logits(params, arch, CFG, {"tokens": t})
+    caches = lm.init_caches(arch, CFG, B, S + 4, device="cpu")
+    lg, caches = lm.prefill(params, arch, CFG, caches, t[:, : S - 2])
+    assert float((lg - full[:, : S - 2]).abs().max()) < TOL
+    lg1, caches = lm.decode_step(params, arch, CFG, caches, t[:, S - 2 : S - 1], S - 2)
+    assert float((lg1[:, 0] - full[:, S - 2]).abs().max()) < TOL
+    lg2, caches = lm.decode_step(params, arch, CFG, caches, t[:, S - 1 :], S - 1)
+    assert float((lg2[:, 0] - full[:, S - 1]).abs().max()) < TOL
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_prefill_decode_logits_match_jax(name):
+    jarch, arch, jparams, params, toks = _setup(name, seed=1)
+    B, S = toks.shape
+    jc = jlm.init_caches(jarch, JCFG, B, S + 2)
+    tc = lm.init_caches(arch, CFG, B, S + 2, device="cpu")
+    t = torch.from_numpy(toks).long()
+    jl, jc = jlm.prefill(jparams, jarch, JCFG, jc, jnp.asarray(toks[:, : S - 1]))
+    tl, tc = lm.prefill(params, arch, CFG, tc, t[:, : S - 1])
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=0)
+    jl, jc = jlm.decode_step(jparams, jarch, JCFG, jc, jnp.asarray(toks[:, S - 1 :]), S - 1)
+    tl, tc = lm.decode_step(params, arch, CFG, tc, t[:, S - 1 :], S - 1)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=0)
+    np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jc["k"]), atol=TOL, rtol=0)
+    np.testing.assert_allclose(tc["v"].numpy(), np.asarray(jc["v"]), atol=TOL, rtol=0)
+
+
+def test_model_cfg_and_families_outside_the_slice_raise():
+    with pytest.raises(ValueError):
+        lm.ModelCfg(attn_impl="pallas")
+    with pytest.raises(TypeError):
+        lm.ModelCfg(kv_cache_quant=True)
+    import dataclasses
+
+    moe = dataclasses.replace(get_reduced("qwen3-8b"), family="moe")
+    with pytest.raises(NotImplementedError):
+        lm.init_params(moe, torch.Generator(), torch.float32, "cpu")
+    _, arch, _, params, toks = _setup("qwen3-8b")
+    caches = lm.init_caches(arch, CFG, 2, 4, device="cpu")
+    with pytest.raises(ValueError, match="past the KV cache"):
+        lm.prefill(params, arch, CFG, caches, torch.from_numpy(toks).long())
