@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's dense inference path on one CUDA card.
+"""Drive the PyTorch port's inference paths on one CUDA card: the dense
+family (qwen3-8b) and the ssm family (mamba2-370m).
 
     python3 chip_smoke.py
 
 Phases, each reported on its own lines; any failure exits non-zero:
   1. device  - the card's name and power limit (nvidia-smi);
   2. build   - compile the CUDA kernels of src/repro_torch/kernels/csrc;
-  3. kernels - each kernel against its plain PyTorch version at the shapes
-               of the main path and the edge cases of the JAX tests, timed
-               beside its plain version, its bound and a library call;
-  4. forward - qwen3-8b at full width and depth (random bf16 weights from a
-               seeded generator): forward_logits through the kernels against
-               the same forward through the plain versions, in bf16 and, on
-               the same weights cast up, in f32; plus a reduced qwen3-8b in
-               f32 where kernels, plain versions and the cached path agree;
-  5. serve   - ServeEngine.generate on the same model, checked against
-               teacher forcing, and the device's busy share while decoding;
+  3. kernels - each kernel (RMSNorm, flash attention, SSD scan) against its
+               plain PyTorch version at the shapes of the main paths and the
+               edge cases of the JAX tests, timed beside its plain version,
+               its bound and a library call where one exists;
+  4. forward - per model, at full width and depth (random bf16 weights from a
+               seeded generator): forward_logits through the kernels, with
+               the launches of each kernel counted, against the same forward
+               through the plain versions, in bf16 and, on the same weights
+               cast up, in f32; plus the reduced model in f32 where kernels,
+               plain versions and the cached path agree;
+  5. serve   - per model, ServeEngine.generate, checked against teacher
+               forcing, and the device's busy share while decoding;
   6. a JSON line with one entry per kernel, and a last JSON line with the
      device.
 It imports nothing of the JAX package and never falls back to the CPU.
@@ -23,6 +26,7 @@ It imports nothing of the JAX package and never falls back to the CPU.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -47,15 +51,27 @@ TOL = {torch.bfloat16: (2e-2, 2.0 ** -7), torch.float32: (2e-5, 0.0)}
 # lse is f32 from either input type: log(T) plus the row max, below 20 here;
 # sums of up to 512 terms in another order differ by a few f32 ulps of it.
 LSE_TOL = 1e-4
-# bf16 forward, kernels vs plain versions: the two differ only in rounding,
-# which 36 layers of bf16 carry into the logits (|logit| up to ~6, one bf16
-# ulp there is 2^-5); random weights give near-ties at many positions.
-FORWARD_ARGMAX_MIN = 0.75
-FORWARD_MAX_ABS = 0.5
+# bf16 forward, kernels vs plain versions, per model: (max abs logit
+# difference, argmax agreement, also held by serve's greedy tokens against
+# teacher forcing). The two paths differ only in rounding, which the layers
+# carry into the logits; random weights give near-ties at many positions.
+#   qwen3-8b: 36 layers, |logit| up to ~6, one bf16 ulp there is 2^-5.
+#   mamba2-370m: 48 layers, and the SSM state carries each rounding along the
+#   sequence too. The chunked and the sequential scan, 1e-4 apart in f32 on
+#   the same weights, moved the bf16 logits by 0.95 at 0.80 argmax agreement
+#   on an H100 at B=2, S=512 (PERF.md); serve compares only 128 tokens
+#   (binomial spread ~0.035), hence the lower agreement bound.
+# The f32 comparison on the same weights is the one that tells a fault from
+# rounding.
+BF16_BOUNDS = {"qwen3-8b": (0.5, 0.75), "mamba2-370m": (1.5, 0.6)}
 # the same model in f32: rounding noise near 1e-5 of the logits
 F32_MAX_ABS = 1e-3
 F32_ARGMAX_MIN = 0.99
 REDUCED_TOL = 1e-4
+# SSD kernel vs the sequential plain scan, y in f32 and the f32 state in both
+# types: 2e-3, as tests/test_kernels.py (bf16 y takes TOL: both sides take the
+# same bf16 inputs to f32 and round y once)
+SSD_TOL = 2e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -213,13 +229,87 @@ def flash_phase(dev) -> dict:
             "bound_by": by, "library_ms": lib}
 
 
+def _ssd_inputs(B, S, H, P, N, dtype, seed, dev):
+    """x, dt, A, Bm, C, D as tests/test_kernels.py draws them, from a seeded
+    CPU generator (the same numbers on every machine); x, Bm and C are views
+    of one (B, S, H*P + 2N) tensor, as the model hands them over."""
+    g = torch.Generator().manual_seed(seed)
+    xbc = torch.randn(B, S, H * P + 2 * N, generator=g).to(dev, dtype)
+    x, Bm, C = torch.split(xbc, [H * P, N, N], dim=-1)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g)).to(dev, dtype)
+    A = -torch.exp(torch.randn(H, generator=g)).to(dev)
+    D = torch.randn(H, generator=g).to(dev)
+    return x.reshape(B, S, H, P), dt, A, Bm, C, D
+
+
+def ssd_ops(B, S, H, P, N, chunk) -> float:
+    """Operations the chunked scan needs at this shape: in each chunk of l
+    steps the causal pairs of C B^T and of S x, then C h^T and the state
+    update, 2 flops per multiply-add."""
+    total = 0
+    for t0 in range(0, S, chunk):
+        l = min(chunk, S - t0)
+        pairs = l * (l + 1) // 2
+        total += 2 * (pairs * N + pairs * P + 2 * l * N * P)
+    return float(total * B * H)
+
+
+def ssd_phase(dev) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd import DEFAULT_CHUNK, ssd_scan_fwd
+
+    cases = [  # B, S, H, P, N, chunk
+        (4, 2048, 32, 64, 128, DEFAULT_CHUNK),  # the mamba2-370m forward's shape
+        (2, 1024, 50, 64, 16, DEFAULT_CHUNK),   # hymba-1.5b's ssm heads
+        (1, 128, 2, 32, 16, 64),                # the cases of tests/test_kernels.py
+        (2, 300, 4, 64, 32, 128),               #   uneven chunks
+        (1, 64, 1, 16, 8, 256),                 #   chunk > seq
+        (3, 1, 4, 64, 128, DEFAULT_CHUNK),      # one step
+    ]
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (B, S, H, P, N, chunk) in enumerate(cases):
+            args = _ssd_inputs(B, S, H, P, N, dtype, 10 + i, dev)
+            y, state = ssd_scan_fwd(*args, chunk=chunk)
+            y_r, state_r = ref.ssd_scan(*args, return_state=True)
+            if dtype == torch.float32:
+                e = float((y - y_r).abs().max())
+                ok = e <= SSD_TOL
+            else:
+                e, ok = err_vs(y, y_r, dtype)
+            e_state = float((state - state_r).abs().max())
+            worst = max(worst, e)
+            log("kernels", f"ssd {str(dtype)[6:]} B={B} S={S} H={H} P={P} N={N} chunk={chunk} "
+                f"y_err={e:.3e} (|y| <= {float(y_r.float().abs().max()):.1f}) "
+                f"state_err={e_state:.3e}")
+            check(ok and e_state <= SSD_TOL and y.dtype == dtype,
+                  f"ssd {dtype} {(B, S, H, P, N, chunk)} y {e} state {e_state}")
+
+    B, S, H, P, N = cases[0][:5]
+    dtype = torch.bfloat16
+    nbytes = (2 * B * S * H * P + 2 * B * S * N + B * S * H) * 2 + B * H * P * N * 4 + 2 * H * 4
+    ops = ssd_ops(B, S, H, P, N, DEFAULT_CHUNK)
+    sets = copies(lambda: _ssd_inputs(B, S, H, P, N, dtype, 20, dev), nbytes)
+    ms = time_ms(lambda *a: ssd_scan_fwd(*a), sets)
+    plain = time_ms(lambda *a: ref.ssd_scan(*a, return_state=True), sets, iters=2)
+    bms, by = bound_ms(nbytes, ops, dtype)
+    log("kernels", f"ssd timing bf16 {(B, S, H, P, N)} chunk {DEFAULT_CHUNK}: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, no library call, bound {bms:.4f} ms ({by}), "
+        f"{ops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s")
+    return {"name": "ssd_scan_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd.py:97",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": None}
+
+
 # ---------------------------------------------------------------------------
-# phases 4-5: the main path
+# phases 4-5: the main paths
 # ---------------------------------------------------------------------------
 
 def _plain(cfg):
     """The same model config through the kernels' plain versions."""
-    return dataclasses.replace(cfg, attn_impl="torch", norm_impl="torch")
+    return dataclasses.replace(cfg, attn_impl="torch", norm_impl="torch", ssm_impl="torch")
 
 
 def reset_counts(counters) -> None:
@@ -227,13 +317,17 @@ def reset_counts(counters) -> None:
         c.launches = 0
 
 
-def reduced_phase(dev) -> None:
+def read_counts(counters) -> dict:
+    return {c.__name__: c.launches for c in counters}
+
+
+def reduced_phase(dev, name: str) -> None:
     """Small input, f32: kernels == plain versions, and prefill + decode ==
     teacher forcing, at the 1e-4 of tests/test_models.py."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import lm
 
-    arch = get_reduced("qwen3-8b")
+    arch = get_reduced(name)
     params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(3),
                             torch.float32, dev)
     toks = torch.randint(0, arch.vocab, (2, 12), device=dev,
@@ -249,18 +343,20 @@ def reduced_phase(dev) -> None:
     lg2, caches = lm.decode_step(params, arch, cfg, caches, toks[:, 11:12], 11)
     e_dec = max(float((lg1[:, 0] - full[:, 10]).abs().max()),
                 float((lg2[:, 0] - full[:, 11]).abs().max()))
-    log("forward", f"reduced qwen3-8b f32: kernels vs plain {e_plain:.3e}, prefill vs "
+    log("forward", f"reduced {name} f32: kernels vs plain {e_plain:.3e}, prefill vs "
         f"teacher forcing {e_pre:.3e}, decode vs teacher forcing {e_dec:.3e} "
         f"(bound {REDUCED_TOL})")
-    check(max(e_plain, e_pre, e_dec) <= REDUCED_TOL, "reduced qwen3-8b parity")
+    check(max(e_plain, e_pre, e_dec) <= REDUCED_TOL, f"reduced {name} parity")
 
 
-def forward_phase(dev, arch, params, counters) -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+def forward_phase(dev, name, arch, params, counters, expect: dict, main_bs,
+                  compare_bs) -> dict:
+    """forward_logits at main_bs = (B, S) through the kernels, the main path
+    whose launches are counted; then kernels against plain versions at
+    compare_bs (the plain SSD is a loop over S, so mamba2 compares shorter)."""
     from repro_torch.models import lm
 
-    B, S = 2, 512
+    B, S = main_bs
     toks = torch.randint(0, arch.vocab, (B, S), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(5))
     cfg = lm.ModelCfg(dtype=torch.bfloat16)
@@ -271,19 +367,31 @@ def forward_phase(dev, arch, params, counters) -> dict:
     logits = lm.forward_logits(params, arch, cfg, {"tokens": toks})
     torch.cuda.synchronize()
     t_fwd = time.perf_counter() - t0
-    n1, n2 = rmsnorm_fwd.launches, flash_attention_fwd.launches
-    log("forward", f"qwen3-8b B={B} S={S}: launches rmsnorm {n1} (expect "
-        f"{4 * arch.num_layers + 1}), flash {n2} (expect {arch.num_layers})")
-    check(n1 == 4 * arch.num_layers + 1 and n2 == arch.num_layers, "forward launch counts")
+    counts = read_counts(counters)
+    log("forward", f"{arch.name} B={B} S={S}: launches {counts} (expect {expect})")
+    check(counts == expect, "forward launch counts")
     check(tuple(logits.shape) == (B, S, arch.vocab), f"logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    del logits
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        lm.forward_logits(params, arch, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log("forward", f"{arch.name} B={B} S={S} warm forward wall ms through the kernels: "
+        f"{walls} (first call {t_fwd * 1e3:.1f} ms)")
 
+    B, S = compare_bs
+    toks = toks[:B, :S]
+    logits = lm.forward_logits(params, arch, cfg, {"tokens": toks})
     ref_logits = lm.forward_logits(params, arch, plain_cfg, {"tokens": toks})
     max_abs, max_rel, agree = _compare_logits(logits, ref_logits)
-    log("forward", f"bf16 kernels vs plain: max_abs {max_abs:.4f}, max_rel {max_rel:.4e}, "
-        f"argmax agreement {agree:.4f} (bounds: max_abs <= {FORWARD_MAX_ABS}, "
-        f"agreement >= {FORWARD_ARGMAX_MIN})")
-    check(max_abs <= FORWARD_MAX_ABS and agree >= FORWARD_ARGMAX_MIN, "forward parity")
+    abs_bound, agree_bound = BF16_BOUNDS[name]
+    log("forward", f"{arch.name} B={B} S={S} bf16 kernels vs plain: max_abs {max_abs:.4f}, "
+        f"max_rel {max_rel:.4e}, argmax agreement {agree:.4f} (bounds: max_abs <= "
+        f"{abs_bound}, agreement >= {agree_bound})")
+    check(max_abs <= abs_bound and agree >= agree_bound, "forward parity")
     del logits, ref_logits
 
     # warm wall times, in turns: kernels, plain, plain, kernels
@@ -294,19 +402,19 @@ def forward_phase(dev, arch, params, counters) -> dict:
                           {"tokens": toks})
         torch.cuda.synchronize()
         times[which].append((time.perf_counter() - t0) * 1e3)
-    log("forward", f"warm forward wall ms: kernels {times['kernels']}, plain "
-        f"{times['plain']} (first call through the kernels {t_fwd * 1e3:.1f} ms)")
+    log("forward", f"{arch.name} B={B} S={S} warm forward wall ms: kernels "
+        f"{times['kernels']}, plain {times['plain']}")
 
     p32 = lm.cast_params(params, torch.float32)
     cfg32 = lm.ModelCfg(dtype=torch.float32)
     l32 = lm.forward_logits(p32, arch, cfg32, {"tokens": toks})
     r32 = lm.forward_logits(p32, arch, _plain(cfg32), {"tokens": toks})
     max_abs, max_rel, agree = _compare_logits(l32, r32)
-    log("forward", f"f32 (same weights) kernels vs plain: max_abs {max_abs:.3e}, max_rel "
-        f"{max_rel:.3e}, argmax agreement {agree:.4f} (bounds: max_abs <= {F32_MAX_ABS}, "
-        f"agreement >= {F32_ARGMAX_MIN})")
+    log("forward", f"{arch.name} f32 (same weights) kernels vs plain: max_abs {max_abs:.3e}, "
+        f"max_rel {max_rel:.3e}, argmax agreement {agree:.4f} (bounds: max_abs <= "
+        f"{F32_MAX_ABS}, agreement >= {F32_ARGMAX_MIN})")
     check(max_abs <= F32_MAX_ABS and agree >= F32_ARGMAX_MIN, "f32 forward parity")
-    return {"rmsnorm_fwd": n1, "flash_attention_fwd": n2}
+    return counts
 
 
 def _compare_logits(got, want) -> tuple[float, float, float]:
@@ -316,27 +424,28 @@ def _compare_logits(got, want) -> tuple[float, float, float]:
             float((got.argmax(-1) == want.argmax(-1)).float().mean()))
 
 
-def serve_phase(dev, arch, params, counters) -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+def serve_phase(dev, name, arch, params, counters, per_forward: dict) -> dict:
+    """per_forward: each kernel's launches in one cached forward; generate
+    runs N + 1 of them (the prefill and N decode steps)."""
     from repro_torch.models import lm
     from repro_torch.serve import ServeEngine
 
     B, P, N = 4, 128, 32
+    expect = {k: (N + 1) * v for k, v in per_forward.items()}
     cfg = lm.ModelCfg(dtype=torch.bfloat16)
     engine = ServeEngine(arch, cfg, params, max_len=256)
     prompts = np.random.default_rng(6).integers(0, arch.vocab, size=(B, P))
     torch.cuda.synchronize()
     reset_counts(counters)
     res = engine.generate(prompts, max_new_tokens=N)
-    n1, n2 = rmsnorm_fwd.launches, flash_attention_fwd.launches
+    counts = read_counts(counters)
     steps = res.step_times[res.warmup_steps:]
     med = statistics.median(steps)
-    log("serve", f"qwen3-8b B={B} prompt={P} new={N}: launches rmsnorm {n1} (expect "
-        f"{(N + 1) * (4 * arch.num_layers + 1)}), flash {n2}; prefill "
-        f"{res.prefill_time * 1e3:.2f} ms, median decode step {med * 1e3:.3f} ms "
-        f"(first step {res.step_times[0] * 1e3:.3f} ms), decode {B / med:.1f} tokens/s")
-    check(n1 > 0, "serve path never launched the rmsnorm kernel")
+    log("serve", f"{arch.name} B={B} prompt={P} new={N}: launches {counts} (expect "
+        f"{expect}); prefill {res.prefill_time * 1e3:.2f} ms, median decode step "
+        f"{med * 1e3:.3f} ms (first step {res.step_times[0] * 1e3:.3f} ms), decode "
+        f"{B / med:.1f} tokens/s")
+    check(counts == expect, "serve launch counts")
     check(res.tokens.shape == (B, P + N) and (res.tokens[:, :P] == prompts).all()
           and res.tokens.min() >= 0 and res.tokens.max() < arch.vocab, "serve tokens")
     # greedy tokens against teacher forcing over the generated sequence
@@ -344,9 +453,10 @@ def serve_phase(dev, arch, params, counters) -> dict:
     with torch.inference_mode():
         tf = lm.forward_logits(params, arch, cfg, {"tokens": seq[:, :-1]})
     agree = float((tf[:, P - 1:].argmax(-1) == seq[:, P:]).float().mean())
-    log("serve", f"greedy tokens vs teacher-forced argmax: agreement {agree:.4f} "
-        f"(bound >= {FORWARD_ARGMAX_MIN})")
-    check(agree >= FORWARD_ARGMAX_MIN, "serve vs teacher forcing")
+    agree_bound = BF16_BOUNDS[name][1]
+    log("serve", f"{arch.name} greedy tokens vs teacher-forced argmax (through the kernels): "
+        f"agreement {agree:.4f} (bound >= {agree_bound})")
+    check(agree >= agree_bound, "serve vs teacher forcing")
 
     # device busy share while decoding (warm engine, a few steps)
     from torch.profiler import ProfilerActivity, profile
@@ -355,10 +465,38 @@ def serve_phase(dev, arch, params, counters) -> dict:
         res = engine.generate(prompts, max_new_tokens=4)
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
     wall_ms = (res.prefill_time + sum(res.step_times)) * 1e3
-    log("serve", f"profiled generate (prefill + 4 steps): wall {wall_ms:.1f} ms, device "
-        f"kernels {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}")
+    log("serve", f"{arch.name} profiled generate (prefill + 4 steps): wall {wall_ms:.1f} ms, "
+        f"device kernels {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}")
     check(busy_ms > 0, "the profiler saw no device time")
-    return {"rmsnorm_fwd": n1, "flash_attention_fwd": n2}
+    return counts
+
+
+def model_phases(dev, name: str, counters, expect_forward: dict, expect_cached: dict,
+                 main_bs, compare_bs) -> list[dict]:
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+
+    with torch.inference_mode():
+        reduced_phase(dev, name)
+        arch = get_arch(name)
+        t0 = time.perf_counter()
+        params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                                torch.bfloat16, dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        log("forward", f"{name} params {n_params / 1e9:.4f} B in bf16 "
+            f"({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB), init "
+            f"{time.perf_counter() - t0:.1f} s")
+        fwd = forward_phase(dev, name, arch, params, counters, expect_forward, main_bs,
+                            compare_bs)
+    srv = serve_phase(dev, name, arch, params, counters, expect_cached)
+    log("serve", f"{name} peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return [fwd, srv]
 
 
 def main() -> int:
@@ -370,11 +508,12 @@ def main() -> int:
     from repro_torch.kernels._build import load_kernels
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.rmsnorm import rmsnorm_fwd
-    from repro_torch.models import lm
+    from repro_torch.kernels.ssd import ssd_scan_fwd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -387,25 +526,33 @@ def main() -> int:
     load_kernels()
     log("build", f"{time.perf_counter() - t0:.1f} s")
 
-    counters = (rmsnorm_fwd, flash_attention_fwd)
+    counters = (rmsnorm_fwd, flash_attention_fwd, ssd_scan_fwd)
     with torch.inference_mode():
-        entries = [rmsnorm_phase(dev), flash_phase(dev)]
-        reduced_phase(dev)
-        arch = get_arch("qwen3-8b")
-        t0 = time.perf_counter()
-        params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(0),
-                                torch.bfloat16, dev)
-        torch.cuda.synchronize()
-        n_params = sum(t.numel() for t in _leaves(params))
-        log("forward", f"qwen3-8b params {n_params / 1e9:.3f} B in bf16 "
-            f"({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB), init "
-            f"{time.perf_counter() - t0:.1f} s")
-        fwd = forward_phase(dev, arch, params, counters)
-    srv = serve_phase(dev, arch, params, counters)
-    log("serve", f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+        entries = [rmsnorm_phase(dev), flash_phase(dev), ssd_phase(dev)]
+    log("kernels", f"done at {time.perf_counter() - t_start:.1f} s")
+
+    qwen, mamba = get_arch("qwen3-8b"), get_arch("mamba2-370m")
+    runs = model_phases(
+        dev, "qwen3-8b", counters,
+        {"rmsnorm_fwd": 4 * qwen.num_layers + 1, "flash_attention_fwd": qwen.num_layers,
+         "ssd_scan_fwd": 0},
+        {"rmsnorm_fwd": 4 * qwen.num_layers + 1, "flash_attention_fwd": 0,
+         "ssd_scan_fwd": 0},
+        main_bs=(2, 512), compare_bs=(2, 512))
+    log("serve", f"qwen3-8b done at {time.perf_counter() - t_start:.1f} s")
+    # mamba2's prefill and decode run the plain scan on a cache, as the JAX
+    # package does (ssm.py: impl="xla" there), so serve launches no SSD kernel
+    runs += model_phases(
+        dev, "mamba2-370m", counters,
+        {"rmsnorm_fwd": mamba.num_layers + 1, "flash_attention_fwd": 0,
+         "ssd_scan_fwd": mamba.num_layers},
+        {"rmsnorm_fwd": mamba.num_layers + 1, "flash_attention_fwd": 0,
+         "ssd_scan_fwd": 0},
+        main_bs=(4, 2048), compare_bs=(2, 512))
+    log("serve", f"mamba2-370m done at {time.perf_counter() - t_start:.1f} s")
 
     for e in entries:
-        e["launches"] = fwd[e["name"]] + srv[e["name"]]
+        e["launches"] = sum(run[e["name"]] for run in runs)
         e["kernel_ms"] = e["ms"]
         check(e["launches"] > 0, f"{e['name']} never launched on the main path")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,4 +1,4 @@
-"""Architecture registry of the port: the dense models its slice runs.
+"""Architecture registry of the port: the dense and ssm models it runs.
 
 Each config module keeps its own copy of the JAX package's ``ARCH`` (the
 published config) and ``reduced()`` (a small same-family config for CPU
@@ -10,7 +10,7 @@ import importlib
 
 from repro_torch.core.arch import ModelArch
 
-_MODULES = {"qwen3-8b": "qwen3_8b", "yi-6b": "yi_6b"}
+_MODULES = {"qwen3-8b": "qwen3_8b", "yi-6b": "yi_6b", "mamba2-370m": "mamba2_370m"}
 
 
 def _module(name: str):

@@ -12,7 +12,7 @@ import functools
 import pathlib
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("bindings.cpp", "rmsnorm.cu", "flash_attention.cu")
+_SOURCES = ("bindings.cpp", "rmsnorm.cu", "flash_attention.cu", "ssd.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 

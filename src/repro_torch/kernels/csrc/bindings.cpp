@@ -4,6 +4,7 @@
 // here guard what would otherwise read or write out of bounds.
 #include <torch/extension.h>
 
+#include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 
@@ -82,10 +83,71 @@ void flash_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
                "flash_attention");
 }
 
+void ssd_scan_fwd(const torch::Tensor& x, const torch::Tensor& dt,
+                  const torch::Tensor& A, const torch::Tensor& Bm,
+                  const torch::Tensor& C, const torch::Tensor& D, torch::Tensor y,
+                  torch::Tensor state, int64_t chunk) {
+  TORCH_CHECK(x.is_cuda() && x.dim() == 4 && dt.dim() == 3 && Bm.dim() == 3 &&
+                  C.sizes() == Bm.sizes(),
+              "ssd: x (B, S, H, P), dt (B, S, H), Bm and C (B, S, N) expected");
+  const int64_t B = x.size(0), S = x.size(1), H = x.size(2), P = x.size(3),
+                N = Bm.size(2);
+  TORCH_CHECK(dt.size(0) == B && dt.size(1) == S && dt.size(2) == H &&
+                  Bm.size(0) == B && Bm.size(1) == S,
+              "ssd: shape mismatch");
+  TORCH_CHECK(dt.scalar_type() == x.scalar_type() &&
+                  Bm.scalar_type() == x.scalar_type() &&
+                  C.scalar_type() == x.scalar_type() &&
+                  y.scalar_type() == x.scalar_type(),
+              "ssd: x, dt, Bm, C and y must share one dtype");
+  TORCH_CHECK(x.stride(3) == 1 && Bm.stride(2) == 1 && C.stride(2) == 1,
+              "ssd: x, Bm and C need a contiguous last dim");
+  for (const torch::Tensor* t : {&A, &D})
+    TORCH_CHECK(t->scalar_type() == torch::kFloat32 && t->is_contiguous() &&
+                    t->numel() == H,
+                "ssd: A and D must be contiguous (H,) f32");
+  TORCH_CHECK(y.is_contiguous() && y.sizes() == x.sizes() &&
+                  state.is_contiguous() &&
+                  state.scalar_type() == torch::kFloat32 &&
+                  state.numel() == B * H * P * N,
+              "ssd: bad output buffers");
+  TORCH_CHECK(chunk >= 1 && chunk <= S, "ssd: chunk ", chunk, " outside [1, ", S, "]");
+  const int64_t smem = repro_ssd_smem_bytes(static_cast<int>(chunk),
+                                            static_cast<int>(P), static_cast<int>(N));
+  const int64_t optin = at::cuda::getCurrentDeviceProperties()->sharedMemPerBlockOptin;
+  TORCH_CHECK(smem <= optin, "ssd: chunk ", chunk, " at P=", P, ", N=", N, " needs ",
+              smem, " bytes of shared memory; a block can have ", optin);
+  SsdParams p;
+  p.B = static_cast<int>(B);
+  p.S = static_cast<int>(S);
+  p.H = static_cast<int>(H);
+  p.P = static_cast<int>(P);
+  p.N = static_cast<int>(N);
+  p.L = static_cast<int>(chunk);
+  p.x_b = x.stride(0);
+  p.x_s = x.stride(1);
+  p.x_h = x.stride(2);
+  p.dt_b = dt.stride(0);
+  p.dt_s = dt.stride(1);
+  p.dt_h = dt.stride(2);
+  p.bm_b = Bm.stride(0);
+  p.bm_s = Bm.stride(1);
+  p.c_b = C.stride(0);
+  p.c_s = C.stride(1);
+  const c10::cuda::CUDAGuard guard(x.device());
+  check_launch(repro_ssd_scan_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr<float>(),
+                                  Bm.data_ptr(), C.data_ptr(), D.data_ptr<float>(),
+                                  y.data_ptr(), state.data_ptr<float>(), p,
+                                  dtype_code(x),
+                                  c10::cuda::getCurrentCUDAStream().stream()),
+               "ssd");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("rmsnorm_fwd", &rmsnorm_fwd, "RMSNorm forward (sm_90a)");
   m.def("flash_attention_fwd", &flash_attention_fwd,
         "GQA flash-attention forward (sm_90a)");
+  m.def("ssd_scan_fwd", &ssd_scan_fwd, "Mamba-2 SSD chunked scan forward (sm_90a)");
 }

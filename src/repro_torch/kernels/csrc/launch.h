@@ -32,3 +32,29 @@ cudaError_t repro_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* out, float* lse,
                                       const FlashParams& p, int dtype,
                                       cudaStream_t stream);
+
+// Mamba-2 SSD scan shapes and the element strides of its operands, each with
+// a contiguous last dim: x (B, S, H, P), dt (B, S, H), Bm and C (B, S, N).
+struct SsdParams {
+  int B, S, H, P, N;
+  int L;  // chunk length, 1 <= L <= S
+  int64_t x_b, x_s, x_h;
+  int64_t dt_b, dt_s, dt_h;
+  int64_t bm_b, bm_s;
+  int64_t c_b, c_s;
+};
+
+// Dynamic shared memory of one block of the SSD kernel, in floats: C and B
+// rows and the (P, N) state padded to N + 1, x, the (L, L + 1) scores, three
+// per-step f32 rows and one per-step f64 row.
+inline int64_t repro_ssd_smem_bytes(int L, int P, int N) {
+  const int64_t l = L, np = N + 1;
+  return 4 * (2 * l * np + l * P + int64_t{P} * np + l * (l + 1) + 5 * l);
+}
+
+// A and D: (H,) f32; y: contiguous (B, S, H, P) in `dtype`; state: contiguous
+// (B, H, P, N) f32, the state after the last step from a zero state.
+cudaError_t repro_ssd_scan_fwd(const void* x, const void* dt, const float* A,
+                               const void* Bm, const void* C, const float* D,
+                               void* y, float* state, const SsdParams& p,
+                               int dtype, cudaStream_t stream);

@@ -2,7 +2,8 @@
 against, and what a kernel wrapper runs for a tensor that lies on the CPU.
 
 Counterparts of ``repro/kernels/ref.py`` (same layouts: q ``(B, Hq, S, D)``,
-k/v ``(B, Hkv, T, D)``; math in float32, cast back to the input dtype).
+k/v ``(B, Hkv, T, D)``, SSD x ``(B, S, H, P)``; math in float32, cast back to
+the input dtype).
 """
 from __future__ import annotations
 
@@ -71,3 +72,33 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def ssd_scan(x, dt, A, Bm, C, D=None, *, init_state=None, return_state: bool = False):
+    """Reference Mamba-2 SSD recurrence, a sequential scan over time:
+
+        h_t = exp(A * dt_t) * h_{t-1} + dt_t * x_t (outer) B_t
+        y_t = h_t . C_t + D * x_t
+
+    x ``(B, S, H, P)``, dt ``(B, S, H)`` (already softplus'd), A ``(H,)``
+    (negative), Bm/C ``(B, S, N)``, D ``(H,)`` or None, init_state
+    ``(B, H, P, N)`` or None (zeros). Math in f32; y cast back to x's dtype,
+    the final state ``(B, H, P, N)`` f32 when ``return_state``."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    xf, dtf, Bf, Cf, Af = x.float(), dt.float(), Bm.float(), C.float(), A.float()
+    h = (init_state.float() if init_state is not None
+         else torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device))
+    ys = []
+    for t in range(S):
+        decay = torch.exp(Af[None, :] * dtf[:, t])  # (B, H)
+        dx = dtf[:, t, :, None] * xf[:, t]  # (B, H, P)
+        h = h * decay[..., None, None] + dx[..., None] * Bf[:, t, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1)
+    if D is not None:
+        y = y + D.float()[None, None, :, None] * xf
+    y = y.to(x.dtype)
+    if return_state:
+        return y, h
+    return y

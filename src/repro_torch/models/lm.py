@@ -1,11 +1,11 @@
-"""Dense decoder-only LM: the port's counterpart of ``repro/models/lm.py``,
-dense family only.
+"""Decoder-only LM: the port's counterpart of ``repro/models/lm.py``, for the
+dense family (without sliding window) and the ssm family (Mamba-2).
 
 Same layouts as the JAX package at the public functions: params are the same
 nested dict, each per-layer leaf stacked on a leading L axis with the same
 names; q/k/v are ``(B, H, S, D)``. A Python loop over layer slices takes the
-place of ``lax.scan``. The KV cache is updated in place (slice assignment at
-``start_pos``) instead of being returned as a new array.
+place of ``lax.scan``. The caches (KV for dense, conv and SSM state for ssm)
+are updated in place instead of being returned as new arrays.
 """
 from __future__ import annotations
 
@@ -19,35 +19,37 @@ from repro_torch.core.arch import ModelArch
 from repro_torch.kernels import ops
 from repro_torch.kernels.xla_flash import flash_xla
 from repro_torch.models import layers as L
+from repro_torch.models.ssm import CONV_K, ssm_block, ssm_dims
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelCfg:
     """Runtime (non-architectural) model options.
 
-    ``attn_impl`` / ``norm_impl``: ``"cuda"`` (the hand-written kernels, the
-    default) or ``"torch"`` (their plain versions). The JAX package's serve
-    knobs (``kv_cache_repeat``, ``kv_scatter_write``, ``kv_cache_quant``,
-    ``decode_dense_attn``) and ``remat`` are not ported yet; passing one is a
-    ``TypeError``."""
+    ``attn_impl`` / ``norm_impl`` / ``ssm_impl``: ``"cuda"`` (the hand-written
+    kernels, the default) or ``"torch"`` (their plain versions). The JAX
+    package's serve knobs (``kv_cache_repeat``, ``kv_scatter_write``,
+    ``kv_cache_quant``, ``decode_dense_attn``) and ``remat`` are not ported
+    yet; passing one is a ``TypeError``."""
 
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "cuda"
     norm_impl: str = "cuda"
+    ssm_impl: str = "cuda"
     cast_params_in_forward: bool = True  # False => caller pre-casts once
 
     def __post_init__(self):
-        for field in ("attn_impl", "norm_impl"):
+        for field in ("attn_impl", "norm_impl", "ssm_impl"):
             if getattr(self, field) not in ops.IMPLS:
                 raise ValueError(f"{field} must be one of {ops.IMPLS}, "
                                  f"got {getattr(self, field)!r}")
 
 
-def _check_dense(arch: ModelArch) -> None:
-    if arch.family != "dense" or arch.sliding_window:
+def _check_family(arch: ModelArch) -> None:
+    if arch.family not in ("dense", "ssm") or arch.sliding_window:
         raise NotImplementedError(
-            f"{arch.name}: the port runs the dense family without sliding "
-            f"window only (got family={arch.family!r}, "
+            f"{arch.name}: the port runs the dense and ssm families without "
+            f"sliding window only (got family={arch.family!r}, "
             f"sliding_window={arch.sliding_window})")
 
 
@@ -55,26 +57,42 @@ def _check_dense(arch: ModelArch) -> None:
 # init
 # ---------------------------------------------------------------------------
 
+_ZEROS_LEAVES = ("conv_b", "dt_bias", "A_log")  # f32 zeros, whatever dtype is
+_F32_ONES_LEAVES = ("D",)
+
+
 def _layer_param_templates(arch: ModelArch) -> dict[str, tuple[tuple[int, ...], float]]:
     """(shape, init_scale) per per-layer tensor, WITHOUT the L axis. Scale 0.0
-    marks the norm weights, initialised to ones."""
-    _check_dense(arch)
+    marks the constant leaves: ones for norms and D, zeros for conv_b,
+    dt_bias and A_log."""
+    _check_family(arch)
     d, hd = arch.hidden, arch.head_dim
     H, Hkv = arch.heads, arch.kv_heads
     fan = 1.0 / (d ** 0.5)
     out_scale = fan / (2.0 * max(arch.num_layers, 1)) ** 0.5
-    t: dict[str, tuple[tuple[int, ...], float]] = {
-        "attn.wqkv": ((d, (H + 2 * Hkv) * hd), fan),
-        "attn.wo": ((H * hd, d), out_scale),
-    }
-    if arch.qk_norm:
-        t["attn.q_norm"] = ((hd,), 0.0)
-        t["attn.k_norm"] = ((hd,), 0.0)
+    t: dict[str, tuple[tuple[int, ...], float]] = {}
+    if not arch.is_attention_free:
+        t["attn.wqkv"] = ((d, (H + 2 * Hkv) * hd), fan)
+        t["attn.wo"] = ((H * hd, d), out_scale)
+        if arch.qk_norm:
+            t["attn.q_norm"] = ((hd,), 0.0)
+            t["attn.k_norm"] = ((hd,), 0.0)
     if arch.ffn > 0:
         t["mlp.wi"] = ((d, 2 * arch.ffn), fan)
         t["mlp.wo"] = ((arch.ffn, d), out_scale)
-        t["ln2"] = ((d,), 0.0)
+    if arch.family == "ssm":
+        di, Hs, _, N = ssm_dims(arch)
+        conv_dim = di + 2 * N
+        t["ssm.in_proj"] = ((d, 2 * di + 2 * N + Hs), fan)
+        t["ssm.conv_w"] = ((CONV_K, conv_dim), 0.5)
+        t["ssm.conv_b"] = ((conv_dim,), 0.0)
+        t["ssm.dt_bias"] = ((Hs,), 0.0)
+        t["ssm.A_log"] = ((Hs,), 0.0)
+        t["ssm.D"] = ((Hs,), 0.0)
+        t["ssm.out_proj"] = ((di, d), out_scale)
     t["ln1"] = ((d,), 0.0)
+    if arch.ffn > 0 and arch.family != "ssm":
+        t["ln2"] = ((d,), 0.0)
     return t
 
 
@@ -93,8 +111,12 @@ def init_params(arch: ModelArch, generator: torch.Generator,
     layers: dict[str, Any] = {}
     for name, (shape, scale) in sorted(_layer_param_templates(arch).items()):
         full = (arch.num_layers,) + shape
-        if scale == 0.0:
-            arr = torch.ones(full, dtype=dtype, device=device)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in _ZEROS_LEAVES:
+            arr = torch.zeros(full, dtype=torch.float32, device=device)
+        elif scale == 0.0:
+            arr = torch.ones(full, device=device,
+                             dtype=torch.float32 if leaf in _F32_ONES_LEAVES else dtype)
         else:
             arr = _normal(full, scale, generator, dtype, device)
         node = layers
@@ -162,9 +184,21 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
 
 
 def _layer_fn(arch: ModelArch, cfg: ModelCfg, lp: dict, h: torch.Tensor,
-              positions: torch.Tensor, cache) -> torch.Tensor:
-    a = _attn_sublayer(lp["attn"], L.norm(h, lp["ln1"], impl=cfg.norm_impl),
-                       positions, arch, cfg, cache)
+              positions: torch.Tensor, cache: Optional[dict]) -> torch.Tensor:
+    """cache: None (full sequence) or the layer's cache views, written in
+    place: ``{"k", "v", "start"}`` for dense, ``{"conv", "state"}`` for ssm."""
+    if arch.family == "ssm":
+        s, new_cache = ssm_block(
+            lp["ssm"], L.norm(h, lp["ln1"], impl=cfg.norm_impl), arch,
+            ssm_impl=cfg.ssm_impl,
+            cache=None if cache is None else (cache["conv"], cache["state"]))
+        if new_cache is not None:
+            cache["conv"].copy_(new_cache[0])
+            cache["state"].copy_(new_cache[1])
+        return h + s
+    a = _attn_sublayer(lp["attn"], L.norm(h, lp["ln1"], impl=cfg.norm_impl), positions,
+                       arch, cfg,
+                       None if cache is None else (cache["k"], cache["v"], cache["start"]))
     h = h + a
     if arch.ffn > 0:
         h = h + L.swiglu(lp["mlp"], L.norm(h, lp["ln2"], impl=cfg.norm_impl))
@@ -183,8 +217,9 @@ def _head(params: dict, arch: ModelArch, cfg: ModelCfg, h: torch.Tensor) -> torc
 
 def forward_logits(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict) -> torch.Tensor:
     """Full-sequence forward over ``batch["tokens"]`` (B, S). Returns (B, S, V)
-    logits. Attention goes through the flash-attention kernel."""
-    _check_dense(arch)
+    logits. Attention goes through the flash-attention kernel, the ssm mixer
+    through the SSD kernel."""
+    _check_family(arch)
     if cfg.cast_params_in_forward:
         params = cast_params(params, cfg.dtype)
     tokens = batch["tokens"]
@@ -201,12 +236,24 @@ def forward_logits(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict) ->
 
 def init_caches(arch: ModelArch, cfg: ModelCfg, batch_size: int, max_len: int,
                 device=None) -> dict:
-    """Per-layer-stacked KV caches: ``{"k", "v"}`` of (L, B, Hkv, max_len, D)."""
-    _check_dense(arch)
+    """Per-layer-stacked decode caches: ``{"k", "v"}`` of (L, B, Hkv, max_len,
+    D) for attention, ``{"conv"}`` (L, B, CONV_K - 1, conv channels) in
+    ``cfg.dtype`` and ``{"state"}`` (L, B, H, P, N) f32 for ssm."""
+    _check_family(arch)
     device = resolve_device(device)
-    shape = (arch.num_layers, batch_size, arch.kv_heads, max_len, arch.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    Ld = arch.num_layers
+    caches: dict[str, torch.Tensor] = {}
+    if not arch.is_attention_free:
+        shape = (Ld, batch_size, arch.kv_heads, max_len, arch.head_dim)
+        caches["k"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        caches["v"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    if arch.family == "ssm":
+        di, H, P, N = ssm_dims(arch)
+        caches["conv"] = torch.zeros((Ld, batch_size, CONV_K - 1, di + 2 * N),
+                                     dtype=cfg.dtype, device=device)
+        caches["state"] = torch.zeros((Ld, batch_size, H, P, N),
+                                      dtype=torch.float32, device=device)
+    return caches
 
 
 @torch.no_grad()
@@ -214,19 +261,21 @@ def forward_cached(params: dict, arch: ModelArch, cfg: ModelCfg, caches: dict,
                    tokens: torch.Tensor, start_pos: int):
     """Shared prefill/decode path: processes S tokens starting at start_pos.
 
-    Writes their K/V into ``caches`` in place and returns ``(logits, caches)``
-    (the same dict), mirroring the JAX signature."""
-    _check_dense(arch)
+    Writes into ``caches`` in place (the tokens' K/V at start_pos; the new
+    conv history and SSM state) and returns ``(logits, caches)`` (the same
+    dict), mirroring the JAX signature."""
+    _check_family(arch)
     if cfg.cast_params_in_forward:
         params = cast_params(params, cfg.dtype)
     h = params["embed"][tokens].to(cfg.dtype)
     S = h.shape[1]
-    if start_pos + S > caches["k"].shape[3]:
+    if "k" in caches and start_pos + S > caches["k"].shape[3]:
         raise ValueError(f"positions {start_pos}..{start_pos + S - 1} past the "
                          f"KV cache of length {caches['k'].shape[3]}")
     positions = start_pos + torch.arange(S, device=h.device)
     for i in range(arch.num_layers):
-        cache = (caches["k"][i], caches["v"][i], start_pos)
+        cache = {name: c[i] for name, c in caches.items()}
+        cache["start"] = start_pos
         h = _layer_fn(arch, cfg, _layer(params["layers"], i), h, positions, cache)
     return _head(params, arch, cfg, h), caches
 

@@ -13,13 +13,16 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_fwd as jax_flash  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm_fwd as jax_rmsnorm  # noqa: E402
+from repro.kernels.ssd import ssd_scan_fwd as jax_ssd  # noqa: E402
 from repro.kernels.xla_flash import flash_xla as jax_flash_xla  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd  # noqa: E402
+from repro_torch.kernels.ssd import ssd_scan_fwd  # noqa: E402
 from repro_torch.kernels.xla_flash import flash_xla  # noqa: E402
 
 # f32: 2e-5, as tests/test_kernels.py. bf16: 2e-2 as there, plus one bf16 ulp
@@ -127,12 +130,18 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     x = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
     w = torch.ones(64)
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 16, 16, 16))
-    n_norm, n_flash = rmsnorm_fwd.launches, flash_attention_fwd.launches
+    s_in = [torch.from_numpy(a) for a in _ssd_inputs(1, 16, 2, 8, 4)]
+    counters = (rmsnorm_fwd, flash_attention_fwd, ssd_scan_fwd)
+    before = [c.launches for c in counters]
     torch.testing.assert_close(ops.fused_rmsnorm(x, w, impl="cuda"), ref.rmsnorm(x, w),
                                rtol=0, atol=0)
     torch.testing.assert_close(ops.flash_attention(q, k, v, impl="cuda"),
                                ref.attention(q, k, v), rtol=1e-6, atol=1e-6)
-    assert (rmsnorm_fwd.launches, flash_attention_fwd.launches) == (n_norm, n_flash)
+    torch.testing.assert_close(ops.ssd(*s_in, impl="cuda"), ref.ssd_scan(*s_in),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ops.ssd_with_state(*s_in, impl="cuda"),
+                               ref.ssd_scan(*s_in, return_state=True), rtol=0, atol=0)
+    assert [c.launches for c in counters] == before
 
 
 def test_kernel_wrappers_reject_bad_operands():
@@ -143,18 +152,159 @@ def test_kernel_wrappers_reject_bad_operands():
                             torch.ones(1, 2, 4, 16))
     with pytest.raises(ValueError):
         ops.fused_rmsnorm(torch.ones(2, 4), torch.ones(4), impl="pallas")
+    with pytest.raises(ValueError):  # dt (B, S, H) does not match x
+        ssd_scan_fwd(torch.ones(1, 4, 2, 8), torch.ones(1, 4, 3), torch.ones(2),
+                     torch.ones(1, 4, 4), torch.ones(1, 4, 4))
+    with pytest.raises(ValueError):
+        ssd_scan_fwd(torch.ones(1, 4, 2, 8), torch.ones(1, 4, 2), torch.ones(2),
+                     torch.ones(1, 4, 4), torch.ones(1, 4, 4), chunk=0)
+    with pytest.raises(ValueError):
+        ops.ssd(torch.ones(1, 4, 2, 8), torch.ones(1, 4, 2), torch.ones(2),
+                torch.ones(1, 4, 4), torch.ones(1, 4, 4), impl="xla")
 
 
-@pytest.mark.parametrize("op", ["rmsnorm", "flash"])
-def test_kernel_backward_raises(op):
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(B, S, H, P, N, seed=0):
+    """x, dt, A, Bm, C, D as tests/test_kernels.py draws them (numpy here)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    x = rng.standard_normal((B, S, H, P)).astype(f32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(f32)  # softplus
+    A = (-np.exp(rng.standard_normal(H))).astype(f32)
+    Bm = rng.standard_normal((B, S, N)).astype(f32)
+    C = rng.standard_normal((B, S, N)).astype(f32)
+    D = rng.standard_normal(H).astype(f32)
+    return x, dt, A, Bm, C, D
+
+
+# the cases of tests/test_kernels.py::test_ssd_kernel_vs_oracle
+_SSD_CASES = [
+    (1, 128, 2, 32, 16, 64),
+    (2, 300, 4, 64, 32, 128),   # uneven chunks
+    (1, 64, 1, 16, 8, 256),     # chunk > seq
+]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", _SSD_CASES)
+def test_ssd_plain_matches_jax_kernel(B, S, H, P, N, chunk):
+    arrays = _ssd_inputs(B, S, H, P, N)
+    jin = [jnp.asarray(a) for a in arrays]
+    tin = [torch.from_numpy(a) for a in arrays]
+    y, state = ssd_scan_fwd(*tin, chunk=chunk)
+    assert y.shape == (B, S, H, P) and y.dtype == torch.float32
+    assert state.shape == (B, H, P, N) and state.dtype == torch.float32
+    # the chunked (Pallas, interpret mode) and sequential forms: 2e-3, as
+    # tests/test_kernels.py holds them
+    jy, jstate = jax_ssd(*jin, chunk=chunk)
+    np.testing.assert_allclose(_np(y), _np(jy), atol=2e-3, rtol=0)
+    np.testing.assert_allclose(_np(state), _np(jstate), atol=2e-3, rtol=0)
+    # the same sequential f32 recurrence on both sides: rounding only
+    ey, estate = jref.ssd_scan(*jin, return_state=True)
+    np.testing.assert_allclose(_np(y), _np(ey), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(_np(state), _np(estate), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_ops_match_jax_ops(dtype):
+    x, dt, A, Bm, C, D = _ssd_inputs(2, 40, 3, 16, 8, seed=3)
+    (jx, tx), (jdt, tdt), (jb, tb), (jc, tc) = (_both(a, dtype) for a in (x, dt, Bm, C))
+    jA, jD = jnp.asarray(A), jnp.asarray(D)
+    tA, tD = torch.from_numpy(A), torch.from_numpy(D)
+    want = jops.ssd(jx, jdt, jA, jb, jc, jD, impl="xla")
+    for impl in ops.IMPLS:
+        got = ops.ssd(tx, tdt, tA, tb, tc, tD, impl=impl)
+        assert got.dtype == _TORCH[dtype]
+        _assert_close(got, want, dtype)
+    # D omitted: f32 zeros on both sides
+    _assert_close(ops.ssd(tx, tdt, tA, tb, tc, impl="cuda"),
+                  jops.ssd(jx, jdt, jA, jb, jc, impl="xla"), dtype)
+
+
+def test_ssd_streaming_equals_full():
+    """Chunked decode (carrying state) == one full scan (tests/test_kernels.py),
+    and the carried state matches the JAX package's."""
+    x, dt, A, Bm, C, D = (torch.from_numpy(a) for a in _ssd_inputs(1, 96, 2, 16, 8))
+    full = ref.ssd_scan(x, dt, A, Bm, C, D)
+    y1, st = ops.ssd_with_state(x[:, :64], dt[:, :64], A, Bm[:, :64], C[:, :64], D,
+                                impl="cuda")
+    y2, st2 = ops.ssd_with_state(x[:, 64:], dt[:, 64:], A, Bm[:, 64:], C[:, 64:], D,
+                                 init_state=st, impl="cuda")
+    assert float((torch.cat([y1, y2], dim=1) - full).abs().max()) < 1e-4
+    jin = [jnp.asarray(t.numpy()) for t in (x, dt, A, Bm, C, D)]
+    _, jst = jops.ssd_with_state(*[a[:, :64] if a.ndim > 1 else a for a in jin])
+    _, jst2 = jops.ssd_with_state(*[a[:, 64:] if a.ndim > 1 else a for a in jin],
+                                  init_state=jst)
+    np.testing.assert_allclose(_np(st2), _np(jst2), atol=2e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# backward: the VJP of the plain version, as the JAX package's custom_vjp
+# ---------------------------------------------------------------------------
+
+def _grads_rmsnorm():
+    """tests/test_kernels.py::test_rmsnorm_grad's input, weight grad too."""
     rng = np.random.default_rng(1)
-    if op == "rmsnorm":
-        x = torch.from_numpy(rng.standard_normal((4, 32)).astype(np.float32)).requires_grad_()
-        y = ops.fused_rmsnorm(x, torch.ones(32), impl="cuda")
-    else:
-        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 1, 8, 8, 16))
-        x = q.requires_grad_()
-        y = ops.flash_attention(x, k, v, impl="cuda")
-    assert y.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="training slice"):
-        y.sum().backward()
+    x = rng.standard_normal((4, 32, 96)).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(96)).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+
+    def jax_fn(x, w):
+        return (jops.fused_rmsnorm(x, w, impl="pallas") * g).sum()
+
+    def torch_fn(x, w):
+        return (ops.fused_rmsnorm(x, w, impl="cuda") * torch.from_numpy(g)).sum()
+
+    return (x, w), jax_fn, torch_fn
+
+
+def _grads_flash():
+    q, k, v = _qkv(1, 4, 2, 64, 64, 32, seed=2)
+    g = np.random.default_rng(3).standard_normal(q.shape).astype(np.float32)
+
+    def jax_fn(q, k, v):
+        return (jops.flash_attention(q, k, v, causal=True, impl="pallas") * g).sum()
+
+    def torch_fn(q, k, v):
+        out = ops.flash_attention(q, k, v, causal=True, impl="cuda")
+        return (out * torch.from_numpy(g)).sum()
+
+    return (q, k, v), jax_fn, torch_fn
+
+
+def _grads_ssd():
+    """tests/test_kernels.py::test_ssd_grad_parity's shapes and loss."""
+    x, dt, A, Bm, C, _ = _ssd_inputs(1, 128, 2, 16, 8)
+
+    def jax_fn(x, dt, A, Bm, C):
+        return jops.ssd(x, dt, A, Bm, C, impl="pallas").sum()
+
+    def torch_fn(x, dt, A, Bm, C):
+        return ops.ssd(x, dt, A, Bm, C, impl="cuda").sum()
+
+    return (x, dt, A, Bm, C), jax_fn, torch_fn
+
+
+_GRAD_CASES = {"rmsnorm": _grads_rmsnorm, "flash": _grads_flash, "ssd": _grads_ssd}
+
+
+@pytest.mark.parametrize("op", sorted(_GRAD_CASES))
+def test_kernel_backward_matches_jax_grad(op):
+    """Every input's gradient through the kernel op equals jax.grad through
+    the JAX op: both are the plain version's VJP, in f32. The first input (x,
+    or q) is held to 1e-5 absolute, the tests/test_kernels.py grad bound; the
+    others also by 1e-5 of their value, since the gradients of a weight, dt,
+    A, B or C sum over every row or step and reach 1e1-1e2, where f32 sums
+    taken in another order differ by a few ulps."""
+    arrays, jax_fn, torch_fn = _GRAD_CASES[op]()
+    want = jax.grad(jax_fn, argnums=tuple(range(len(arrays))))(
+        *(jnp.asarray(a) for a in arrays))
+    inputs = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    loss = torch_fn(*inputs)
+    assert loss.grad_fn is not None
+    loss.backward()
+    for i, (t, w) in enumerate(zip(inputs, want)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0 if i == 0 else 1e-5)

@@ -1,11 +1,12 @@
-"""The port's dense LM against the JAX package's, on the CPU.
+"""The port's LM (dense and ssm families) against the JAX package's, on the CPU.
 
 Weights come from the JAX package's ``init_params`` and cross through numpy
 (``params_from_numpy``), so both sides run the same model. The JAX side runs
-norms and full-sequence attention through its Pallas kernels (interpret mode),
-as the configuration the port mirrors. f32 throughout; the bound is the 1e-4
-of tests/test_models.py's serve-parity test (f32 matmuls in another order over
-a few layers stay near 1e-6).
+norms, full-sequence attention and the full-sequence SSD scan through its
+Pallas kernels (interpret mode), as the configuration the port mirrors. f32
+throughout; the bound is the 1e-4 of tests/test_models.py's serve-parity test
+(f32 matmuls in another order over a few layers stay near 1e-6; the chunked
+and the sequential SSD scan differ by ~2e-6 at this size).
 """
 import numpy as np
 import pytest
@@ -21,9 +22,11 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
 TOL = 1e-4
-JCFG = jlm.ModelCfg(dtype=jnp.float32, attn_impl="pallas", norm_impl="pallas")
+JCFG = jlm.ModelCfg(dtype=jnp.float32, attn_impl="pallas", norm_impl="pallas",
+                    ssm_impl="pallas")
 CFG = lm.ModelCfg(dtype=torch.float32)
-ARCHS = ["qwen3-8b", "yi-6b"]  # yi-6b: no qk_norm, MQA-like kv=1 when reduced
+# yi-6b: no qk_norm, MQA-like kv=1 when reduced; mamba2: attention-free ssm
+ARCHS = ["qwen3-8b", "yi-6b", "mamba2-370m"]
 
 
 def _setup(name, B=2, S=12, seed=0):
@@ -68,20 +71,42 @@ def test_init_params_matches_the_jax_layout():
 
 
 def test_full_configs_match_the_jax_package():
+    import dataclasses
+
     from repro.configs import PAPER_MODELS, get_arch as jax_arch
     from repro_torch.configs import PAPER_MODELS as T_PAPER
 
     for name in ARCHS:
         ours, theirs = get_arch(name), jax_arch(name)
-        for f in ("num_layers", "hidden", "heads", "kv_heads", "ffn", "vocab",
-                  "head_dim", "qk_norm", "tie_embeddings"):
-            assert getattr(ours, f) == getattr(theirs, f), (name, f)
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs), name
         assert ours.total_params() == theirs.total_params()
-        assert get_reduced(name).head_dim == jax_reduced(name).head_dim
+        assert dataclasses.asdict(get_reduced(name)) == dataclasses.asdict(jax_reduced(name))
     assert {k: v.total_params() for k, v in T_PAPER.items()} == \
         {k: v.total_params() for k, v in PAPER_MODELS.items()}
     with pytest.raises(KeyError):
-        get_arch("mamba2-370m")
+        get_arch("hymba-1.5b")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_params_matches_the_jax_layout_and_dtypes_for_ssm(dtype):
+    """mamba2: the ssm.* leaves, no attention and no ln2; D, conv_b, dt_bias
+    and A_log stay f32 in a bf16 tree, as the JAX package keeps them."""
+    jtree = jlm.init_params(jax_reduced("mamba2-370m"), jax.random.PRNGKey(0),
+                            dtype=getattr(jnp, dtype))
+    jflat = _flat(jax.device_get(jtree))
+    tflat = _flat(lm.init_params(get_reduced("mamba2-370m"), torch.Generator().manual_seed(0),
+                                 getattr(torch, dtype), "cpu"))
+    assert {k: (v.shape, str(v.dtype)) for k, v in jflat.items()} == \
+        {k: (tuple(v.shape), str(v.dtype).removeprefix("torch.")) for k, v in tflat.items()}
+    assert not any(k.startswith("layers/attn") or k == "layers/ln2" for k in tflat)
+    for leaf, value in (("D", 1.0), ("conv_b", 0.0), ("dt_bias", 0.0), ("A_log", 0.0)):
+        t = tflat[f"layers/ssm/{leaf}"]
+        assert t.dtype == torch.float32 and bool((t == value).all()), leaf
+    # params_from_numpy carries the mixed tree leaf for leaf
+    carried = _flat(params_from_numpy(jax.device_get(jtree), device="cpu"))
+    for name, a in jflat.items():
+        assert str(carried[name].dtype).removeprefix("torch.") == str(a.dtype), name
+        np.testing.assert_array_equal(carried[name].float().numpy(), np.asarray(a, np.float32))
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -89,7 +114,7 @@ def test_full_configs_match_the_jax_package():
 def test_forward_logits_matches_jax(name, impl):
     jarch, arch, jparams, params, toks = _setup(name)
     want = np.asarray(jlm.forward_logits(jparams, jarch, JCFG, {"tokens": jnp.asarray(toks)}))
-    cfg = lm.ModelCfg(dtype=torch.float32, attn_impl=impl, norm_impl=impl)
+    cfg = lm.ModelCfg(dtype=torch.float32, attn_impl=impl, norm_impl=impl, ssm_impl=impl)
     got = lm.forward_logits(params, arch, cfg, {"tokens": torch.from_numpy(toks).long()})
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
@@ -124,8 +149,11 @@ def test_prefill_decode_logits_match_jax(name):
     jl, jc = jlm.decode_step(jparams, jarch, JCFG, jc, jnp.asarray(toks[:, S - 1 :]), S - 1)
     tl, tc = lm.decode_step(params, arch, CFG, tc, t[:, S - 1 :], S - 1)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=0)
-    np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jc["k"]), atol=TOL, rtol=0)
-    np.testing.assert_allclose(tc["v"].numpy(), np.asarray(jc["v"]), atol=TOL, rtol=0)
+    # every cache: k/v for attention, conv and state for ssm
+    assert sorted(tc) == sorted(jc)
+    for name in jc:
+        assert tc[name].dtype == getattr(torch, str(jc[name].dtype)), name
+        np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]), atol=TOL, rtol=0)
 
 
 def test_model_cfg_and_families_outside_the_slice_raise():
@@ -135,9 +163,15 @@ def test_model_cfg_and_families_outside_the_slice_raise():
         lm.ModelCfg(kv_cache_quant=True)
     import dataclasses
 
+    with pytest.raises(ValueError):
+        lm.ModelCfg(ssm_impl="xla")
     moe = dataclasses.replace(get_reduced("qwen3-8b"), family="moe")
     with pytest.raises(NotImplementedError):
         lm.init_params(moe, torch.Generator(), torch.float32, "cpu")
+    from repro.configs import get_arch as jax_arch
+
+    with pytest.raises(NotImplementedError):  # hybrid, sliding window
+        lm.init_caches(jax_arch("hymba-1.5b"), CFG, 1, 4, device="cpu")
     _, arch, _, params, toks = _setup("qwen3-8b")
     caches = lm.init_caches(arch, CFG, 2, 4, device="cpu")
     with pytest.raises(ValueError, match="past the KV cache"):

@@ -41,6 +41,26 @@ def test_greedy_tokens_match_jax_engine(setup):
     assert got.prompt_len == want.prompt_len == 7
 
 
+def test_greedy_tokens_match_jax_engine_for_mamba2():
+    """The ssm family through the same engine: conv and SSM-state caches in
+    place of the KV cache. Prefill and decode run the sequential scan on the
+    cache on both sides, as the JAX package does."""
+    jarch = jax_reduced("mamba2-370m")
+    jparams = jlm.init_params(jarch, jax.random.PRNGKey(1))
+    params = params_from_numpy(jax.device_get(jparams), device="cpu")
+    arch = get_reduced("mamba2-370m")
+    prompts = _prompts(arch.vocab, batch=3, length=7)
+    jcfg = jlm.ModelCfg(dtype=jnp.float32, norm_impl="pallas", ssm_impl="pallas")
+    want = JaxEngine(jarch, jcfg, jparams, max_len=24).generate(prompts, max_new_tokens=8)
+    got = ServeEngine(arch, CFG, params, max_len=24, device="cpu").generate(
+        prompts, max_new_tokens=8)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    # greedy decode == argmax of teacher forcing over the generated sequence
+    seq = torch.from_numpy(got.tokens).long()
+    tf = lm.forward_logits(params, arch, CFG, {"tokens": seq[:, :-1]})
+    np.testing.assert_array_equal(tf[:, 6:].argmax(-1).numpy(), got.tokens[:, 7:])
+
+
 def test_max_len_guard(setup):
     _, _, arch, params = setup
     engine = ServeEngine(arch, CFG, params, max_len=8, device="cpu")
