@@ -10,7 +10,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
   3. kernels - each kernel (RMSNorm, flash attention, SSD scan) against its
                plain PyTorch version at the shapes of the main paths and the
                edge cases of the JAX tests, timed beside its plain version,
-               its bound and a library call where one exists;
+               its bound and a library call where one exists. Each time is
+               given twice: `ms`, the device time per call (the durations of
+               the CUDA kernels that torch.profiler records over N calls,
+               over N), and `call_ms`, CUDA events around the loop of N
+               calls, which also holds the host's dispatch when a kernel is
+               shorter than it;
   4. forward - per model, at full width and depth (random bf16 weights from a
                seeded generator): forward_logits through the kernels, with
                the launches of each kernel counted, against the same forward
@@ -19,14 +24,20 @@ Phases, each reported on its own lines; any failure exits non-zero:
                plain versions and the cached path agree;
   5. serve   - per model, ServeEngine.generate, checked against teacher
                forcing, and the device's busy share while decoding;
-  6. a JSON line with one entry per kernel, and a last JSON line with the
-     device.
+  6. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-5, with
+               the launches its wrapper counted there at that shape; then the
+               order of the kernel redesigns, each kernel's launches on the
+               main paths x (device ms - bound ms), RMSNorm summed over its
+               shapes; a JSON line with one entry per kernel, and a last JSON
+               line with the device.
 It imports nothing of the JAX package and never falls back to the CPU.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import pathlib
@@ -94,22 +105,69 @@ def err_vs(out: torch.Tensor, ref: torch.Tensor, dtype) -> tuple[float, bool]:
     return float(diff.max()), ok
 
 
-def time_ms(fn, arg_sets, iters: int = 20) -> float:
-    """Mean ms per call over CUDA events, cycling through enough copies of the
-    inputs that the working set exceeds the 50 MB L2."""
-    for a in arg_sets[:2]:
-        fn(*a)
+def device_events(prof) -> list:
+    """The device events (kernels, memsets, copies) of a torch.profiler run.
+    Not key_averages(): there a CPU op also carries the device time of the
+    kernels it launched, so its sum counts them twice."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.events() if e.device_type == cuda]
+
+
+def device_us(prof) -> float:
+    return sum(e.time_range.elapsed_us() for e in device_events(prof))
+
+
+def time_ms(fn, arg_sets, iters: int = 20) -> tuple[float, float]:
+    """(ms, call_ms) per call. Each call takes the next of the input copies
+    (copies()), so a copy comes back only after twice the 50 MB L2 of others
+    and every call reads its inputs from HBM. ms: the device time of the
+    kernels the calls launch, under torch.profiler, after a warm-up step of
+    as many calls whose events it drops: right after it starts, the profiler
+    loses the device events of short calls (8 of 20 RMSNorm launches on an
+    H100). Traces are taken until two hold the same number of events, the
+    most any held and a multiple of the calls; at most five. call_ms: CUDA
+    events around a loop of calls, which is the host's dispatch rate when
+    that is slower."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    n_call = itertools.count()
+
+    def calls(n: int) -> None:
+        for _ in range(n):
+            fn(*arg_sets[next(n_call) % len(arg_sets)])
+
+    def trace() -> list:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up step, then the one recorded
+                calls(iters)
+                torch.cuda.synchronize()
+                prof.step()
+        return device_events(prof)
+
+    calls(3)
     torch.cuda.synchronize()
+    best, seen = [], []
+    for _ in range(5):
+        events = trace()
+        seen.append(len(events))
+        if len(events) == len(best) and len(events) % iters == 0 and events:
+            break
+        if len(events) > len(best):
+            best = events
+    else:
+        raise SmokeFailure(f"the profiler's traces of {iters} calls held {seen} device events")
+    dev_us = sum(e.time_range.elapsed_us() for e in events)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(iters):
-        fn(*arg_sets[i % len(arg_sets)])
+    calls(iters)
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return dev_us / 1e3 / iters, start.elapsed_time(end) / iters
 
 
 def copies(make, nbytes: int):
+    """Copies of the inputs whose sum passes twice the L2."""
     return [make() for _ in range(max(2, math.ceil(2 * L2_BYTES / max(nbytes, 1))))]
 
 
@@ -118,9 +176,23 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _times(name: str, fn, sets, iters: int = 20) -> dict:
+    ms, call_ms = time_ms(fn, sets, iters)
+    return {f"{name}ms": ms, f"{name}call_ms": call_ms}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def _rmsnorm_bound(rows: int, D: int) -> tuple[float, str]:
+    return bound_ms((2 * rows * D + D) * 2, 4.0 * rows * D, torch.float32)
+
+
+def _rmsnorm_inputs(rows, D, dtype, g, dev):
+    return lambda: (torch.randn(rows, D, generator=g, device=dev).to(dtype),
+                    torch.ones(D, device=dev, dtype=dtype))
+
 
 def rmsnorm_phase(dev) -> dict:
     from repro_torch.kernels import ref
@@ -141,27 +213,39 @@ def rmsnorm_phase(dev) -> dict:
             log("kernels", f"rmsnorm {str(dtype)[6:]} rows={rows} D={D} max_abs_err={e:.3e} ok={ok}")
             check(ok, f"rmsnorm {dtype} ({rows}, {D}) off by {e}")
 
-    rows, D, dtype = 1024, 4096, torch.bfloat16
-    nbytes = (2 * rows * D + D) * 2
-    sets = copies(lambda: (torch.randn(rows, D, generator=g, device=dev).to(dtype),
-                           torch.ones(D, device=dev, dtype=dtype)), nbytes)
-    ms = time_ms(lambda x, w: rmsnorm_fwd(x, w), sets)
-    plain = time_ms(lambda x, w: ref.rmsnorm(x, w), sets)
-    lib = time_ms(lambda x, w: torch.nn.functional.rms_norm(x, (D,), w, 1e-6), sets)
-    bms, by = bound_ms(nbytes, 4.0 * rows * D, torch.float32)
-    log("kernels", f"rmsnorm timing bf16 ({rows}, {D}): kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, torch rms_norm {lib:.4f} ms, bound {bms:.4f} ms ({by})")
-    for rows_, D_ in ((32768, 128), (4, 4096)):
-        s2 = copies(lambda: (torch.randn(rows_, D_, generator=g, device=dev).to(dtype),
-                             torch.ones(D_, device=dev, dtype=dtype)), 4 * rows_ * D_)
-        log("kernels", f"rmsnorm timing bf16 ({rows_}, {D_}): kernel "
-            f"{time_ms(lambda x, w: rmsnorm_fwd(x, w), s2):.4f} ms, plain "
-            f"{time_ms(lambda x, w: ref.rmsnorm(x, w), s2):.4f} ms")
+    rows, D = 1024, 4096
+    sets = copies(_rmsnorm_inputs(rows, D, torch.bfloat16, g, dev), (2 * rows * D + D) * 2)
+    t = _times("", rmsnorm_fwd, sets) | _times("plain_", ref.rmsnorm, sets) | _times(
+        "library_", lambda x, w: torch.nn.functional.rms_norm(x, (D,), w, 1e-6), sets)
+    bms, by = _rmsnorm_bound(rows, D)
+    log("kernels", f"rmsnorm timing bf16 ({rows}, {D}): kernel {t['ms']:.4f} ms "
+        f"(call {t['call_ms']:.4f}), plain {t['plain_ms']:.4f} ({t['plain_call_ms']:.4f}), "
+        f"torch rms_norm {t['library_ms']:.4f} ({t['library_call_ms']:.4f}), bound "
+        f"{bms:.4f} ms ({by})")
     return {"name": "rmsnorm_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:30",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib}
+            "max_abs_err": worst, **t, "bound_ms": bms, "bound_by": by}
+
+
+def rmsnorm_shape_times(dev, shapes: collections.Counter) -> list[dict]:
+    """RMSNorm (bf16) at each (rows, D) of the main paths, with the launches
+    its wrapper counted there at that shape."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows_out = []
+    for (rows, D), n in sorted(shapes.items(), key=lambda kv: -kv[0][0] * kv[0][1]):
+        sets = copies(_rmsnorm_inputs(rows, D, torch.bfloat16, g, dev), (2 * rows * D + D) * 2)
+        ms, call_ms = time_ms(rmsnorm_fwd, sets)
+        del sets
+        b_ms, _ = _rmsnorm_bound(rows, D)
+        rows_out.append({"rows": rows, "D": D, "launches": n, "ms": ms, "call_ms": call_ms,
+                         "bound_ms": b_ms, "gap_ms": n * (ms - b_ms)})
+        log("order", f"rmsnorm shape ({rows}, {D}) x {n} launches: kernel {ms:.4f} ms "
+            f"(call {call_ms:.4f}), bound {b_ms:.6f} ms, launches x gap "
+            f"{rows_out[-1]['gap_ms']:.3f} ms")
+    return rows_out
 
 
 def _qkv_views(B, Hq, Hkv, S, T, D, dtype, g, dev):
@@ -180,7 +264,8 @@ def _qkv_views(B, Hq, Hkv, S, T, D, dtype, g, dev):
 
 def flash_phase(dev) -> dict:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels._build import load_kernels
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_fwd
 
     g = torch.Generator(device=dev).manual_seed(2)
     cases = [  # B, Hq, Hkv, S, T, D, causal
@@ -194,19 +279,43 @@ def flash_phase(dev) -> dict:
         (1, 4, 2, 256, 256, 32, False),
         (1, 4, 2, 64, 300, 128, True),      # S < T: q_offset = 236
     ]
+    for D in HEAD_DIMS:  # every instantiation of both kernels
+        cases += [
+            (1, 16, 2, 200, 200, D, True),  # groups of 8, T % 64 != 0, the model's views
+            (2, 8, 2, 70, 130, D, True),    # groups of 4, S < T: q_offset = 60
+            (1, 4, 4, 1, 77, D, True),      # S = 1
+            (1, 8, 2, 100, 100, D, False),
+        ]
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for B, Hq, Hkv, S, T, D, causal in cases:
             q, k, v = _qkv_views(B, Hq, Hkv, S, T, D, dtype, g, dev)
-            out, lse = flash_attention_fwd(q, k, v, causal=causal)
             out_r, lse_r = ref.flash_attention_fwd_ref(q, k, v, causal=causal)
+            out, lse = flash_attention_fwd(q, k, v, causal=causal)
             e, ok = err_vs(out, out_r, dtype)
             e_lse = float((lse - lse_r).abs().max())
             worst = max(worst, e)
             log("kernels", f"flash {str(dtype)[6:]} B={B} Hq={Hq} Hkv={Hkv} S={S} T={T} "
                 f"D={D} causal={causal} out_err={e:.3e} lse_err={e_lse:.3e}")
-            check(ok and e_lse <= LSE_TOL,
-                  f"flash {dtype} {(B, Hq, Hkv, S, T, D, causal)} out {e} lse {e_lse}")
+            check(ok and e_lse <= LSE_TOL, f"flash {dtype} {(B, Hq, Hkv, S, T, D, causal)} "
+                  f"out {e} lse {e_lse}")
+
+    # a bf16 view off the 16-byte grid: the wrapper refuses it, and so does
+    # the launcher behind it
+    base = torch.zeros(2 * 4 * 64 * 64 + 1, device=dev, dtype=torch.bfloat16)
+    q = base[1:].view(2, 4, 64, 64)
+    before = flash_attention_fwd.launches
+    for launch in (lambda: flash_attention_fwd(q, q, q),
+                   lambda: load_kernels().flash_attention_fwd(
+                       q, q, q, torch.empty_like(q), torch.empty(2, 4, 64, device=dev),
+                       True, 0.125, 0)):
+        try:
+            launch()
+        except (ValueError, RuntimeError) as exc:
+            log("kernels", f"flash bf16 unaligned view refused: {str(exc).splitlines()[0]}")
+        else:
+            raise SmokeFailure("an unaligned bf16 view was launched")
+    check(flash_attention_fwd.launches == before, "an unaligned launch was counted")
 
     B, Hq, Hkv, S, T, D = 2, 32, 8, 512, 512, 128
     dtype = torch.bfloat16
@@ -214,19 +323,32 @@ def flash_phase(dev) -> dict:
     pairs = sum(min(T - S + i + 1, T) for i in range(S))  # causal (q, k) pairs
     ops = 4.0 * B * Hq * D * pairs
     sets = copies(lambda: _qkv_views(B, Hq, Hkv, S, T, D, dtype, g, dev), nbytes)
-    ms = time_ms(lambda q, k, v: flash_attention_fwd(q, k, v, causal=True), sets)
-    plain = time_ms(lambda q, k, v: ref.flash_attention_fwd_ref(q, k, v, causal=True), sets)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True), sets)
+    t = _times("", lambda q, k, v: flash_attention_fwd(q, k, v, causal=True), sets)
+    t |= _times("plain_", lambda q, k, v: ref.flash_attention_fwd_ref(q, k, v, causal=True),
+                sets)
+    t |= _times("library_", lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                sets)
+
+    # SDPA picks cuDNN's wgmma kernel here; its FA2 backend is an mma.sync
+    # kernel like this one
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        fa2_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                         sets)[0]
     bms, by = bound_ms(nbytes, ops, dtype)
-    log("kernels", f"flash timing bf16 {(B, Hq, Hkv, S, T, D)} causal: kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by}), "
-        f"{ops / ms / 1e9:.2f} TFLOP/s")
+    log("kernels", f"flash timing bf16 {(B, Hq, Hkv, S, T, D)} causal: kernel {t['ms']:.4f} ms "
+        f"(call {t['call_ms']:.4f}), "
+        f"plain {t['plain_ms']:.4f} ({t['plain_call_ms']:.4f}), sdpa {t['library_ms']:.4f} "
+        f"({t['library_call_ms']:.4f}), sdpa's FA2 backend {fa2_ms:.4f}, bound {bms:.4f} ms "
+        f"({by}); kernel "
+        f"{ops / t['ms'] / 1e9:.2f} TFLOP/s, sdpa {ops / t['library_ms'] / 1e9:.2f} TFLOP/s, "
+        f"kernel / sdpa {t['ms'] / t['library_ms']:.3f}, bound / kernel {bms / t['ms']:.3f}")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:108",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib}
+            "max_abs_err": worst, **t, "bound_ms": bms, "bound_by": by}
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, seed, dev):
@@ -290,17 +412,18 @@ def ssd_phase(dev) -> dict:
     nbytes = (2 * B * S * H * P + 2 * B * S * N + B * S * H) * 2 + B * H * P * N * 4 + 2 * H * 4
     ops = ssd_ops(B, S, H, P, N, DEFAULT_CHUNK)
     sets = copies(lambda: _ssd_inputs(B, S, H, P, N, dtype, 20, dev), nbytes)
-    ms = time_ms(lambda *a: ssd_scan_fwd(*a), sets)
-    plain = time_ms(lambda *a: ref.ssd_scan(*a, return_state=True), sets, iters=2)
+    t = _times("", lambda *a: ssd_scan_fwd(*a), sets)
+    t |= _times("plain_", lambda *a: ref.ssd_scan(*a, return_state=True), sets, iters=2)
     bms, by = bound_ms(nbytes, ops, dtype)
     log("kernels", f"ssd timing bf16 {(B, S, H, P, N)} chunk {DEFAULT_CHUNK}: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, no library call, bound {bms:.4f} ms ({by}), "
-        f"{ops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s")
+        f"{t['ms']:.4f} ms (call {t['call_ms']:.4f}), plain {t['plain_ms']:.4f} ms "
+        f"({t['plain_call_ms']:.4f}), no library call, bound {bms:.4f} ms ({by}), "
+        f"{ops / t['ms'] / 1e9:.2f} TFLOP/s, {nbytes / t['ms'] / 1e6:.1f} GB/s")
     return {"name": "ssd_scan_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd.py:97",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-            "bound_by": by, "library_ms": None}
+            "max_abs_err": worst, **t, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "library_call_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -315,10 +438,16 @@ def _plain(cfg):
 def reset_counts(counters) -> None:
     for c in counters:
         c.launches = 0
+        if hasattr(c, "shapes"):
+            c.shapes.clear()
 
 
-def read_counts(counters) -> dict:
-    return {c.__name__: c.launches for c in counters}
+def read_counts(counters) -> tuple[dict, dict]:
+    """Each kernel's launches since reset_counts, and by shape where its
+    wrapper counts them so."""
+    return ({c.__name__: c.launches for c in counters},
+            {c.__name__: collections.Counter(c.shapes) for c in counters
+             if hasattr(c, "shapes")})
 
 
 def reduced_phase(dev, name: str) -> None:
@@ -350,10 +479,11 @@ def reduced_phase(dev, name: str) -> None:
 
 
 def forward_phase(dev, name, arch, params, counters, expect: dict, main_bs,
-                  compare_bs) -> dict:
+                  compare_bs) -> tuple[dict, dict]:
     """forward_logits at main_bs = (B, S) through the kernels, the main path
-    whose launches are counted; then kernels against plain versions at
-    compare_bs (the plain SSD is a loop over S, so mamba2 compares shorter)."""
+    whose launches are counted (read_counts); then kernels against plain
+    versions at compare_bs (the plain SSD is a loop over S, so mamba2
+    compares shorter)."""
     from repro_torch.models import lm
 
     B, S = main_bs
@@ -367,7 +497,7 @@ def forward_phase(dev, name, arch, params, counters, expect: dict, main_bs,
     logits = lm.forward_logits(params, arch, cfg, {"tokens": toks})
     torch.cuda.synchronize()
     t_fwd = time.perf_counter() - t0
-    counts = read_counts(counters)
+    counts, shapes = read_counts(counters)
     log("forward", f"{arch.name} B={B} S={S}: launches {counts} (expect {expect})")
     check(counts == expect, "forward launch counts")
     check(tuple(logits.shape) == (B, S, arch.vocab), f"logits shape {tuple(logits.shape)}")
@@ -414,7 +544,7 @@ def forward_phase(dev, name, arch, params, counters, expect: dict, main_bs,
         f"max_rel {max_rel:.3e}, argmax agreement {agree:.4f} (bounds: max_abs <= "
         f"{F32_MAX_ABS}, agreement >= {F32_ARGMAX_MIN})")
     check(max_abs <= F32_MAX_ABS and agree >= F32_ARGMAX_MIN, "f32 forward parity")
-    return counts
+    return counts, shapes
 
 
 def _compare_logits(got, want) -> tuple[float, float, float]:
@@ -424,9 +554,10 @@ def _compare_logits(got, want) -> tuple[float, float, float]:
             float((got.argmax(-1) == want.argmax(-1)).float().mean()))
 
 
-def serve_phase(dev, name, arch, params, counters, per_forward: dict) -> dict:
+def serve_phase(dev, name, arch, params, counters, per_forward: dict) -> tuple[dict, dict]:
     """per_forward: each kernel's launches in one cached forward; generate
-    runs N + 1 of them (the prefill and N decode steps)."""
+    runs N + 1 of them (the prefill and N decode steps). Returns read_counts
+    after generate."""
     from repro_torch.models import lm
     from repro_torch.serve import ServeEngine
 
@@ -438,7 +569,7 @@ def serve_phase(dev, name, arch, params, counters, per_forward: dict) -> dict:
     torch.cuda.synchronize()
     reset_counts(counters)
     res = engine.generate(prompts, max_new_tokens=N)
-    counts = read_counts(counters)
+    counts, shapes = read_counts(counters)
     steps = res.step_times[res.warmup_steps:]
     med = statistics.median(steps)
     log("serve", f"{arch.name} B={B} prompt={P} new={N}: launches {counts} (expect "
@@ -463,16 +594,18 @@ def serve_phase(dev, name, arch, params, counters, per_forward: dict) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = engine.generate(prompts, max_new_tokens=4)
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    busy_ms = device_us(prof) / 1e3
+    twice_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
     wall_ms = (res.prefill_time + sum(res.step_times)) * 1e3
     log("serve", f"{arch.name} profiled generate (prefill + 4 steps): wall {wall_ms:.1f} ms, "
-        f"device kernels {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}")
+        f"device kernels {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f} (the sum over "
+        f"key_averages(), which counts an op's kernels twice: {twice_ms:.1f} ms)")
     check(busy_ms > 0, "the profiler saw no device time")
-    return counts
+    return counts, shapes
 
 
 def model_phases(dev, name: str, counters, expect_forward: dict, expect_cached: dict,
-                 main_bs, compare_bs) -> list[dict]:
+                 main_bs, compare_bs) -> list[tuple[dict, dict]]:
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
 
@@ -532,6 +665,7 @@ def main() -> int:
     log("kernels", f"done at {time.perf_counter() - t_start:.1f} s")
 
     qwen, mamba = get_arch("qwen3-8b"), get_arch("mamba2-370m")
+
     runs = model_phases(
         dev, "qwen3-8b", counters,
         {"rmsnorm_fwd": 4 * qwen.num_layers + 1, "flash_attention_fwd": qwen.num_layers,
@@ -552,9 +686,20 @@ def main() -> int:
     log("serve", f"mamba2-370m done at {time.perf_counter() - t_start:.1f} s")
 
     for e in entries:
-        e["launches"] = sum(run[e["name"]] for run in runs)
+        e["launches"] = sum(counts[e["name"]] for counts, _ in runs)
         e["kernel_ms"] = e["ms"]
         check(e["launches"] > 0, f"{e['name']} never launched on the main path")
+    # launches x (device ms - bound ms): RMSNorm over the shapes it ran at
+    norm = entries[0]
+    norm_shapes = sum((shapes[norm["name"]] for _, shapes in runs), collections.Counter())
+    check(sum(norm_shapes.values()) == norm["launches"],
+          f"RMSNorm launches by shape {sum(norm_shapes.values())} != counted {norm['launches']}")
+    with torch.inference_mode():
+        norm["shapes"] = rmsnorm_shape_times(dev, norm_shapes)
+    gaps = {e["name"]: e["launches"] * (e["ms"] - e["bound_ms"]) for e in entries[1:]}
+    gaps[norm["name"]] = sum(r["gap_ms"] for r in norm["shapes"])
+    log("order", "launches x (device ms - bound ms) on the main paths: " + ", ".join(
+        f"{n} {g:.3f} ms" for n, g in sorted(gaps.items(), key=lambda kv: -kv[1])))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

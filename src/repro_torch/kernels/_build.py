@@ -5,6 +5,9 @@ them in parallel) into ``build/repro_torch_kernels/`` at the root of the
 checkout and loads the module. Only ``bindings.cpp`` includes PyTorch's
 headers; the ``.cu`` files have a plain C interface (``csrc/launch.h``), so
 ``nvcc`` takes seconds on them.
+
+``load_kernels(verbose=True)`` prints the build, with each kernel's registers,
+stack and spills as ``ptxas -v`` reports them.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 
 
 @functools.cache
-def load_kernels():
+def load_kernels(verbose: bool = False):
     """The compiled extension module (built on the first call)."""
     from torch.utils.cpp_extension import load
 
@@ -28,6 +31,7 @@ def load_kernels():
         sources=[str(_CSRC / s) for s in _SOURCES],
         build_directory=str(BUILD_DIR),
         extra_include_paths=[str(_CSRC)],
-        extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
-        verbose=False,
+        extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a",
+                           *(["-Xptxas=-v"] if verbose else [])],
+        verbose=verbose,
     )

@@ -24,10 +24,13 @@ void check_launch(cudaError_t err, const char* what) {
               cudaGetErrorString(err));
 }
 
+// The stride of a dim of size 1 is never used; it is 0 here, so that the
+// kernel's alignment check reads only the strides it steps by.
 AttnStrides strides_of(const torch::Tensor& t) {
   TORCH_CHECK(t.dim() == 4 && t.stride(3) == 1,
               "attention operands must be 4-D with a contiguous last dim");
-  return AttnStrides{t.stride(0), t.stride(1), t.stride(2)};
+  auto st = [&](int d) { return t.size(d) == 1 ? int64_t{0} : t.stride(d); };
+  return AttnStrides{st(0), st(1), st(2)};
 }
 
 void rmsnorm_fwd(const torch::Tensor& x, const torch::Tensor& w, torch::Tensor y,

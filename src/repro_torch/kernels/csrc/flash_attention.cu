@@ -4,78 +4,412 @@
 // flash_attention_fwd (_flash_fwd_kernel): GQA attention with an online
 // softmax, causal with the queries at absolute positions q_offset + i,
 // returning out (q's type) and lse = m + log(l) in f32. Query head h reads
-// kv head h / (Hq / Hkv) in place, with no K/V copy.
+// kv head h / (Hq / Hkv) in place, with no K/V copy. Head sizes
+// D in {16, 24, 32, 64, 80, 128, 160}, q/k/v strided views whose last dim is
+// contiguous.
 //
 // Bound on this card: at the full-sequence forward's shapes (S = T = 512,
-// D = 128) the causal work is about 4 * D * S * (S + 1) / 2 flops per head
-// against 2 * D bytes per q/k/v/out row, so the ideal kernel is close to the
-// line between the two; a tensor-core kernel would be bound by the bytes.
-// This first kernel is simple: its dots run in f32 on the CUDA cores, so it is
-// bound by operations (f32 FMA issue and shared-memory reads), far from the
-// card's bf16 tensor rate. wgmma, TMA and tuning are later work.
+// D = 128, causal) the work is about 4 * D * S * (S + 1) / 2 flops per head
+// against 2 * D bytes per q/k/v/out row: ~200 flops a byte, just under the
+// ~295 where the bf16 tensor cores become the limit, so an ideal kernel is
+// bound by the bytes and close to the line.
 //
-// Design. The TPU grid walks (b, h, q-block) in parallel and the kv blocks in
+// The TPU grid walks (b, h, q-block) in parallel and the kv blocks in
 // sequence, carrying (m, l, acc) in VMEM scratch across grid steps. Here one
-// block of 128 threads owns (b, h, one 64-row q tile) and loops over 64-key
-// tiles itself, so the running state lives in registers:
-//   * thread (rg = tid / 8, cg = tid % 8) owns query rows rg + 16 i (i < 4),
-//     score columns cg + 8 j (j < 8) and output columns cg + 8 j (j < D / 8).
-//     A row's 8 owners are 8 lanes of one warp, so the row max and row sum are
-//     three shuffles, and m, l and the output rows stay in that thread;
-//   * Q and K tiles sit in shared memory d-major (padded by one float) so the
-//     score loop reads consecutive floats; V sits key-major for P V;
-//   * K/V rows at or past T are loaded as zeros (padding may hold NaN) and
-//     their scores are set to -inf; the running max starts at the finite
-//     -1e30, so exp never sees (-inf) - (-inf). With causal and q_offset >= 0
-//     key 0 is visible to every row, so l > 0 for every real row;
-//   * causal: key tiles past the last row's position are never visited; the
-//     row mask still applies inside the diagonal tile.
+// block owns (b, h, one q tile) and loops over 64-key tiles itself, so the
+// running state lives in registers. Two kernels, one per input type:
+//
+// bf16, the model's type: tensor cores (flash_fwd_bf16).
+//   * 4 warps of 16 query rows each (BQ = 64). 8 warps (BQ = 128) was slower
+//     at the forward's shape and at D = 80 and 160 (PERF.md). At about 250
+//     registers a thread, 2 blocks fit an SM. At D = 160 it spills 32 bytes
+//     (ptxas); fewer warps would not help, since a thread's registers hold
+//     its warp's 16 rows whatever BQ is. A warp owns its rows: both
+//     products are mma.sync.m16n8k16 bf16 -> f32, and the row max and row sum
+//     take two quad shuffles, with no exchange through shared memory.
+//   * Q is copied once (cp.async) and ldmatrix'ed into A fragments that stay
+//     in registers for the whole key loop.
+//   * K/V tiles of 64 keys are copied with 16-byte cp.async, in bf16 as
+//     stored, into a 2-stage ring. K and V are separate copy groups: K of
+//     tile t + 1 is issued before tile t's Q K^T, V of tile t + 1 before its
+//     P V. The Q tile shares stage 1 until its fragments are loaded.
+//   * Shared rows are padded by 16 bytes (row stride = 4 mod 8 words), so the
+//     8 rows that one ldmatrix reads fall on 8 distinct bank quads. V is read
+//     with ldmatrix.trans as the B operand of P V.
+//   * Softmax in log2 units: the row max is taken on the unscaled scores and
+//     p = 2^(s * scale * log2(e) - m) is one FFMA and one ex2.
+//   * P stays in registers: the S accumulator fragment, exponentiated and
+//     rounded to bf16, is P V's A fragment. That rounding is the only one the
+//     plain version does not make (about 2^-9 of out); l sums the f32 values,
+//     so lse keeps f32 row statistics.
+//   * D = 24 is padded to a k-depth of 32: columns 24..31 of Q and K are
+//     zero-filled in shared memory (cp.async with src-size 0), as are keys at
+//     or past T and query rows past S.
+// f32, the port's parity type: CUDA cores (flash_fwd_f32). A TF32 product
+//   would miss the 2e-5 bound the JAX tests hold, so its dots run in f32:
+//   thread (rg = tid / 8, cg = tid % 8) owns query rows rg + 16 i (i < 4),
+//   score columns cg + 8 j (j < 8) and output columns cg + 8 j (j < D / 8);
+//   Q and K sit in shared memory d-major (padded by one float), V key-major.
+//
+// Masking, both kernels: scores of keys at or past T, and causal scores of
+// keys past the row's position, are -inf; the running max starts at the
+// finite -1e30, so exp never sees (-inf) - (-inf). With causal and
+// q_offset >= 0 key 0 is visible to every row, so l > 0 for every real row.
+// Key tiles wholly in the future are never loaded, and causal q tiles launch
+// longest first. The bf16 kernel masks only the tiles that cross the
+// diagonal or T.
 #include <cmath>
 #include <cstdint>
 
-#include "dtype.cuh"
+#include <cuda_bf16.h>
+
 #include "launch.h"
 
 namespace {
 
-using repro::from_f32;
-using repro::to_f32;
-
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 128;  // 16 row groups x 8 column lanes
-constexpr int RPT = BQ / 16;  // rows per thread
-constexpr int CPT = BK / 8;   // score columns per thread
+constexpr int BK = 64;  // keys per tile
 constexpr float kNegInit = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Key tiles a q tile of rows [q0, q0 + bq) visits: causal stops at the last
+// row's position.
+__device__ __forceinline__ int key_tiles(const FlashParams& p, int q0, int bq) {
+  int kv_end = p.T;
+  if (p.causal) kv_end = min(p.T, p.q_offset + min(q0 + bq, p.S));
+  return (kv_end + BK - 1) / BK;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;  // of 16 query rows each
+
+template <int D>
+struct TcCfg {
+  static constexpr int DP = (D + 15) / 16 * 16;  // k-depth of Q K^T, width of O
+  static constexpr int LD = DP + 8;              // shared row stride (elements)
+  static constexpr int BQ = 16 * kWarps;
+  static constexpr int THREADS = 32 * kWarps;
+  static constexpr int TILE = BK * LD;           // elements of one K or V tile
+  static constexpr int SMEM_BYTES = 4 * TILE * 2;  // K0 V0 K1 V1
+  static_assert(BQ * LD <= 2 * TILE, "the Q tile must fit in stage 1");
+  static_assert(D % 8 == 0, "rows are copied in 16-byte chunks");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; valid == false writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the special-function unit (flushes results below 2^-126 to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats -> bf16x2, round to nearest even, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Copies rows [row0, row0 + ROWS) of a (rows, D) operand with row stride
+// `stride` into shared memory at row stride LD; rows at or past `n_rows` and
+// the columns past D read as zeros.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(bf16* s, const bf16* g, int64_t stride, int row0,
+                                          int n_rows, int tid) {
+  using C = TcCfg<D>;
+  constexpr int CH = C::DP / 8;  // 16-byte chunks per shared row
+  constexpr int N = ROWS * CH;
+#pragma unroll
+  for (int i = 0; i < (N + C::THREADS - 1) / C::THREADS; ++i) {
+    const int e = tid + i * C::THREADS;
+    if (N % C::THREADS != 0 && e >= N) break;
+    const int r = e / CH, c = e % CH;
+    const bool ok = row0 + r < n_rows && c * 8 < D;
+    const bf16* src = ok ? g + static_cast<int64_t>(row0 + r) * stride + c * 8 : g;
+    cp_async16(smem_u32(s + r * C::LD + c * 8), src, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * kWarps)
+flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ out,
+               float* __restrict__ lse, const FlashParams p) {
+  using C = TcCfg<D>;
+  constexpr int KSTEPS = C::DP / 16;  // k-steps of Q K^T; also pairs of O tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* const sQ = smem + 2 * C::TILE;  // stage 1, until the Q fragments load
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::BQ;  // longest causal tiles first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (p.Hq / p.Hkv);
+  const bf16* qb = q + b * p.q.b + h * p.q.h;
+  const bf16* kb = k + b * p.k.b + hk * p.k.h;
+  const bf16* vb = v + b * p.v.b + hk * p.v.h;
+  const int n_tiles = key_tiles(p, q0, C::BQ);
+
+  // copy groups, in order: [Q, K0] [V0], then [K(t + 1)] [V(t + 1)] in
+  // iteration t (empty past the last tile), so waiting for all but the newest
+  // group finds K(t) at the top of iteration t and V(t) before P V
+  load_rows<D, C::BQ>(sQ, qb, p.q.s, q0, p.S, tid);
+  load_rows<D, BK>(smem, kb, p.k.s, 0, p.T, tid);
+  cp_async_commit();
+  load_rows<D, BK>(smem + C::TILE, vb, p.v.s, 0, p.T, tid);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // A fragments of this warp's 16 rows: lanes 0-15 address rows 0-15 at
+  // column 0 of the k-step, lanes 16-31 the same rows at column 8. A negative
+  // sm_scale flips Q's sign (exact in bf16), so that the softmax takes the
+  // row max of the unscaled scores.
+  const uint32_t q_sign = p.sm_scale < 0.f ? 0x80008000u : 0u;
+  uint32_t qf[KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    ldsm_x4(qf[kk], smem_u32(sQ + (warp * 16 + (lane & 15)) * C::LD + kk * 16 +
+                             (lane >> 4) * 8));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) qf[kk][e] ^= q_sign;
+  }
+
+  // Accumulator fragments: this thread holds rows r0 = lane / 4 and r0 + 8 of
+  // the warp's 16, columns 2 (lane % 4) and + 1 of each 8-wide tile.
+  float o[2 * KSTEPS][4];
+#pragma unroll
+  for (int j = 0; j < 2 * KSTEPS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f};  // m in log2 units
+  const float scale = fabsf(p.sm_scale) * kLog2e;
+  const int warp_row0 = q0 + warp * 16;
+  const int qpos0 = p.q_offset + warp_row0 + (lane >> 2);  // position of row r0
+  const int col0 = (lane & 3) * 2;
+
+  // ldmatrix lane offsets. K (x4): matrices (keys 0-7, d 0-7), (keys 0-7,
+  // d 8-15), (keys 8-15, d 0-7), (keys 8-15, d 8-15) = b0, b1 of two key
+  // tiles. V (x4.trans): (keys 0-7, d 0-7), (keys 8-15, d 0-7), (keys 0-7,
+  // d 8-15), (keys 8-15, d 8-15) = b0, b1 of two d tiles.
+  const int k_lane = ((lane >> 4) * 8 + (lane & 7)) * C::LD + ((lane >> 3) & 1) * 8;
+  const int v_lane = (((lane >> 3) & 1) * 8 + (lane & 7)) * C::LD + (lane >> 4) * 8;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const bf16* sK = smem + (t & 1) * 2 * C::TILE;
+    const bf16* sV = sK + C::TILE;
+    bf16* nK = smem + ((t + 1) & 1) * 2 * C::TILE;  // tile t + 1's stage
+    const bool more = t + 1 < n_tiles;
+    // K(t) has landed for every thread, and every warp is done with tile
+    // t - 1 (or the Q tile), whose stage tile t + 1 takes
+    cp_async_wait<1>();
+    __syncthreads();
+    if (more) load_rows<D, BK>(nK, kb, p.k.s, (t + 1) * BK, p.T, tid);
+    cp_async_commit();
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kf[4];
+        ldsm_x4(kf, smem_u32(sK + np * 16 * C::LD + kk * 16 + k_lane));
+        mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+      }
+
+    // online softmax on the unscaled scores: p = 2^(s * scale - m)
+    const int k0 = t * BK;
+    if (k0 + BK > p.T || (p.causal && k0 + BK - 1 > p.q_offset + warp_row0)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + col0 + (e & 1);
+          if (key >= p.T || (p.causal && key > qpos0 + 8 * (e >> 1))) s[j][e] = -INFINITY;
+        }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float alpha[2], neg_m[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * scale);  // finite: m starts at -1e30
+      alpha[r] = exp2_approx(m[r] - m_new);
+      m[r] = m_new;
+      neg_m[r] = -m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2_approx(fmaf(s[j][e], scale, neg_m[e >> 1]));  // 0 if masked
+        rs[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      l[r] = l[r] * alpha[r] + rs[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * KSTEPS; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // V(t) has landed for every thread; V(t + 1) goes to the stage whose
+    // last reader, P V of tile t - 1, every warp finished before the top
+    cp_async_wait<1>();
+    __syncthreads();
+    if (more) load_rows<D, BK>(nK + C::TILE, vb, p.v.s, (t + 1) * BK, p.T, tid);
+    cp_async_commit();
+
+    // P V: key tiles 2 kt and 2 kt + 1 of S are the A fragment of k-step kt
+#pragma unroll
+    for (int kt = 0; kt < BK / 16; ++kt) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]),
+                              pack_bf16(s[2 * kt][2], s[2 * kt][3]),
+                              pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
+                              pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < KSTEPS; ++dp) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, smem_u32(sV + kt * 16 * C::LD + dp * 16 + v_lane));
+        mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+
+  const int64_t head = static_cast<int64_t>(b) * p.Hq + h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = warp_row0 + (lane >> 2) + 8 * r;
+    if (qi >= p.S) continue;
+    const float l_safe = l[r] == 0.f ? 1.f : l[r];
+    const float inv = 1.f / l_safe;
+    bf16* orow = out + (head * p.S + qi) * D;
+#pragma unroll
+    for (int j = 0; j < 2 * KSTEPS; ++j)
+      if (j * 8 < D)
+        *reinterpret_cast<uint32_t*>(orow + j * 8 + col0) =
+            pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+    if ((lane & 3) == 0) lse[head * p.S + qi] = m[r] * kLn2 + logf(l_safe);
+  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse,
+                        const FlashParams& p, cudaStream_t stream) {
+  using C = TcCfg<D>;
+  const int n_q = (p.S + C::BQ - 1) / C::BQ;
+  if (n_q > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.Hq, p.B, n_q);
+  flash_fwd_bf16<D><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), lse, p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int BQ32 = 64;       // query rows per block
+constexpr int THREADS32 = 128;  // 16 row groups x 8 column lanes
+constexpr int RPT = BQ32 / 16;  // rows per thread
+constexpr int CPT = BK / 8;     // score columns per thread
 
 template <int D>
 constexpr int smem_floats() {
-  return D * (BQ + 1) + D * (BK + 1) + BK * D + BQ * (BK + 1);
+  return D * (BQ32 + 1) + D * (BK + 1) + BK * D + BQ32 * (BK + 1);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, const FlashParams p) {
+template <int D>
+__global__ void __launch_bounds__(THREADS32)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out,
+              float* __restrict__ lse, const FlashParams p) {
   extern __shared__ float smem[];
-  float* sQ = smem;                 // [D][BQ + 1]
-  float* sK = sQ + D * (BQ + 1);    // [D][BK + 1]
-  float* sV = sK + D * (BK + 1);    // [BK][D]
-  float* sP = sV + BK * D;          // [BQ][BK + 1]
+  float* sQ = smem;                   // [D][BQ32 + 1]
+  float* sK = sQ + D * (BQ32 + 1);    // [D][BK + 1]
+  float* sV = sK + D * (BK + 1);      // [BK][D]
+  float* sP = sV + BK * D;            // [BQ32][BK + 1]
 
   const int tid = threadIdx.x;
   const int rg = tid >> 3, cg = tid & 7;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ32;  // longest causal tiles first
+  const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (p.Hq / p.Hkv);
-  const T* qb = q + b * p.q.b + h * p.q.h;
-  const T* kb = k + b * p.k.b + hk * p.k.h;
-  const T* vb = v + b * p.v.b + hk * p.v.h;
+  const float* qb = q + b * p.q.b + h * p.q.h;
+  const float* kb = k + b * p.k.b + hk * p.k.h;
+  const float* vb = v + b * p.v.b + hk * p.v.h;
 
-  for (int e = tid; e < BQ * D; e += THREADS) {
+  for (int e = tid; e < BQ32 * D; e += THREADS32) {
     const int r = e / D, d = e % D, qi = q0 + r;
-    sQ[d * (BQ + 1) + r] = qi < p.S ? to_f32(qb[qi * p.q.s + d]) : 0.f;
+    sQ[d * (BQ32 + 1) + r] = qi < p.S ? qb[qi * p.q.s + d] : 0.f;
   }
 
   float m[RPT], l[RPT], acc[RPT][D / 8];
@@ -86,23 +420,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
   }
-
-  int kv_end = p.T;
-  if (p.causal) {
-    const int last_row = min(q0 + BQ, p.S) - 1;
-    kv_end = min(p.T, p.q_offset + last_row + 1);
-  }
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int n_tiles = key_tiles(p, q0, BQ32);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile's sK/sV reads are done
-    for (int e = tid; e < BK * D; e += THREADS) {
+    for (int e = tid; e < BK * D; e += THREADS32) {
       const int c = e / D, d = e % D, kj = k0 + c;
       float kk = 0.f, vv = 0.f;
       if (kj < p.T) {
-        kk = to_f32(kb[kj * p.k.s + d]);
-        vv = to_f32(vb[kj * p.v.s + d]);
+        kk = kb[kj * p.k.s + d];
+        vv = vb[kj * p.v.s + d];
       }
       sK[d * (BK + 1) + c] = kk;
       sV[c * D + d] = vv;
@@ -118,7 +446,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = 0; d < D; ++d) {
       float qv[RPT], kv[CPT];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = sQ[d * (BQ + 1) + rg + 16 * i];
+      for (int i = 0; i < RPT; ++i) qv[i] = sQ[d * (BQ32 + 1) + rg + 16 * i];
 #pragma unroll
       for (int j = 0; j < CPT; ++j) kv[j] = sK[d * (BK + 1) + cg + 8 * j];
 #pragma unroll
@@ -181,37 +509,59 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + rg + 16 * i;
     if (qi >= p.S) continue;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* orow = out + (head * p.S + qi) * D;
+    float* orow = out + (head * p.S + qi) * D;
 #pragma unroll
-    for (int dd = 0; dd < D / 8; ++dd) orow[cg + 8 * dd] = from_f32<T>(acc[i][dd] / l_safe);
+    for (int dd = 0; dd < D / 8; ++dd) orow[cg + 8 * dd] = acc[i][dd] / l_safe;
     if (cg == 0) lse[head * p.S + qi] = m[i] + logf(l_safe);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, const FlashParams& p, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
+                       const FlashParams& p, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
+  const int n_q = (p.S + BQ32 - 1) / BQ32;
+  if (n_q > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.S + BQ - 1) / BQ, p.Hq, p.B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, p);
+  const dim3 grid(p.Hq, p.B, n_q);
+  flash_fwd_f32<D><<<grid, THREADS32, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out,
-                       float* lse, const FlashParams& p, cudaStream_t stream) {
-  switch (p.D) {
-    case 16: return launch<T, 16>(q, k, v, out, lse, p, stream);
-    case 32: return launch<T, 32>(q, k, v, out, lse, p, stream);
-    case 64: return launch<T, 64>(q, k, v, out, lse, p, stream);
-    case 128: return launch<T, 128>(q, k, v, out, lse, p, stream);
-    default: return cudaErrorInvalidValue;
+using Launcher = cudaError_t (*)(const void*, const void*, const void*, void*, float*,
+                                 const FlashParams&, cudaStream_t);
+
+template <template <int> class L>
+Launcher for_head_dim(int D) {
+  switch (D) {
+    case 16: return L<16>::fn;
+    case 24: return L<24>::fn;
+    case 32: return L<32>::fn;
+    case 64: return L<64>::fn;
+    case 80: return L<80>::fn;
+    case 128: return L<128>::fn;
+    case 160: return L<160>::fn;
+    default: return nullptr;
   }
+}
+
+template <int D>
+struct Bf16Launcher {
+  static constexpr Launcher fn = launch_bf16<D>;
+};
+template <int D>
+struct F32Launcher {
+  static constexpr Launcher fn = launch_f32<D>;
+};
+
+bool aligned16(const void* ptr, const AttnStrides& s) {
+  // 8 bf16 elements = 16 bytes
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && s.b % 8 == 0 && s.h % 8 == 0 &&
+         s.s % 8 == 0;
 }
 
 }  // namespace
@@ -220,9 +570,19 @@ cudaError_t repro_flash_attention_fwd(const void* q, const void* k, const void* 
                                       void* out, float* lse, const FlashParams& p,
                                       int dtype, cudaStream_t stream) {
   if (p.B <= 0 || p.Hq <= 0 || p.Hkv <= 0 || p.Hq % p.Hkv != 0 || p.S <= 0 ||
-      p.T <= 0 || p.Hq > 65535 || p.B > 65535 || (p.causal && p.q_offset < 0))
+      p.T <= 0 || p.B > 65535 || (p.causal && p.q_offset < 0))
     return cudaErrorInvalidValue;
-  if (dtype == REPRO_F32) return dispatch_d<float>(q, k, v, out, lse, p, stream);
-  if (dtype == REPRO_BF16) return dispatch_d<__nv_bfloat16>(q, k, v, out, lse, p, stream);
-  return cudaErrorInvalidValue;
+  Launcher fn = nullptr;
+  if (dtype == REPRO_BF16) {
+    // the 16-byte copies need 16-byte aligned rows (the wrapper checks too,
+    // with strides of size-1 dims zeroed)
+    if (!aligned16(q, p.q) || !aligned16(k, p.k) || !aligned16(v, p.v) ||
+        reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+    fn = for_head_dim<Bf16Launcher>(p.D);
+  } else if (dtype == REPRO_F32) {
+    fn = for_head_dim<F32Launcher>(p.D);
+  }
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return fn(q, k, v, out, lse, p, stream);
 }

@@ -27,6 +27,9 @@ struct FlashParams {
   float sm_scale;
 };
 
+// D in {16, 24, 32, 64, 80, 128, 160}. bf16 runs on the tensor cores and
+// needs 16-byte aligned base pointers and strides (cudaErrorMisalignedAddress
+// otherwise); f32 runs on the CUDA cores.
 // out: contiguous (B, Hq, S, D) in `dtype`; lse: contiguous (B, Hq, S) f32.
 cudaError_t repro_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* out, float* lse,

@@ -1,8 +1,10 @@
-"""Flash-attention forward: the CUDA kernel ``csrc/flash_attention.cu`` on the
-card, its plain version (``ref.flash_attention_fwd_ref``) on the CPU.
+"""Flash-attention forward: the CUDA kernels ``csrc/flash_attention.cu`` on the
+card, their plain version (``ref.flash_attention_fwd_ref``) on the CPU.
 
 Counterpart of the TPU kernel
-``repro/kernels/flash_attention.py:flash_attention_fwd``.
+``repro/kernels/flash_attention.py:flash_attention_fwd``. On the card, bf16
+runs on the tensor cores and f32 (the parity type) on the CUDA cores, both for
+every head size in ``HEAD_DIMS``.
 """
 from __future__ import annotations
 
@@ -13,8 +15,34 @@ import torch
 
 from repro_torch.kernels import ref
 
-_DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 24, 32, 64, 80, 128, 160)
+_ALIGN_BYTES = 16  # the bf16 kernel copies rows in 16-byte chunks
+
+
+def _plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which kernel takes these operands, "tensor_cores" (bf16) or "cuda_cores"
+    (f32), or raise: dtype (f32 or bf16, one for all three), head size, a
+    contiguous last dim, and for bf16 base pointers and the strides of dims
+    longer than 1 on 16-byte boundaries."""
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash attention kernel takes f32/bf16 q, k, v of one dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    D = q.shape[-1]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes head_dim in {HEAD_DIMS}, got {D}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash attention kernel needs a contiguous last dim")
+    if q.dtype == torch.float32:
+        return "cuda_cores"
+    elems = _ALIGN_BYTES // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % _ALIGN_BYTES:
+            raise ValueError(f"bf16 flash attention needs a 16-byte aligned {name}")
+        if any(n > 1 and s % elems for n, s in zip(t.shape[:-1], t.stride()[:-1])):
+            raise ValueError(f"bf16 flash attention needs {name}'s strides in multiples "
+                             f"of {elems} elements, got {t.stride()}")
+    return "tensor_cores"
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -47,13 +75,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                            q_offset=q_offset)
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash_attention: operands on {sorted(map(str, devices))}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash attention kernel takes f32/bf16 q, k, v of one dtype, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes head_dim in {HEAD_DIMS}, got {D}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash attention kernel needs a contiguous last dim")
+    _plan(q, k, v)
     if q.numel() == 0 or T == 0:
         raise ValueError(f"flash_attention: empty operands q {tuple(q.shape)}, k {tuple(k.shape)}")
     out = torch.empty((B, Hq, S, D), dtype=q.dtype, device=q.device)

@@ -5,6 +5,8 @@ Counterpart of the TPU kernel ``repro/kernels/rmsnorm.py:rmsnorm_fwd``.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch.kernels import ref
@@ -15,8 +17,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def rmsnorm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim of ``x`` (any leading shape), weight ``(D,)``.
 
-    A CUDA tensor launches the kernel (counted in ``rmsnorm_fwd.launches``) or
-    raises; a CPU tensor runs the plain version."""
+    A CUDA tensor launches the kernel (counted in ``rmsnorm_fwd.launches``,
+    and by (rows, D) in ``rmsnorm_fwd.shapes``) or raises; a CPU tensor runs
+    the plain version."""
     if weight.dim() != 1 or x.dim() == 0 or x.shape[-1] != weight.shape[0]:
         raise ValueError(f"rmsnorm: x {tuple(x.shape)} vs weight {tuple(weight.shape)}")
     if x.device.type == "cpu" and weight.device.type == "cpu":
@@ -35,7 +38,9 @@ def rmsnorm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> tor
 
     load_kernels().rmsnorm_fwd(x, weight, y, float(eps))
     rmsnorm_fwd.launches += 1
+    rmsnorm_fwd.shapes[(x.numel() // x.shape[-1], x.shape[-1])] += 1
     return y
 
 
 rmsnorm_fwd.launches = 0
+rmsnorm_fwd.shapes = collections.Counter()

@@ -20,6 +20,7 @@ from repro.kernels.rmsnorm import rmsnorm_fwd as jax_rmsnorm  # noqa: E402
 from repro.kernels.ssd import ssd_scan_fwd as jax_ssd  # noqa: E402
 from repro.kernels.xla_flash import flash_xla as jax_flash_xla  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import HEAD_DIMS, _plan  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd  # noqa: E402
 from repro_torch.kernels.ssd import ssd_scan_fwd  # noqa: E402
@@ -75,6 +76,11 @@ _FLASH_CASES = [
     (1, 4, 2, 200, 200, 128, True),    # uneven blocks
     (2, 2, 1, 128, 128, 32, False),    # MQA, non-causal
     (2, 8, 2, 1, 300, 64, True),       # decode: 1 query vs long KV
+    # head sizes of the JAX package's configs beyond the cases above:
+    # whisper-tiny reduced (24), qwen3-32b (80), pixtral-12b (160)
+    (1, 4, 2, 160, 160, 24, True),
+    (1, 4, 2, 130, 200, 80, True),     # S < T: q_offset 70
+    (1, 2, 1, 96, 96, 160, False),
 ]
 
 
@@ -92,6 +98,104 @@ def test_flash_plain_matches_jax_kernel(B, Hq, Hkv, S, T, D, causal, dtype):
     np.testing.assert_allclose(_np(lse), _np(jlse), atol=2e-5, rtol=2e-6)
     _assert_close(ops.flash_attention(tq, tk, tv, causal=causal, impl="torch"),
                   jref.attention(jq, jk, jv, causal=causal), dtype)
+
+
+def _tensor_core_emulation(q, k, v, *, causal, block_k=64):
+    """The bf16 flash kernel's arithmetic in f32 torch: key tiles of 64, an
+    online softmax with f32 row statistics, and P rounded to bf16 before P V
+    (the one rounding the plain version does not make). Queries are the last
+    S of the T keys."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    qf = q.float()
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=1)
+    vf = v.float().repeat_interleave(Hq // Hkv, dim=1)
+    m = torch.full((B, Hq, S), -1e30)
+    l = torch.zeros((B, Hq, S))
+    acc = torch.zeros((B, Hq, S, D))
+    q_pos = torch.arange(S) + (T - S)
+    for k0 in range(0, T, block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = torch.einsum("bhsd,bhtd->bhst", qf, kt) / np.sqrt(D)
+        if causal:
+            k_pos = torch.arange(k0, k0 + kt.shape[2])
+            s = s.masked_fill(k_pos[None, :] > q_pos[:, None], float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bhst,bhtd->bhsd", p.to(torch.bfloat16).float(), vt)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    return (acc / l[..., None]).to(torch.bfloat16), m + torch.log(l)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,D,causal", [
+    (1, 4, 1, 256, 256, 128, True),
+    (1, 4, 2, 200, 256, 80, True),
+])
+def test_tensor_core_rounding_fits_the_bf16_bound(B, Hq, Hkv, S, T, D, causal):
+    """The bf16 kernel's design, emulated, against the JAX kernel on the same
+    bf16 inputs: out within the bf16 kernel tolerance, lse within the 1e-4
+    that chip_smoke.py holds the kernel's lse to."""
+    q, k, v = _qkv(B, Hq, Hkv, S, T, D, seed=D)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, "bfloat16") for a in (q, k, v))
+    out, lse = _tensor_core_emulation(tq, tk, tv, causal=causal)
+    jout, jlse = jax_flash(jq, jk, jv, causal=causal)
+    _assert_close(out, jout, "bfloat16")
+    np.testing.assert_allclose(_np(lse), _np(jlse), atol=1e-4, rtol=0)
+    # the P rounding is real: the emulation is not the plain version
+    plain, _ = flash_attention_fwd(tq, tk, tv, causal=causal)
+    assert float((out.float() - plain.float()).abs().max()) > 0
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plan_picks_the_path_by_dtype(D, dtype):
+    """bf16 takes the tensor cores, f32 the CUDA cores, at every head size and
+    on the model's head-transposed views of one projection output."""
+    B, S, Hq, Hkv = 2, 16, 4, 2
+    qkv = torch.zeros(B, S, (Hq + 2 * Hkv) * D, dtype=_TORCH[dtype])
+    q, k, v = torch.split(qkv, [Hq * D, Hkv * D, Hkv * D], dim=-1)
+    q, k, v = (t.reshape(B, S, -1, D).transpose(1, 2) for t in (q, k, v))
+    assert _plan(q, k, v) == ("tensor_cores" if dtype == "bfloat16" else "cuda_cores")
+
+
+def _buf(shape, dtype=torch.bfloat16, offset=0, width=None):
+    """A zero tensor of `shape` whose data starts `offset` elements into its
+    buffer and whose rows are `width` elements apart (default: the last dim)."""
+    width = width or shape[-1]
+    n = int(np.prod(shape[:-1])) * width
+    t = torch.zeros(n + offset, dtype=dtype)[offset:].view(*shape[:-1], width)
+    return t[..., :shape[-1]]
+
+
+_SHAPE = (1, 2, 8, 64)
+
+
+@pytest.mark.parametrize("case", ["head_dim", "base_pointer", "row_stride", "last_dim",
+                                  "dtype"])
+def test_flash_plan_rejects(case):
+    def operands(dtype):
+        q = k = v = _buf(_SHAPE, dtype)
+        if case == "head_dim":
+            q = k = v = _buf((1, 2, 8, 48), dtype)
+        elif case == "base_pointer":  # one element past a 16-byte boundary
+            k = _buf(_SHAPE, dtype, offset=1)
+        elif case == "row_stride":  # rows 66 elements apart: 132 bytes in bf16
+            v = _buf(_SHAPE, dtype, width=66)
+        elif case == "last_dim":
+            q = _buf((1, 2, 64, 8), dtype).transpose(2, 3)
+        elif case == "dtype":
+            q = q.float()
+        return q, k, v
+
+    err = TypeError if case == "dtype" else ValueError
+    with pytest.raises(err):
+        _plan(*operands(torch.bfloat16))
+    # the f32 kernel copies no 16-byte chunks: it takes unaligned operands
+    if case in ("base_pointer", "row_stride"):
+        assert _plan(*operands(torch.float32)) == "cuda_cores"
 
 
 def test_flash_plain_rejects_negative_causal_offset():
