@@ -6,7 +6,8 @@ family (qwen3-8b) and the ssm family (mamba2-370m).
 
 Phases, each reported on its own lines; any failure exits non-zero:
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - compile the CUDA kernels of src/repro_torch/kernels/csrc;
+  2. build   - compile the CUDA kernels of src/repro_torch/kernels/csrc, and
+               print each kernel's registers, stack and spills (ptxas -v);
   3. kernels - each kernel (RMSNorm, flash attention, SSD scan) against its
                plain PyTorch version at the shapes of the main paths and the
                edge cases of the JAX tests, timed beside its plain version,
@@ -25,7 +26,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
   5. serve   - per model, ServeEngine.generate, checked against teacher
                forcing, and the device's busy share while decoding;
   6. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-5, with
-               the launches its wrapper counted there at that shape; then the
+               the launches its wrapper counted there at that shape, beside
+               F.rms_norm at the same shape; then the
                order of the kernel redesigns, each kernel's launches on the
                main paths x (device ms - bound ms), RMSNorm summed over its
                shapes; a JSON line with one entry per kernel, and a last JSON
@@ -40,7 +42,9 @@ import gc
 import itertools
 import json
 import math
+import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -125,9 +129,10 @@ def time_ms(fn, arg_sets, iters: int = 20) -> tuple[float, float]:
     as many calls whose events it drops: right after it starts, the profiler
     loses the device events of short calls (8 of 20 RMSNorm launches on an
     H100). Traces are taken until two hold the same number of events, the
-    most any held and a multiple of the calls; at most five. call_ms: CUDA
-    events around a loop of calls, which is the host's dispatch rate when
-    that is slower."""
+    most any held and a multiple of the calls; at most twelve (the plain
+    RMSNorm's nine kernels a call have taken more than five on an H100); a
+    timing that took more than two says so. call_ms: CUDA events around a
+    loop of calls, which is the host's dispatch rate when that is slower."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     n_call = itertools.count()
@@ -148,7 +153,7 @@ def time_ms(fn, arg_sets, iters: int = 20) -> tuple[float, float]:
     calls(3)
     torch.cuda.synchronize()
     best, seen = [], []
-    for _ in range(5):
+    for _ in range(12):
         events = trace()
         seen.append(len(events))
         if len(events) == len(best) and len(events) % iters == 0 and events:
@@ -157,6 +162,8 @@ def time_ms(fn, arg_sets, iters: int = 20) -> tuple[float, float]:
             best = events
     else:
         raise SmokeFailure(f"the profiler's traces of {iters} calls held {seen} device events")
+    if len(seen) > 2:
+        log("timing", f"the profiler's traces of {iters} calls held {seen} device events")
     dev_us = sum(e.time_range.elapsed_us() for e in events)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -179,6 +186,67 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
 def _times(name: str, fn, sets, iters: int = 20) -> dict:
     ms, call_ms = time_ms(fn, sets, iters)
     return {f"{name}ms": ms, f"{name}call_ms": call_ms}
+
+
+def _kernel_name(mangled: str) -> str:
+    """ssd_fwd_bf16<64, 32, 128> from the mangled name of a kernel in an
+    anonymous namespace of csrc/*.cu."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if m is None:
+        return mangled
+    end = m.end() + int(m.group(1))
+    tmpl = mangled[end:].split("EEv")[0]
+    args = re.findall(r"Li(\d+)E", tmpl)
+    if "bfloat16" in tmpl:
+        args.append("bf16")
+    elif tmpl == "If":
+        args.append("f32")
+    return f"{mangled[m.end():end]}<{', '.join(args)}>"
+
+
+def ptxas_summary(text: str) -> list[str]:
+    """One line per kernel of a build log holding ptxas -v's output."""
+    rows, name, frame = [], None, ("?", "?", "?")
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            frame = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append(f"{name}: {m.group(1)} registers, stack {frame[0]} B, spill stores "
+                        f"{frame[1]} B, spill loads {frame[2]} B")
+            name = None
+    return rows
+
+
+def build_kernels() -> list[str]:
+    """load_kernels(verbose=True), with its output (ninja's, holding ptxas -v
+    for every kernel) in build/repro_torch_kernels/build.log; returns
+    ptxas_summary of it."""
+    from repro_torch.kernels._build import BUILD_DIR, load_kernels
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = BUILD_DIR / "build.log"
+    sys.stdout.flush()
+    saved = os.dup(1)
+    try:
+        with open(path, "w") as f:
+            os.dup2(f.fileno(), 1)
+            load_kernels(verbose=True)
+            sys.stdout.flush()
+    except Exception:
+        os.dup2(saved, 1)
+        print(path.read_text()[-4000:], file=sys.stderr)
+        raise
+    finally:
+        os.dup2(saved, 1)
+        os.close(saved)
+    return ptxas_summary(path.read_text())
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +298,7 @@ def rmsnorm_phase(dev) -> dict:
 
 def rmsnorm_shape_times(dev, shapes: collections.Counter) -> list[dict]:
     """RMSNorm (bf16) at each (rows, D) of the main paths, with the launches
-    its wrapper counted there at that shape."""
+    its wrapper counted there at that shape, beside F.rms_norm."""
     from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 
     g = torch.Generator(device=dev).manual_seed(7)
@@ -238,13 +306,16 @@ def rmsnorm_shape_times(dev, shapes: collections.Counter) -> list[dict]:
     for (rows, D), n in sorted(shapes.items(), key=lambda kv: -kv[0][0] * kv[0][1]):
         sets = copies(_rmsnorm_inputs(rows, D, torch.bfloat16, g, dev), (2 * rows * D + D) * 2)
         ms, call_ms = time_ms(rmsnorm_fwd, sets)
+        lib_ms, lib_call_ms = time_ms(
+            lambda x, w: torch.nn.functional.rms_norm(x, (D,), w, 1e-6), sets)
         del sets
         b_ms, _ = _rmsnorm_bound(rows, D)
         rows_out.append({"rows": rows, "D": D, "launches": n, "ms": ms, "call_ms": call_ms,
+                         "library_ms": lib_ms, "library_call_ms": lib_call_ms,
                          "bound_ms": b_ms, "gap_ms": n * (ms - b_ms)})
         log("order", f"rmsnorm shape ({rows}, {D}) x {n} launches: kernel {ms:.4f} ms "
-            f"(call {call_ms:.4f}), bound {b_ms:.6f} ms, launches x gap "
-            f"{rows_out[-1]['gap_ms']:.3f} ms")
+            f"(call {call_ms:.4f}), torch rms_norm {lib_ms:.4f} ms (call {lib_call_ms:.4f}), "
+            f"bound {b_ms:.6f} ms, launches x gap {rows_out[-1]['gap_ms']:.3f} ms")
     return rows_out
 
 
@@ -376,8 +447,15 @@ def ssd_ops(B, S, H, P, N, chunk) -> float:
     return float(total * B * H)
 
 
+def _ssd_bytes(B, S, H, P, N) -> int:
+    """x, dt, B and C read once and y written once in bf16, the f32 state
+    written once, A and D read once."""
+    return (2 * B * S * H * P + 2 * B * S * N + B * S * H) * 2 + B * H * P * N * 4 + 2 * H * 4
+
+
 def ssd_phase(dev) -> dict:
     from repro_torch.kernels import ref
+    from repro_torch.kernels._build import load_kernels
     from repro_torch.kernels.ssd import DEFAULT_CHUNK, ssd_scan_fwd
 
     cases = [  # B, S, H, P, N, chunk
@@ -389,7 +467,9 @@ def ssd_phase(dev) -> dict:
         (3, 1, 4, 64, 128, DEFAULT_CHUNK),      # one step
     ]
     worst = 0.0
+    path_of = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
     for dtype in (torch.bfloat16, torch.float32):
+        before = dict(ssd_scan_fwd.paths)
         for i, (B, S, H, P, N, chunk) in enumerate(cases):
             args = _ssd_inputs(B, S, H, P, N, dtype, 10 + i, dev)
             y, state = ssd_scan_fwd(*args, chunk=chunk)
@@ -401,29 +481,67 @@ def ssd_phase(dev) -> dict:
                 e, ok = err_vs(y, y_r, dtype)
             e_state = float((state - state_r).abs().max())
             worst = max(worst, e)
-            log("kernels", f"ssd {str(dtype)[6:]} B={B} S={S} H={H} P={P} N={N} chunk={chunk} "
-                f"y_err={e:.3e} (|y| <= {float(y_r.float().abs().max()):.1f}) "
-                f"state_err={e_state:.3e}")
+            log("kernels", f"ssd {str(dtype)[6:]} ({path_of[dtype]}) B={B} S={S} H={H} P={P} "
+                f"N={N} chunk={chunk} y_err={e:.3e} (|y| <= {float(y_r.float().abs().max()):.1f})"
+                f" state_err={e_state:.3e}")
             check(ok and e_state <= SSD_TOL and y.dtype == dtype,
                   f"ssd {dtype} {(B, S, H, P, N, chunk)} y {e} state {e_state}")
+        took = {k: v - before.get(k, 0) for k, v in ssd_scan_fwd.paths.items()
+                if v != before.get(k, 0)}
+        check(took == {path_of[dtype]: len(cases)}, f"ssd {dtype} took the paths {took}")
 
-    B, S, H, P, N = cases[0][:5]
+    # a bf16 view off the 16-byte grid: the wrapper refuses it, and so does
+    # the launcher behind it
+    B, S, H, P, N = 1, 64, 2, 64, 16
+    buf = torch.zeros(B * S * (H * P + 2 * N) + 1, device=dev, dtype=torch.bfloat16)
+    x, Bm, C = torch.split(buf[1:].view(B, S, H * P + 2 * N), [H * P, N, N], dim=-1)
+    x = x.reshape(B, S, H, P)
+    dt = torch.ones(B, S, H, device=dev, dtype=torch.bfloat16)
+    A, D = -torch.ones(H, device=dev), torch.ones(H, device=dev)
+    before = ssd_scan_fwd.launches
+    for launch in (lambda: ssd_scan_fwd(x, dt, A, Bm, C, D),
+                   lambda: load_kernels().ssd_scan_fwd(
+                       x, dt, A, Bm, C, D, torch.empty(B, S, H, P, device=dev,
+                                                       dtype=torch.bfloat16),
+                       torch.empty(B, H, P, N, device=dev), DEFAULT_CHUNK)):
+        try:
+            launch()
+            torch.cuda.synchronize()
+        except (ValueError, RuntimeError) as exc:
+            log("kernels", f"ssd bf16 unaligned view refused: {str(exc).splitlines()[0]}")
+        else:
+            raise SmokeFailure("an unaligned bf16 ssd view was launched")
+    check(ssd_scan_fwd.launches == before, "an unaligned ssd launch was counted")
+
     dtype = torch.bfloat16
-    nbytes = (2 * B * S * H * P + 2 * B * S * N + B * S * H) * 2 + B * H * P * N * 4 + 2 * H * 4
-    ops = ssd_ops(B, S, H, P, N, DEFAULT_CHUNK)
-    sets = copies(lambda: _ssd_inputs(B, S, H, P, N, dtype, 20, dev), nbytes)
-    t = _times("", lambda *a: ssd_scan_fwd(*a), sets)
-    t |= _times("plain_", lambda *a: ref.ssd_scan(*a, return_state=True), sets, iters=2)
-    bms, by = bound_ms(nbytes, ops, dtype)
-    log("kernels", f"ssd timing bf16 {(B, S, H, P, N)} chunk {DEFAULT_CHUNK}: kernel "
-        f"{t['ms']:.4f} ms (call {t['call_ms']:.4f}), plain {t['plain_ms']:.4f} ms "
-        f"({t['plain_call_ms']:.4f}), no library call, bound {bms:.4f} ms ({by}), "
-        f"{ops / t['ms'] / 1e9:.2f} TFLOP/s, {nbytes / t['ms'] / 1e6:.1f} GB/s")
+    t = {}
+    for name, (B, S, H, P, N) in (("", cases[0][:5]), ("hymba_", cases[1][:5])):
+        nbytes = _ssd_bytes(B, S, H, P, N)
+        sets = copies(lambda: _ssd_inputs(B, S, H, P, N, dtype, 20, dev), nbytes)
+        t |= _times(name, lambda *a: ssd_scan_fwd(*a), sets)
+        bms, by = bound_ms(nbytes, ssd_ops(B, S, H, P, N, DEFAULT_CHUNK), dtype)
+        t |= {f"{name}bound_ms": bms, f"{name}bound_by": by}
+        if name == "":
+            t |= _times("plain_", lambda *a: ref.ssd_scan(*a, return_state=True), sets, iters=2)
+            # the chunk is the kernel's choice: both that it takes, in turns
+            other = 128 if DEFAULT_CHUNK == 64 else 64
+            chunk_ms = {c: [] for c in (DEFAULT_CHUNK, other)}
+            for c in (DEFAULT_CHUNK, other, other, DEFAULT_CHUNK):
+                chunk_ms[c].append(time_ms(lambda *a: ssd_scan_fwd(*a, chunk=c), sets)[0])
+            t["chunk_ms"] = chunk_ms
+            log("kernels", f"ssd bf16 {(B, S, H, P, N)} device ms by chunk, in turns: {chunk_ms}")
+        del sets
+        ops = ssd_ops(B, S, H, P, N, DEFAULT_CHUNK)
+        log("kernels", f"ssd timing bf16 {(B, S, H, P, N)} chunk {DEFAULT_CHUNK}: kernel "
+            f"{t[name + 'ms']:.4f} ms (call {t[name + 'call_ms']:.4f}), "
+            + (f"plain {t['plain_ms']:.4f} ms ({t['plain_call_ms']:.4f}), " if name == "" else "")
+            + f"no library call, bound {bms:.4f} ms ({by}), "
+            f"{ops / t[name + 'ms'] / 1e9:.2f} TFLOP/s, {nbytes / t[name + 'ms'] / 1e6:.1f} GB/s, "
+            f"bound / kernel {bms / t[name + 'ms']:.3f}")
     return {"name": "ssd_scan_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd.py:97",
-            "max_abs_err": worst, **t, "bound_ms": bms, "bound_by": by,
-            "library_ms": None, "library_call_ms": None}
+            "max_abs_err": worst, **t, "library_ms": None, "library_call_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -438,8 +556,9 @@ def _plain(cfg):
 def reset_counts(counters) -> None:
     for c in counters:
         c.launches = 0
-        if hasattr(c, "shapes"):
-            c.shapes.clear()
+        for by in ("shapes", "paths"):
+            if hasattr(c, by):
+                getattr(c, by).clear()
 
 
 def read_counts(counters) -> tuple[dict, dict]:
@@ -498,8 +617,13 @@ def forward_phase(dev, name, arch, params, counters, expect: dict, main_bs,
     torch.cuda.synchronize()
     t_fwd = time.perf_counter() - t0
     counts, shapes = read_counts(counters)
-    log("forward", f"{arch.name} B={B} S={S}: launches {counts} (expect {expect})")
+    ssd = next(c for c in counters if c.__name__ == "ssd_scan_fwd")
+    paths = dict(ssd.paths)
+    want_paths = {"tensor_cores": expect["ssd_scan_fwd"]} if expect["ssd_scan_fwd"] else {}
+    log("forward", f"{arch.name} B={B} S={S}: launches {counts} (expect {expect}); ssd "
+        f"launches by path {paths} (expect {want_paths})")
     check(counts == expect, "forward launch counts")
+    check(paths == want_paths, "the bf16 forward's SSD launches took another path")
     check(tuple(logits.shape) == (B, S, arch.vocab), f"logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
     del logits
@@ -638,7 +762,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.configs import get_arch
-    from repro_torch.kernels._build import load_kernels
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.rmsnorm import rmsnorm_fwd
     from repro_torch.kernels.ssd import ssd_scan_fwd
@@ -656,8 +779,10 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    load_kernels()
+    ptxas = build_kernels()
     log("build", f"{time.perf_counter() - t0:.1f} s")
+    for line in ptxas or ["no ptxas output: the kernels were built before this run"]:
+        log("build", f"ptxas {line}")
 
     counters = (rmsnorm_fwd, flash_attention_fwd, ssd_scan_fwd)
     with torch.inference_mode():

@@ -115,11 +115,10 @@ void ssd_scan_fwd(const torch::Tensor& x, const torch::Tensor& dt,
                   state.numel() == B * H * P * N,
               "ssd: bad output buffers");
   TORCH_CHECK(chunk >= 1 && chunk <= S, "ssd: chunk ", chunk, " outside [1, ", S, "]");
-  const int64_t smem = repro_ssd_smem_bytes(static_cast<int>(chunk),
-                                            static_cast<int>(P), static_cast<int>(N));
-  const int64_t optin = at::cuda::getCurrentDeviceProperties()->sharedMemPerBlockOptin;
-  TORCH_CHECK(smem <= optin, "ssd: chunk ", chunk, " at P=", P, ", N=", N, " needs ",
-              smem, " bytes of shared memory; a block can have ", optin);
+  // the stride of a dim of size 1 is never used; 0 here, as for attention
+  auto st = [](const torch::Tensor& t, int d) {
+    return t.size(d) == 1 ? int64_t{0} : t.stride(d);
+  };
   SsdParams p;
   p.B = static_cast<int>(B);
   p.S = static_cast<int>(S);
@@ -127,16 +126,16 @@ void ssd_scan_fwd(const torch::Tensor& x, const torch::Tensor& dt,
   p.P = static_cast<int>(P);
   p.N = static_cast<int>(N);
   p.L = static_cast<int>(chunk);
-  p.x_b = x.stride(0);
-  p.x_s = x.stride(1);
-  p.x_h = x.stride(2);
-  p.dt_b = dt.stride(0);
-  p.dt_s = dt.stride(1);
-  p.dt_h = dt.stride(2);
-  p.bm_b = Bm.stride(0);
-  p.bm_s = Bm.stride(1);
-  p.c_b = C.stride(0);
-  p.c_s = C.stride(1);
+  p.x_b = st(x, 0);
+  p.x_s = st(x, 1);
+  p.x_h = st(x, 2);
+  p.dt_b = st(dt, 0);
+  p.dt_s = st(dt, 1);
+  p.dt_h = st(dt, 2);
+  p.bm_b = st(Bm, 0);
+  p.bm_s = st(Bm, 1);
+  p.c_b = st(C, 0);
+  p.c_s = st(C, 1);
   const c10::cuda::CUDAGuard guard(x.device());
   check_launch(repro_ssd_scan_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr<float>(),
                                   Bm.data_ptr(), C.data_ptr(), D.data_ptr<float>(),

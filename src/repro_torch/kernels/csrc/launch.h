@@ -47,7 +47,7 @@ struct SsdParams {
   int64_t c_b, c_s;
 };
 
-// Dynamic shared memory of one block of the SSD kernel, in floats: C and B
+// Dynamic shared memory of one block of the f32 SSD kernel, in bytes: C and B
 // rows and the (P, N) state padded to N + 1, x, the (L, L + 1) scores, three
 // per-step f32 rows and one per-step f64 row.
 inline int64_t repro_ssd_smem_bytes(int L, int P, int N) {
@@ -55,8 +55,16 @@ inline int64_t repro_ssd_smem_bytes(int L, int P, int N) {
   return 4 * (2 * l * np + l * P + int64_t{P} * np + l * (l + 1) + 5 * l);
 }
 
+// Longest chunk the bf16 (tensor-core) SSD kernel takes.
+constexpr int REPRO_SSD_TC_MAX_CHUNK = 128;
+
 // A and D: (H,) f32; y: contiguous (B, S, H, P) in `dtype`; state: contiguous
 // (B, H, P, N) f32, the state after the last step from a zero state.
+// f32 runs on the CUDA cores. bf16 runs on the tensor cores and takes
+// P % 16 == 0, N % 8 == 0, N <= 128 and L <= REPRO_SSD_TC_MAX_CHUNK
+// (cudaErrorInvalidValue otherwise), with 16-byte aligned base pointers of x,
+// Bm, C and y and strides of x, Bm and C in multiples of 8 elements, 0 for a
+// dim of size 1 (cudaErrorMisalignedAddress otherwise).
 cudaError_t repro_ssd_scan_fwd(const void* x, const void* dt, const float* A,
                                const void* Bm, const void* C, const float* D,
                                void* y, float* state, const SsdParams& p,

@@ -22,8 +22,8 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
-from repro_torch.kernels._build import load_kernels
-print(len(names), bad, load_kernels.cache_info().currsize)
+from repro_torch.kernels import _build
+print(len(names), bad, int(_build._module is not None))
 """
 
 

@@ -23,7 +23,8 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS, _plan  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd  # noqa: E402
-from repro_torch.kernels.ssd import ssd_scan_fwd  # noqa: E402
+from repro_torch.kernels.ssd import DEFAULT_CHUNK, ssd_scan_fwd  # noqa: E402
+from repro_torch.kernels.ssd import _plan as _ssd_plan  # noqa: E402
 from repro_torch.kernels.xla_flash import flash_xla  # noqa: E402
 
 # f32: 2e-5, as tests/test_kernels.py. bf16: 2e-2 as there, plus one bf16 ulp
@@ -342,6 +343,143 @@ def test_ssd_streaming_equals_full():
     _, jst2 = jops.ssd_with_state(*[a[:, 64:] if a.ndim > 1 else a for a in jin],
                                   init_state=jst)
     np.testing.assert_allclose(_np(st2), _np(jst2), atol=2e-5, rtol=0)
+
+
+def _bf16_split(v):
+    """f32 v as bf16 hi + lo: hi = round(v), lo = round(v - hi)."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _ssd_tensor_core_emulation(x, dt, A, Bm, C, D, *, chunk, split_scores=True):
+    """The bf16 SSD kernel's arithmetic in f32 torch: chunks of L = min(chunk,
+    S) steps padded with zero rows to a multiple of 16, g = cumsum(a dt) with
+    each product in f32 and the sums in f64, g_t - g_s rounded to f32 before
+    its exp, exact bf16 products C B^T; the scores S, x w and the carried h
+    each split into bf16 hi + lo against the exact bf16 operand (x, B, C); h
+    carried in f32 between chunks; y rounded to bf16 once.
+    ``split_scores=False`` rounds S to bf16 once instead, as K2 rounds P."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    Lp = -(-L // 16) * 16
+    xf, dtf, Bf, Cf = x.float(), dt.float(), Bm.float(), C.float()
+    Af, Df = A.float(), D.float()
+    h = torch.zeros(Bsz, H, P, N)
+    causal = torch.tril(torch.ones(Lp, Lp, dtype=torch.bool))[None, :, :, None]
+    ys = []
+    for t0 in range(0, S, L):
+        n = min(L, S - t0)
+        xc, dtc = torch.zeros(Bsz, Lp, H, P), torch.zeros(Bsz, Lp, H)
+        Bc, Cc = torch.zeros(Bsz, Lp, N), torch.zeros(Bsz, Lp, N)
+        xc[:, :n], dtc[:, :n] = xf[:, t0:t0 + n], dtf[:, t0:t0 + n]
+        Bc[:, :n], Cc[:, :n] = Bf[:, t0:t0 + n], Cf[:, t0:t0 + n]
+        g = torch.cumsum((Af * dtc).double(), dim=1)  # (B, Lp, H)
+        G = g[:, -1]
+        cb = torch.einsum("btn,bsn->bts", Cc.double(), Bc.double()).float()
+        diff = (g[:, :, None, :] - g[:, None, :, :]).float()  # (B, t, s, H)
+        decay = torch.where(causal, torch.exp(diff), torch.zeros(()))
+        scores = cb[..., None] * decay * dtc[:, None, :, :]
+        s_hi, s_lo = (_bf16_split(scores) if split_scores
+                      else (scores.to(torch.bfloat16).float(), torch.zeros_like(scores)))
+        y = (torch.einsum("btsh,bshp->bthp", s_hi, xc)
+             + torch.einsum("btsh,bshp->bthp", s_lo, xc))
+        if t0 > 0:
+            h_hi, h_lo = _bf16_split(h)
+            carried = (torch.einsum("btn,bhpn->bthp", Cc, h_hi)
+                       + torch.einsum("btn,bhpn->bthp", Cc, h_lo))
+            y = y + torch.exp(g.float())[..., None] * carried
+        ys.append((y + Df[:, None] * xc)[:, :n])
+        w = torch.exp((G[:, None, :] - g).float()) * dtc  # (B, s, H)
+        xw_hi, xw_lo = _bf16_split(xc * w[..., None])
+        h = (torch.exp(G.float())[..., None, None] * h
+             + torch.einsum("bshp,bsn->bhpn", xw_hi, Bc)
+             + torch.einsum("bshp,bsn->bhpn", xw_lo, Bc))
+    return torch.cat(ys, dim=1).to(torch.bfloat16), h
+
+
+@pytest.mark.parametrize("B,S,H,P,N", [
+    (1, 256, 2, 64, 128),   # mamba2-370m's head: P 64, N 128
+    (1, 300, 2, 64, 16),    # hymba-1.5b's: N 16; a ragged last chunk
+])
+def test_ssd_tensor_core_rounding_fits_the_bound(B, S, H, P, N):
+    """The bf16 SSD kernel's design, emulated, on bf16 inputs against the JAX
+    kernel (interpret mode) and the JAX plain scan: y within the bf16 kernel
+    tolerance, the f32 state within the 2e-3 that chip_smoke.py holds the
+    kernel's state to (SSD_TOL). A single bf16 rounding of S would be allowed
+    only within half the y tolerance; it is not, hence S's hi + lo split."""
+    x, dt, A, Bm, C, D = _ssd_inputs(B, S, H, P, N, seed=N)
+    (jx, tx), (jdt, tdt), (jb, tb), (jc, tc) = (_both(a, "bfloat16") for a in (x, dt, Bm, C))
+    jA, jD, tA, tD = jnp.asarray(A), jnp.asarray(D), torch.from_numpy(A), torch.from_numpy(D)
+    y, state = _ssd_tensor_core_emulation(tx, tdt, tA, tb, tc, tD, chunk=DEFAULT_CHUNK)
+    assert y.shape == (B, S, H, P) and state.shape == (B, H, P, N)
+    jy, jstate = jax_ssd(jx, jdt, jA, jb, jc, jD, chunk=DEFAULT_CHUNK)
+    ey, estate = jref.ssd_scan(jx, jdt, jA, jb, jc, jD, return_state=True)
+    for want_y, want_state in ((jy, jstate), (ey, estate)):
+        _assert_close(y, want_y, "bfloat16")
+        np.testing.assert_allclose(_np(state), _np(want_state), atol=2e-3, rtol=0)
+    # the splits and the chunking are real: the emulation is not the plain version
+    plain_y, plain_state = ssd_scan_fwd(tx, tdt, tA, tb, tc, tD)
+    assert not (torch.equal(y, plain_y) and torch.equal(state, plain_state))
+    y_once, _ = _ssd_tensor_core_emulation(tx, tdt, tA, tb, tc, tD, chunk=DEFAULT_CHUNK,
+                                           split_scores=False)
+    atol, rtol = _TOL["bfloat16"]
+    ref_y = _np(ey)
+    assert float((np.abs(_np(y_once) - ref_y) / (atol + rtol * np.abs(ref_y))).max()) > 0.5
+
+
+def _xbc_views(B, S, H, P, N, dtype, *, offset=0, pad=0):
+    """x (B, S, H, P), Bm and C (B, S, N): views of one (B, S, H*P + 2N + pad)
+    tensor whose data starts `offset` elements into its buffer, as the model
+    hands them over; dt (B, S, H) contiguous."""
+    width = H * P + 2 * N + pad
+    xbc = torch.zeros(B * S * width + offset, dtype=dtype)[offset:].view(B, S, width)
+    x, Bm, C, _ = torch.split(xbc, [H * P, N, N, pad], dim=-1)
+    return x.reshape(B, S, H, P), torch.zeros(B, S, H, dtype=dtype), Bm, C
+
+
+@pytest.mark.parametrize("shape", [(4, 2048, 32, 64, 128), (2, 1024, 50, 64, 16),
+                                   (1, 128, 2, 32, 16), (1, 64, 1, 16, 8), (3, 1, 4, 64, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_plan_picks_the_path_by_dtype(shape, dtype):
+    """bf16 takes the tensor cores, f32 the CUDA cores, on the model's views of
+    one conv output at mamba2's, hymba's and the test shapes."""
+    x, dt, Bm, C = _xbc_views(*shape, _TORCH[dtype])
+    want = "tensor_cores" if dtype == "bfloat16" else "cuda_cores"
+    assert _ssd_plan(x, dt, Bm, C, DEFAULT_CHUNK) == want
+
+
+@pytest.mark.parametrize("case", ["base_pointer", "row_stride", "chunk", "head_size",
+                                  "state_width", "last_dim", "dtype"])
+def test_ssd_plan_rejects(case):
+    """Each operand the bf16 kernel does not take raises in the wrapper, before
+    any launch; the f32 kernel copies no 16-byte chunks and takes unaligned
+    views."""
+    def operands(dtype):
+        shape, chunk = (2, 256, 4, 64, 32), DEFAULT_CHUNK
+        kw = {}
+        if case == "base_pointer":  # one element past a 16-byte boundary
+            kw = {"offset": 1}
+        elif case == "row_stride":  # rows 325 elements apart
+            kw = {"pad": 5}
+        elif case == "chunk":
+            chunk = 256
+        elif case == "head_size":
+            shape = (2, 256, 4, 24, 32)
+        elif case == "state_width":
+            shape = (2, 256, 4, 64, 12)
+        x, dt, Bm, C = _xbc_views(*shape, dtype, **kw)
+        if case == "last_dim":
+            x = x.transpose(2, 3).contiguous().transpose(2, 3)
+        elif case == "dtype":
+            dt = dt.float()
+        return x, dt, Bm, C, chunk
+
+    err = TypeError if case == "dtype" else ValueError
+    with pytest.raises(err):
+        _ssd_plan(*operands(torch.bfloat16))
+    if case in ("base_pointer", "row_stride", "chunk", "head_size", "state_width"):
+        assert _ssd_plan(*operands(torch.float32)) == "cuda_cores"
 
 
 # ---------------------------------------------------------------------------
