@@ -10,7 +10,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
                print each kernel's registers, stack and spills (ptxas -v);
   3. kernels - each kernel (RMSNorm, flash attention, SSD scan) against its
                plain PyTorch version at the shapes of the main paths and the
-               edge cases of the JAX tests, timed beside its plain version,
+               edge cases of the JAX tests (RMSNorm also at every width of the
+               JAX configs and on the q/k head views of a fused qkv row, read
+               in place; an unaligned view is refused), timed beside its plain version,
                its bound and a library call where one exists. Each time is
                given twice: `ms`, the device time per call (the durations of
                the CUDA kernels that torch.profiler records over N calls,
@@ -27,7 +29,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
                forcing, and the device's busy share while decoding;
   6. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-5, with
                the launches its wrapper counted there at that shape, beside
-               F.rms_norm at the same shape; then the
+               F.rms_norm at the same shape and the launch floor (a one-block
+               elementwise op), at D = 128 also on k head views; then the
                order of the kernel redesigns, each kernel's launches on the
                main paths x (device ms - bound ms), RMSNorm summed over its
                shapes; a JSON line with one entry per kernel, and a last JSON
@@ -130,8 +133,10 @@ def time_ms(fn, arg_sets, iters: int = 20) -> tuple[float, float]:
     loses the device events of short calls (8 of 20 RMSNorm launches on an
     H100). Traces are taken until two hold the same number of events, the
     most any held and a multiple of the calls; at most twelve (the plain
-    RMSNorm's nine kernels a call have taken more than five on an H100); a
-    timing that took more than two says so. call_ms: CUDA events around a
+    RMSNorm's nine kernels a call have taken more than five on an H100),
+    after which the fullest trace counts if it holds a multiple of the calls
+    (a long trace may lose a few events in every take); a timing that took
+    more than two says so. call_ms: CUDA events around a
     loop of calls, which is the host's dispatch rate when that is slower."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -161,7 +166,14 @@ def time_ms(fn, arg_sets, iters: int = 20) -> tuple[float, float]:
         if len(events) > len(best):
             best = events
     else:
-        raise SmokeFailure(f"the profiler's traces of {iters} calls held {seen} device events")
+        # no two agreed: the fullest, if it holds whole calls (the plain SSD's
+        # 28720 events a trace came whole once in twelve traces on an H100)
+        if not best or len(best) % iters:
+            raise SmokeFailure(f"the profiler's traces of {iters} calls held {seen} device "
+                               f"events")
+        events = best
+        log("timing", f"no two of the profiler's traces agreed; took the fullest, "
+            f"{len(best)} events")
     if len(seen) > 2:
         log("timing", f"the profiler's traces of {iters} calls held {seen} device events")
     dev_us = sum(e.time_range.elapsed_us() for e in events)
@@ -171,6 +183,15 @@ def time_ms(fn, arg_sets, iters: int = 20) -> tuple[float, float]:
     end.record()
     end.synchronize()
     return dev_us / 1e3 / iters, start.elapsed_time(end) / iters
+
+
+def warm_up(fn, arg_sets, calls: int = 200) -> None:
+    """Calls enough to bring the card's clocks up after a pause (making
+    inputs, checking outputs): without them, the first timing of a short
+    kernel after one reads slower than the same kernel timed again."""
+    for i in range(calls):
+        fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.synchronize()
 
 
 def copies(make, nbytes: int):
@@ -199,7 +220,7 @@ def _kernel_name(mangled: str) -> str:
     args = re.findall(r"Li(\d+)E", tmpl)
     if "bfloat16" in tmpl:
         args.append("bf16")
-    elif tmpl == "If":
+    elif tmpl.startswith("If"):
         args.append("f32")
     return f"{mangled[m.end():end]}<{', '.join(args)}>"
 
@@ -222,6 +243,26 @@ def ptxas_summary(text: str) -> list[str]:
                         f"{frame[1]} B, spill loads {frame[2]} B")
             name = None
     return rows
+
+
+def _fold_rmsnorm_configs(rows: list[str]) -> list[str]:
+    """ptxas_summary's lines with those of the RMSNorm vector kernel's
+    configurations folded into one a dtype: registers from least to most,
+    stack and spills (the full list is in the build log)."""
+    out, vec = [], collections.defaultdict(list)
+    for line in rows:
+        m = re.match(r"rmsnorm_vec_kernel<(.*), (bf16|f32)>: (\d+) registers, (.*)", line)
+        if m:
+            vec[m.group(2)].append((int(m.group(3)), m.group(1), m.group(4)))
+        else:
+            out.append(line)
+    for dtype, regs in vec.items():
+        lo, hi = min(regs), max(regs)
+        frames = sorted({r[2] for r in regs})
+        out.append(f"rmsnorm_vec_kernel {dtype}: {len(regs)} configurations (LPR, VPT, RPT, "
+                   f"THREADS), {lo[0]} registers <{lo[1]}> to {hi[0]} <{hi[1]}>; "
+                   f"{' / '.join(frames)}")
+    return out
 
 
 def build_kernels() -> list[str]:
@@ -262,24 +303,95 @@ def _rmsnorm_inputs(rows, D, dtype, g, dev):
                     torch.ones(D, device=dev, dtype=dtype))
 
 
+def _fused_view(tokens, H, Hkv, D, dtype, g, dev, which="q", offset=0):
+    """The q or k heads of a fused (tokens, (H + 2 Hkv) D) projection output,
+    as the attention sub-layer hands them to the norm: (tokens, heads, D) with
+    row strides ((H + 2 Hkv) D, D). offset: elements the buffer starts past
+    its allocation (1 puts a bf16 view off the 16-byte grid)."""
+    W = (H + 2 * Hkv) * D
+    buf = torch.randn(tokens * W + offset, generator=g, device=dev).to(dtype)
+    fused = buf[offset:].view(tokens, W)
+    q, k, _ = torch.split(fused, [H * D, Hkv * D, Hkv * D], dim=-1)
+    return (q if which == "q" else k).reshape(tokens, -1, D)
+
+
+# K1's correctness cases: the widths of the JAX configs and of the main paths
+# at these row counts (32768 rows of the widest in both types: 1 GB of f32),
+# and the q/k views of the fused product at these token counts
+RMSNORM_WIDTHS = (64, 80, 128, 384, 1024, 1536, 1600, 4096, 5120, 8192)
+RMSNORM_ROWS = (1, 3, 4, 32, 1000, 32768)
+RMSNORM_VIEW_HEADS = ((32, 8, 128), (32, 8, 64), (32, 8, 80))  # H, Hkv, head_dim
+RMSNORM_VIEW_TOKENS = (1, 3, 4, 32, 1000, 1024)
+
+
 def rmsnorm_phase(dev) -> dict:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels._build import load_kernels
+    from repro_torch.kernels.rmsnorm import row_layout, rmsnorm_fwd
 
     g = torch.Generator(device=dev).manual_seed(1)
     # (rows, D): forward ln over B*S=1024 rows of d=4096, q/k norms over
-    # B*S*32 and B*S*8 rows of head_dim 128, decode rows (B=4), edge widths
+    # B*S*32 and B*S*8 rows of head_dim 128, decode rows (B=4), edge widths;
+    # then every width of RMSNORM_WIDTHS at every row count of RMSNORM_ROWS
     cases = [(1024, 4096), (32768, 128), (8192, 128), (4, 4096), (128, 128),
              (1000, 16), (1000, 80), (1000, 8192), (3, 100)]
+    cases += [(rows, D) for D in RMSNORM_WIDTHS for rows in RMSNORM_ROWS]
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for rows, D in cases:
+        before = collections.Counter(rmsnorm_fwd.paths)
+        n_views = 0
+        for i, (rows, D) in enumerate(cases):
             x = torch.randn(rows, D, generator=g, device=dev).to(dtype)
             w = (1.0 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype)
-            e, ok = err_vs(rmsnorm_fwd(x, w), ref.rmsnorm(x, w), dtype)
+            y = rmsnorm_fwd(x, w)
+            e, ok = err_vs(y, ref.rmsnorm(x, w), dtype)
             worst = max(worst, e)
-            log("kernels", f"rmsnorm {str(dtype)[6:]} rows={rows} D={D} max_abs_err={e:.3e} ok={ok}")
+            if i < 9 or not ok:
+                log("kernels", f"rmsnorm {str(dtype)[6:]} rows={rows} D={D} max_abs_err={e:.3e} "
+                    f"ok={ok}")
             check(ok, f"rmsnorm {dtype} ({rows}, {D}) off by {e}")
+        for (H, Hkv, D), tokens, which in itertools.product(
+                RMSNORM_VIEW_HEADS, RMSNORM_VIEW_TOKENS, ("q", "k")):
+            x = _fused_view(tokens, H, Hkv, D, dtype, g, dev, which)
+            w = (1.0 + 0.1 * torch.randn(D, generator=g, device=dev)).to(dtype)
+            y = rmsnorm_fwd(x, w)
+            e, ok = err_vs(y, ref.rmsnorm(x, w), dtype)
+            ok = ok and y.is_contiguous() and y.shape == x.shape
+            worst = max(worst, e)
+            n_views += 1
+            if (tokens, D) == (1024, 128) or not ok:
+                log("kernels", f"rmsnorm {str(dtype)[6:]} {which} view of a fused row, "
+                    f"{tokens} tokens x {x.shape[1]} heads, D={D}, layout {row_layout(x)}: "
+                    f"max_abs_err={e:.3e} ok={ok}")
+            check(ok, f"rmsnorm {dtype} {which} view {(tokens, H, Hkv, D)} off by {e}")
+        took = collections.Counter(rmsnorm_fwd.paths) - before
+        log("kernels", f"rmsnorm {str(dtype)[6:]}: {len(cases)} contiguous cases and "
+            f"{n_views} q/k views held ref.rmsnorm at TOL; kernels {dict(took)}")
+        # rows of whole 16-byte vectors take the vector kernel, (3, 100) in
+        # bf16 the scalar one
+        n_scalar = sum(D * x.element_size() % 16 != 0 for _, D in cases)
+        check(took == collections.Counter(vector=len(cases) - n_scalar + n_views,
+                                          scalar=n_scalar),
+              f"rmsnorm {dtype} took the kernels {dict(took)}")
+
+    # a strided bf16 view off the 16-byte grid: the wrapper refuses it, and so
+    # does the launcher behind it; no launch is counted
+    x = _fused_view(4, 32, 8, 128, torch.bfloat16, g, dev, "k", offset=1)
+    w = torch.ones(128, device=dev, dtype=torch.bfloat16)
+    before = rmsnorm_fwd.launches
+    _, n_inner, s_outer, s_inner = row_layout(x)
+    for launch in (lambda: rmsnorm_fwd(x, w),
+                   lambda: load_kernels().rmsnorm_fwd(
+                       x, w, torch.empty(x.shape, device=dev, dtype=x.dtype), 1e-6, n_inner,
+                       s_outer, s_inner)):
+        try:
+            launch()
+            torch.cuda.synchronize()
+        except (ValueError, RuntimeError) as exc:
+            log("kernels", f"rmsnorm bf16 unaligned view refused: {str(exc).splitlines()[0]}")
+        else:
+            raise SmokeFailure("an unaligned bf16 rmsnorm view was launched")
+    check(rmsnorm_fwd.launches == before, "an unaligned rmsnorm launch was counted")
 
     rows, D = 1024, 4096
     sets = copies(_rmsnorm_inputs(rows, D, torch.bfloat16, g, dev), (2 * rows * D + D) * 2)
@@ -298,24 +410,46 @@ def rmsnorm_phase(dev) -> dict:
 
 def rmsnorm_shape_times(dev, shapes: collections.Counter) -> list[dict]:
     """RMSNorm (bf16) at each (rows, D) of the main paths, with the launches
-    its wrapper counted there at that shape, beside F.rms_norm."""
+    its wrapper counted there at that shape, beside F.rms_norm and the launch
+    floor (the device time of a one-block elementwise op on 8 bf16 values),
+    each timed here. At D = 128 (the q/k norms) also on the same rows read in
+    place as the k heads of qwen3-8b's fused qkv rows (8 of 48 heads a row)."""
     from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 
     g = torch.Generator(device=dev).manual_seed(7)
+    eight = torch.ones(8, device=dev, dtype=torch.bfloat16)
+    floor_ms = time_ms(lambda a: a * 2, [(eight,)])[0]
+    log("order", f"launch floor: a one-block elementwise op on 8 bf16 values, {floor_ms:.4f} ms")
     rows_out = []
     for (rows, D), n in sorted(shapes.items(), key=lambda kv: -kv[0][0] * kv[0][1]):
         sets = copies(_rmsnorm_inputs(rows, D, torch.bfloat16, g, dev), (2 * rows * D + D) * 2)
-        ms, call_ms = time_ms(rmsnorm_fwd, sets)
-        lib_ms, lib_call_ms = time_ms(
-            lambda x, w: torch.nn.functional.rms_norm(x, (D,), w, 1e-6), sets)
+        lib = lambda x, w: torch.nn.functional.rms_norm(x, (D,), w, 1e-6)  # noqa: E731
+        warm_up(rmsnorm_fwd, sets)
+        turns = {rmsnorm_fwd: [], lib: []}
+        for fn in (rmsnorm_fwd, lib, lib, rmsnorm_fwd):
+            turns[fn].append(time_ms(fn, sets))
+        (ms, call_ms), (lib_ms, lib_call_ms) = (
+            [statistics.mean(t[i] for t in turns[fn]) for i in (0, 1)]
+            for fn in (rmsnorm_fwd, lib))
         del sets
+        view_ms = None
+        if D == 128 and rows % 8 == 0:
+            w = torch.ones(D, device=dev, dtype=torch.bfloat16)
+            make = lambda: (_fused_view(rows // 8, 32, 8, D, torch.bfloat16, g, dev, "k"), w)
+            # as many copies as of contiguous rows: what is read must pass the L2
+            view_ms = time_ms(rmsnorm_fwd, copies(make, (2 * rows * D + D) * 2))[0]
         b_ms, _ = _rmsnorm_bound(rows, D)
         rows_out.append({"rows": rows, "D": D, "launches": n, "ms": ms, "call_ms": call_ms,
-                         "library_ms": lib_ms, "library_call_ms": lib_call_ms,
-                         "bound_ms": b_ms, "gap_ms": n * (ms - b_ms)})
+                         "view_ms": view_ms, "library_ms": lib_ms,
+                         "library_call_ms": lib_call_ms, "bound_ms": b_ms,
+                         "floor_ms": floor_ms, "gap_ms": n * (ms - b_ms)})
         log("order", f"rmsnorm shape ({rows}, {D}) x {n} launches: kernel {ms:.4f} ms "
-            f"(call {call_ms:.4f}), torch rms_norm {lib_ms:.4f} ms (call {lib_call_ms:.4f}), "
-            f"bound {b_ms:.6f} ms, launches x gap {rows_out[-1]['gap_ms']:.3f} ms")
+            f"(call {call_ms:.4f}; turns {[round(t[0], 5) for t in turns[rmsnorm_fwd]]})"
+            + (f", as k views of fused rows {view_ms:.4f} ms" if view_ms is not None else "")
+            + f", torch rms_norm {lib_ms:.4f} ms (call {lib_call_ms:.4f}; turns "
+            f"{[round(t[0], 5) for t in turns[lib]]}), bound {b_ms:.6f} ms "
+            f"(bound / kernel {b_ms / ms:.3f}), floor {floor_ms:.4f} ms, launches x gap "
+            f"{rows_out[-1]['gap_ms']:.3f} ms")
     return rows_out
 
 
@@ -620,10 +754,14 @@ def forward_phase(dev, name, arch, params, counters, expect: dict, main_bs,
     ssd = next(c for c in counters if c.__name__ == "ssd_scan_fwd")
     paths = dict(ssd.paths)
     want_paths = {"tensor_cores": expect["ssd_scan_fwd"]} if expect["ssd_scan_fwd"] else {}
+    norm_paths = _norm_paths(counters)
     log("forward", f"{arch.name} B={B} S={S}: launches {counts} (expect {expect}); ssd "
-        f"launches by path {paths} (expect {want_paths})")
+        f"launches by path {paths} (expect {want_paths}); rmsnorm launches by kernel "
+        f"{norm_paths}")
     check(counts == expect, "forward launch counts")
     check(paths == want_paths, "the bf16 forward's SSD launches took another path")
+    check(norm_paths == {"vector": expect["rmsnorm_fwd"]},
+          "the forward's RMSNorm launches took another kernel")
     check(tuple(logits.shape) == (B, S, arch.vocab), f"logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
     del logits
@@ -671,6 +809,12 @@ def forward_phase(dev, name, arch, params, counters, expect: dict, main_bs,
     return counts, shapes
 
 
+def _norm_paths(counters) -> dict:
+    """RMSNorm's launches by kernel since reset_counts: on the main paths all
+    take the vector kernel, the q/k norms on views of the fused product."""
+    return dict(next(c for c in counters if c.__name__ == "rmsnorm_fwd").paths)
+
+
 def _compare_logits(got, want) -> tuple[float, float, float]:
     diff = (got.float() - want.float()).abs()
     max_abs = float(diff.max())
@@ -694,6 +838,7 @@ def serve_phase(dev, name, arch, params, counters, per_forward: dict) -> tuple[d
     reset_counts(counters)
     res = engine.generate(prompts, max_new_tokens=N)
     counts, shapes = read_counts(counters)
+    norm_paths = _norm_paths(counters)
     steps = res.step_times[res.warmup_steps:]
     med = statistics.median(steps)
     log("serve", f"{arch.name} B={B} prompt={P} new={N}: launches {counts} (expect "
@@ -701,6 +846,8 @@ def serve_phase(dev, name, arch, params, counters, per_forward: dict) -> tuple[d
         f"{med * 1e3:.3f} ms (first step {res.step_times[0] * 1e3:.3f} ms), decode "
         f"{B / med:.1f} tokens/s")
     check(counts == expect, "serve launch counts")
+    check(norm_paths == {"vector": expect["rmsnorm_fwd"]},
+          f"serve's RMSNorm launches took the kernels {norm_paths}")
     check(res.tokens.shape == (B, P + N) and (res.tokens[:, :P] == prompts).all()
           and res.tokens.min() >= 0 and res.tokens.max() < arch.vocab, "serve tokens")
     # greedy tokens against teacher forcing over the generated sequence
@@ -781,7 +928,8 @@ def main() -> int:
     t0 = time.perf_counter()
     ptxas = build_kernels()
     log("build", f"{time.perf_counter() - t0:.1f} s")
-    for line in ptxas or ["no ptxas output: the kernels were built before this run"]:
+    for line in _fold_rmsnorm_configs(ptxas) or [
+            "no ptxas output: the kernels were built before this run"]:
         log("build", f"ptxas {line}")
 
     counters = (rmsnorm_fwd, flash_attention_fwd, ssd_scan_fwd)

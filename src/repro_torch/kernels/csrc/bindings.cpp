@@ -1,6 +1,6 @@
 // PyTorch bindings of the kernels' plain C launchers (launch.h). The only
 // source that includes torch/extension.h, which dominates the build time.
-// The Python wrappers check device, dtype, shape and contiguity; the checks
+// The Python wrappers check device, dtype, shape and layout; the checks
 // here guard what would otherwise read or write out of bounds.
 #include <torch/extension.h>
 
@@ -33,19 +33,29 @@ AttnStrides strides_of(const torch::Tensor& t) {
   return AttnStrides{st(0), st(1), st(2)};
 }
 
+// x's rows as the wrapper laid them out (rmsnorm.py:row_layout): row r at
+// (r / n_inner) * s_outer + (r % n_inner) * s_inner. Checked to lie inside x's
+// storage; the launcher refuses a strided x it cannot read.
 void rmsnorm_fwd(const torch::Tensor& x, const torch::Tensor& w, torch::Tensor y,
-                 double eps) {
-  TORCH_CHECK(x.is_cuda() && x.is_contiguous() && w.is_contiguous() &&
-                  y.is_contiguous(),
-              "rmsnorm: contiguous CUDA tensors expected");
+                 double eps, int64_t n_inner, int64_t s_outer, int64_t s_inner) {
+  TORCH_CHECK(x.is_cuda() && x.dim() >= 1 && w.is_contiguous() && y.is_contiguous(),
+              "rmsnorm: CUDA x, contiguous weight and output expected");
   const int64_t dim = x.size(-1);
-  TORCH_CHECK(dim > 0 && w.numel() == dim && y.sizes() == x.sizes() &&
-                  w.scalar_type() == x.scalar_type() &&
+  TORCH_CHECK(dim > 0 && dim < (int64_t{1} << 31) && (dim == 1 || x.stride(-1) == 1) && w.numel() == dim &&
+                  y.sizes() == x.sizes() && w.scalar_type() == x.scalar_type() &&
                   y.scalar_type() == x.scalar_type(),
-              "rmsnorm: shape or dtype mismatch");
+              "rmsnorm: shape, last-dim stride or dtype mismatch");
+  const int64_t rows = x.numel() / dim;
+  TORCH_CHECK(n_inner >= 1 && rows % n_inner == 0 && s_outer >= 0 && s_inner >= 0,
+              "rmsnorm: bad row layout");
+  const int64_t end = x.storage_offset() + (rows / n_inner - 1) * s_outer +
+                      (n_inner - 1) * s_inner + dim;
+  TORCH_CHECK(end * static_cast<int64_t>(x.element_size()) <=
+                  static_cast<int64_t>(x.storage().nbytes()),
+              "rmsnorm: the row layout reaches past x's storage");
+  const RmsNormRows p{rows, static_cast<int>(dim), n_inner, s_outer, s_inner};
   const c10::cuda::CUDAGuard guard(x.device());
-  check_launch(repro_rmsnorm_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                 x.numel() / dim, static_cast<int>(dim),
+  check_launch(repro_rmsnorm_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), p,
                                  static_cast<float>(eps), dtype_code(x),
                                  c10::cuda::getCurrentCUDAStream().stream()),
                "rmsnorm");

@@ -8,10 +8,26 @@
 
 enum ReproDtype { REPRO_F32 = 0, REPRO_BF16 = 1 };
 
-// y[r, :] = x[r, :] * rsqrt(mean(x[r, :]^2) + eps) * w, for rows x dim
-// contiguous row-major x and y, in the element type `dtype`.
+// The rows of an RMSNorm input: `rows` rows of `dim` contiguous elements,
+// row r at element (r / n_inner) * s_outer + (r % n_inner) * s_inner of x
+// (the leading dims collapsed into at most two levels).
+struct RmsNormRows {
+  int64_t rows;
+  int dim;
+  int64_t n_inner;  // divides rows
+  int64_t s_outer, s_inner;
+};
+
+// Most 16-byte vectors a row the vector kernel takes (1024 threads x 4).
+constexpr int REPRO_RMSNORM_MAX_VECTORS = 4096;
+
+// y[r, :] = x[r, :] * rsqrt(mean(x[r, :]^2) + eps) * w, y contiguous
+// (rows, dim), in the element type `dtype`. Rows of whole 16-byte vectors
+// with x, w and y 16-byte aligned and both strides multiples of the vector
+// take the vector kernel; any other x must have row r at r * dim
+// (cudaErrorMisalignedAddress otherwise) and takes the scalar kernels.
 cudaError_t repro_rmsnorm_fwd(const void* x, const void* w, void* y,
-                              int64_t rows, int dim, float eps, int dtype,
+                              const RmsNormRows& p, float eps, int dtype,
                               cudaStream_t stream);
 
 // Element strides of a (B, H, seq, D) operand whose last dim is contiguous.

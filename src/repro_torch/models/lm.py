@@ -165,10 +165,10 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
     k = k.reshape(B, S, Hkv, D)
     v = v.reshape(B, S, Hkv, D)
     if arch.qk_norm:
-        # normalised before the head transpose: the same numbers as the JAX
-        # package, with rows the norm kernel can read contiguously
-        q = L.norm(q.contiguous(), p["q_norm"], impl=cfg.norm_impl)
-        k = L.norm(k.contiguous(), p["k_norm"], impl=cfg.norm_impl)
+        # normalised before the head transpose, as the JAX package does; the
+        # norm kernel reads the q and k views of the fused product in place
+        q = L.norm(q, p["q_norm"], impl=cfg.norm_impl)
+        k = L.norm(k, p["k_norm"], impl=cfg.norm_impl)
     q = L.rope(q.transpose(1, 2), positions)
     k = L.rope(k.transpose(1, 2), positions)
     v = v.transpose(1, 2)
