@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference paths on one CUDA card: the dense
-family (qwen3-8b) and the ssm family (mamba2-370m).
+"""Drive the PyTorch port's inference and training paths on one CUDA card:
+the dense family (qwen3-8b) and the ssm family (mamba2-370m).
 
     python3 chip_smoke.py
 
@@ -27,7 +27,19 @@ Phases, each reported on its own lines; any failure exits non-zero:
                plain versions and the cached path agree;
   5. serve   - per model, ServeEngine.generate, checked against teacher
                forcing, and the device's busy share while decoding;
-  6. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-5, with
+  6. train   - qwen3-8b at full width and 8 of its 36 layers (f32 AdamW at
+               full depth needs 131 GB): five make_train_step steps through
+               the kernels (wall, forward + backward and optimizer ms, peak
+               memory, launches per step, busy share, train_mfu); one step
+               under each remat policy from the same params (losses, peak
+               memory, launches, recomputed weight products); loss and every
+               grad through the kernels against the plain versions and the
+               "xla" path in f32 at 2 layers, and against the plain versions
+               in bf16 at 2 layers and the five steps' B, S (the shapes at
+               which the train step calls K1 and K2); the train driver on
+               the reduced config; one mamba2-370m step at 2 of 48 layers,
+               timed;
+  7. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-6, with
                the launches its wrapper counted there at that shape, beside
                F.rms_norm at the same shape and the launch floor (a one-block
                elementwise op), at D = 128 also on k head views; then the
@@ -55,6 +67,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
@@ -67,7 +80,7 @@ L2_BYTES = 50 * 2 ** 20
 # f32: 2e-5, as the JAX tests.
 TOL = {torch.bfloat16: (2e-2, 2.0 ** -7), torch.float32: (2e-5, 0.0)}
 # lse is f32 from either input type: log(T) plus the row max, below 20 here;
-# sums of up to 512 terms in another order differ by a few f32 ulps of it.
+# sums of up to 1024 terms in another order differ by a few f32 ulps of it.
 LSE_TOL = 1e-4
 # bf16 forward, kernels vs plain versions, per model: (max abs logit
 # difference, argmax agreement, also held by serve's greedy tokens against
@@ -321,7 +334,7 @@ def _fused_view(tokens, H, Hkv, D, dtype, g, dev, which="q", offset=0):
 RMSNORM_WIDTHS = (64, 80, 128, 384, 1024, 1536, 1600, 4096, 5120, 8192)
 RMSNORM_ROWS = (1, 3, 4, 32, 1000, 32768)
 RMSNORM_VIEW_HEADS = ((32, 8, 128), (32, 8, 64), (32, 8, 80))  # H, Hkv, head_dim
-RMSNORM_VIEW_TOKENS = (1, 3, 4, 32, 1000, 1024)
+RMSNORM_VIEW_TOKENS = (1, 3, 4, 32, 1000, 1024, 4096)  # 4096: the train step's B x S
 
 
 def rmsnorm_phase(dev) -> dict:
@@ -330,12 +343,13 @@ def rmsnorm_phase(dev) -> dict:
     from repro_torch.kernels.rmsnorm import row_layout, rmsnorm_fwd
 
     g = torch.Generator(device=dev).manual_seed(1)
-    # (rows, D): forward ln over B*S=1024 rows of d=4096, q/k norms over
-    # B*S*32 and B*S*8 rows of head_dim 128, decode rows (B=4), edge widths;
-    # then every width of RMSNORM_WIDTHS at every row count of RMSNORM_ROWS
-    cases = [(1024, 4096), (32768, 128), (8192, 128), (4, 4096), (128, 128),
-             (1000, 16), (1000, 80), (1000, 8192), (3, 100)]
-    cases += [(rows, D) for D in RMSNORM_WIDTHS for rows in RMSNORM_ROWS]
+    # (rows, D): forward ln over B*S=1024 rows of d=4096 and train ln over
+    # B*S=4096, q/k norms over B*S*32 and B*S*8 rows of head_dim 128 (train:
+    # 131072 and 32768), decode rows (B=4), edge widths; then every width of
+    # RMSNORM_WIDTHS at every row count of RMSNORM_ROWS
+    named = [(1024, 4096), (4096, 4096), (32768, 128), (131072, 128), (8192, 128),
+             (4, 4096), (128, 128), (1000, 16), (1000, 80), (1000, 8192), (3, 100)]
+    cases = named + [(rows, D) for D in RMSNORM_WIDTHS for rows in RMSNORM_ROWS]
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         before = collections.Counter(rmsnorm_fwd.paths)
@@ -346,7 +360,7 @@ def rmsnorm_phase(dev) -> dict:
             y = rmsnorm_fwd(x, w)
             e, ok = err_vs(y, ref.rmsnorm(x, w), dtype)
             worst = max(worst, e)
-            if i < 9 or not ok:
+            if i < len(named) or not ok:
                 log("kernels", f"rmsnorm {str(dtype)[6:]} rows={rows} D={D} max_abs_err={e:.3e} "
                     f"ok={ok}")
             check(ok, f"rmsnorm {dtype} ({rows}, {D}) off by {e}")
@@ -359,7 +373,7 @@ def rmsnorm_phase(dev) -> dict:
             ok = ok and y.is_contiguous() and y.shape == x.shape
             worst = max(worst, e)
             n_views += 1
-            if (tokens, D) == (1024, 128) or not ok:
+            if D == 128 and tokens >= 1024 or not ok:
                 log("kernels", f"rmsnorm {str(dtype)[6:]} {which} view of a fused row, "
                     f"{tokens} tokens x {x.shape[1]} heads, D={D}, layout {row_layout(x)}: "
                     f"max_abs_err={e:.3e} ok={ok}")
@@ -409,7 +423,7 @@ def rmsnorm_phase(dev) -> dict:
 
 
 def rmsnorm_shape_times(dev, shapes: collections.Counter) -> list[dict]:
-    """RMSNorm (bf16) at each (rows, D) of the main paths, with the launches
+    """RMSNorm (bf16) at each (rows, D) of the main paths (phases 4-6), with the launches
     its wrapper counted there at that shape, beside F.rms_norm and the launch
     floor (the device time of a one-block elementwise op on 8 bf16 values),
     each timed here. At D = 128 (the q/k norms) also on the same rows read in
@@ -476,6 +490,7 @@ def flash_phase(dev) -> dict:
     cases = [  # B, Hq, Hkv, S, T, D, causal
         (2, 32, 8, 512, 512, 128, True),    # the forward's shape (GQA)
         (2, 32, 8, 512, 512, 128, False),
+        (4, 32, 8, 1024, 1024, 128, True),  # the train step's shape
         (1, 8, 1, 512, 512, 64, True),      # MQA
         (1, 8, 8, 512, 512, 64, False),     # MHA
         (1, 4, 2, 200, 200, 128, True),     # uneven T
@@ -903,6 +918,419 @@ def model_phases(dev, name: str, counters, expect_forward: dict, expect_cached: 
     return [fwd, srv]
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+# qwen3-8b at full width, cut to 8 of its 36 layers: f32 AdamW at full depth
+# keeps 8.191e9 params x 16 B (weights, grads, two moments) = 131 GB against the
+# card's 80 GB. At 8 layers, 2.788e9 params take 44.6 GB, beside the bf16 cast
+# (5.6 GB), the logits (~8 GB at 4096 tokens) and the activations.
+TRAIN_LAYERS = 8
+TRAIN_BS = (4, 1024)
+TRAIN_STEPS = 5
+# The first loss of random weights: the final norm's output has unit RMS and
+# the head's entries variance 1/d, so the logits are ~N(0, 1), and the
+# expected cross-entropy of N(0, s^2) logits is ln(vocab) + s^2 / 2 (12.43 at
+# qwen3's vocab; 12.34 at a 512-wide CPU run of the same init).
+FIRST_LOSS_TOL = 0.25
+# Remat: every policy runs the same bf16 forward on the same params (lr 0), so
+# the losses agree unless cuBLAS takes another algorithm for a product in one
+# run; this bounds that by a bf16 rounding of the logits averaged over the
+# B x (S - 1) positions.
+REMAT_LOSS_TOL = 1e-3
+# Kernels against the plain versions and the "xla" path, one f32 step at 2
+# layers: the loss, and each grad leaf by max |diff| over the leaf's max
+# |value|, within 1e-4, the CPU parity bound of tests/test_torch_train.py: f32
+# products summed in another order, and the plain VJPs of the backward run at
+# saved activations that the kernels rounded differently.
+TRAIN_F32_REL = 1e-4
+# The same step in bf16 at the train path's own B, S (so K1 and K2 run at the
+# 8-layer path's shapes), kernels against plain. The loss: the paths round the
+# bf16 activations differently, which moves each position's logits by about a
+# bf16 rounding, 2^-8 of |logit| ~ 1 (N(0, 1) logits at init), at random, so
+# the mean over 4 x 1023 positions moves by ~3.9e-3 / sqrt(4092) = 6e-5 (an
+# H100 read 1.0e-4; 5e-5 at B=2). 1e-3 is ten times that reading. The
+# wrong kernels of tools/train_parity_control.py moved it by 1.6e-3 to 0.34.
+TRAIN_BF16_LOSS_TOL = 1e-3
+# Each grad leaf by max |diff| over the leaf's max |value|: the backward runs
+# the plain VJPs at activations the kernels rounded differently, so the grads
+# differ by bf16 roundings carried through two layers. An H100 read 2.1e-2 at
+# worst (q_norm; the other leaves 0.9-1.3e-2); the wrong kernels of
+# tools/train_parity_control.py read 0.105 (softmax scale 5% high) and up.
+TRAIN_BF16_GRAD_REL = 5e-2
+H100_BF16_FLOPS = PEAK_OPS_PER_S[torch.bfloat16]
+
+
+class OptimizerTimer:
+    """Wraps ``adamw_update`` where ``make_train_step`` calls it (a global of
+    repro_torch.train.train_step) for the ``with`` block: records a CUDA event
+    at its entry and exit, and the peak memory so far at its entry, which is
+    the forward and backward's peak."""
+
+    def __enter__(self):
+        from repro_torch.train import train_step
+
+        self._module, self._real = train_step, train_step.adamw_update
+        self.events, self.fwd_bwd_peak = [], []
+
+        def timed(*args, **kwargs):
+            enter, leave = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            enter.record()
+            self.fwd_bwd_peak.append(torch.cuda.max_memory_allocated())
+            out = self._real(*args, **kwargs)
+            leave.record()
+            self.events.append((enter, leave))
+            return out
+
+        train_step.adamw_update = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._module.adamw_update = self._real
+
+
+def timed_step(step, params, opt, batch, timer: OptimizerTimer):
+    """One train step: wall ms to the loss on the host; forward + backward and
+    optimizer ms by CUDA events (the optimizer's from timer)."""
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    params, opt, metrics = step(params, opt, batch)
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    enter, leave = timer.events[-1]
+    return params, opt, {"wall_ms": wall, "fwd_bwd_ms": start.elapsed_time(enter),
+                         "opt_ms": enter.elapsed_time(leave), "loss": loss, "grad_norm": gnorm}
+
+
+class CountMM(TorchDispatchMode):
+    """Counts aten.mm calls: the weight products x @ W."""
+
+    def __init__(self):
+        super().__init__()
+        self.mm = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.mm += func == torch.ops.aten.mm.default
+        return func(*args, **(kwargs or {}))
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def train_mfu_flops(arch, B: int, S: int) -> float:
+    """Model FLOPs of one train step: 6 x the matmul params (the layers' four
+    weight products and the lm head) x tokens, plus causal attention's
+    6 L S H D x tokens (QK^T and PV, 2 S D a head each over half the keys, x3
+    for forward and backward)."""
+    d, H, Hkv, D, F = arch.hidden, arch.heads, arch.kv_heads, arch.head_dim, arch.ffn
+    per_layer = d * (H + 2 * Hkv) * D + H * D * d + d * 2 * F + F * d
+    matmul_params = arch.num_layers * per_layer + d * arch.vocab
+    tokens = B * S
+    return 6.0 * matmul_params * tokens + 6.0 * arch.num_layers * S * H * D * tokens
+
+
+def _leaf_rels(got, want) -> list[float]:
+    """Each leaf's max |got - want| / max |want|."""
+    return [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+def _leaf_rel(got, want) -> tuple[float, int]:
+    """Worst leaf's max |got - want| / max |want|, and its index."""
+    rel = _leaf_rels(got, want)
+    i = max(range(len(rel)), key=rel.__getitem__)
+    return rel[i], i
+
+
+def train_steps_phase(dev, counters, card: str) -> tuple[dict, dict]:
+    """Five steps at TRAIN_BS through the kernels, a profiled step, then one
+    step under each remat policy. Returns read_counts of the five steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.train import TrainStepCfg, adamw_init, make_train_step
+
+    arch = dataclasses.replace(get_arch("qwen3-8b"), num_layers=TRAIN_LAYERS)
+    B, S = TRAIN_BS
+    L = arch.num_layers
+    log("train", f"qwen3-8b at full width, {L} of its 36 layers (f32 AdamW at full depth "
+        f"keeps 8.191e9 params x 16 B = 131 GB against 80 GB), B={B} S={S}: f32 master "
+        f"weights, bf16 compute, uniform random tokens")
+    t0 = time.perf_counter()
+    params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(0), torch.float32,
+                            dev)
+    opt = adamw_init(params)
+    batch = {"tokens": torch.randint(0, arch.vocab, (B, S), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(8))}
+    cfg = lm.ModelCfg(dtype=torch.bfloat16)
+    step = make_train_step(arch, cfg, TrainStepCfg(num_microbatches=1, warmup_steps=2,
+                                                   total_steps=10))
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    log("train", f"params {n_params / 1e9:.4f} B, params + AdamW state "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB, init {time.perf_counter() - t0:.1f} s")
+
+    reset_counts(counters)
+    rows, peak = [], 0
+    with OptimizerTimer() as timer:
+        for i in range(TRAIN_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            params, opt, r = timed_step(step, params, opt, batch, timer)
+            rows.append(r)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            log("train", f"step {i}: wall {r['wall_ms']:.1f} ms, forward + backward "
+                f"{r['fwd_bwd_ms']:.1f} ms, optimizer {r['opt_ms']:.1f} ms, loss "
+                f"{r['loss']:.4f}, grad_norm {r['grad_norm']:.4f}, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (forward + backward "
+                f"{timer.fwd_bwd_peak[-1] / 1e9:.2f})")
+    counts, shapes = read_counts(counters)
+    norm_paths = _norm_paths(counters)
+    per_step = {"rmsnorm_fwd": 4 * L + 1, "flash_attention_fwd": L, "ssd_scan_fwd": 0}
+    expect = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    log("train", f"peak memory {peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB; forward + "
+        f"backward {max(timer.fwd_bwd_peak) / 1e9:.2f} GB); launches {counts} over "
+        f"{TRAIN_STEPS} steps, per step {per_step} expected; rmsnorm launches by kernel "
+        f"{norm_paths}")
+    check(counts == expect, "train launch counts")
+    check(norm_paths == {"vector": expect["rmsnorm_fwd"]},
+          "the train step's RMSNorm launches took another kernel")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows),
+          "non-finite train loss or grad_norm")
+    first_want = math.log(arch.vocab) + 0.5
+    log("train", f"first loss {rows[0]['loss']:.4f}, expected ln(vocab) + 1/2 = "
+        f"{first_want:.4f} (bound {FIRST_LOSS_TOL})")
+    check(abs(rows[0]["loss"] - first_want) <= FIRST_LOSS_TOL,
+          f"first loss {rows[0]['loss']} not within {FIRST_LOSS_TOL} of ln(vocab) + 1/2")
+    med = statistics.median(r["wall_ms"] for r in rows)
+    flops = train_mfu_flops(arch, B, S)
+    log("train", f"median step {med:.1f} ms, forward + backward "
+        f"{statistics.median(r['fwd_bwd_ms'] for r in rows):.1f} ms, optimizer "
+        f"{statistics.median(r['opt_ms'] for r in rows):.1f} ms; model FLOPs a step "
+        f"{flops:.4e}; train_mfu {flops / (H100_BF16_FLOPS * med / 1e3):.4f} (of 989 TFLOP/s "
+        f"bf16) on {card}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = device_us(prof) / 1e3
+    log("train", f"profiled step: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, "
+        f"busy share {busy_ms / wall_ms:.3f}")
+    check(busy_ms > 0, "the profiler saw no device time")
+    # by the aten op that launched each kernel (each kernel also has an entry
+    # of its own in key_averages(), and runtime markers such as "Command
+    # Buffer Full" carry device time too: neither is counted); the rest were
+    # launched outside an aten op, the port's kernels through their bindings
+    by_op = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+             if e.key.startswith("aten::") and e.self_device_time_total > 0}
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
+    log("train", "profiled step, device ms by launching op: " + ", ".join(
+        f"{k} {ms:.1f}" for k, ms in top) + f"; the other aten ops "
+        f"{sum(by_op.values()) - sum(ms for _, ms in top):.1f}; outside aten ops "
+        f"{busy_ms - sum(by_op.values()):.1f}")
+    del prof
+
+    # remat: one step each from the same params (lr 0 leaves them as they are)
+    res = {}
+    for remat in ("none", "selective", "full"):
+        fn = make_train_step(arch, dataclasses.replace(cfg, remat=remat),
+                             TrainStepCfg(num_microbatches=1, base_lr=0.0))
+        _free()
+        reset_counts(counters)
+        with CountMM() as mm, OptimizerTimer() as timer:
+            params, opt, metrics = fn(params, opt, batch)
+            loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        c, _ = read_counts(counters)
+        # the recompute hands K1 the q/k views of the recomputed (or, under
+        # "selective", the kept) qkv product: still on the vector kernel
+        check(_norm_paths(counters) == {"vector": c["rmsnorm_fwd"]},
+              f"remat {remat}: RMSNorm launches took the kernels {_norm_paths(counters)}")
+        res[remat] = {"loss": loss, "fwd_bwd_peak": timer.fwd_bwd_peak[0],
+                      "peak": torch.cuda.max_memory_allocated(), "launches": c, "mm": mm.mm}
+        log("train", f"remat {remat}: loss {loss:.6f}, peak memory forward + backward "
+            f"{res[remat]['fwd_bwd_peak'] / 1e9:.2f} GB, step {res[remat]['peak'] / 1e9:.2f} GB; "
+            f"launches {c}; aten.mm calls {mm.mm}")
+    for remat in ("selective", "full"):
+        check(abs(res[remat]["loss"] - res["none"]["loss"]) <= REMAT_LOSS_TOL,
+              f"remat {remat} changed the loss")
+        # each checkpointed layer runs its forward again, norms and attention
+        # included; the final norm lies outside the layers
+        check(res[remat]["launches"] == {"rmsnorm_fwd": 2 * 4 * L + 1,
+                                         "flash_attention_fwd": 2 * L, "ssd_scan_fwd": 0},
+              f"remat {remat} launches")
+    check(res["none"]["launches"] == per_step, "remat none launches")
+    # "selective" keeps the weight products; "full" runs again each one whose
+    # output the backward reads: all but a layer's last (mlp.wo), where the
+    # recompute stops (torch.utils.checkpoint's early stop)
+    check(res["selective"]["mm"] == res["none"]["mm"]
+          and res["full"]["mm"] == res["none"]["mm"] + 3 * L,
+          f"recomputed weight products {({k: v['mm'] for k, v in res.items()})}")
+    peaks = [res[r]["fwd_bwd_peak"] for r in ("full", "selective", "none")]
+    check(peaks == sorted(set(peaks)), f"remat peaks full < selective < none: {peaks}")
+    return counts, shapes
+
+
+def _loss_and_grads(params, arch, cfg, batch, counters):
+    """forward_train's loss and its grads with respect to every leaf of
+    params, and the kernels' launches."""
+    from repro_torch.models import lm
+
+    leaves = [t.requires_grad_() for t in _leaves(params)]
+    reset_counts(counters)
+    loss, _ = lm.forward_train(params, arch, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), grads, read_counts(counters)[0]
+
+
+def _parity_model(dev, seed: int):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+
+    arch = dataclasses.replace(get_arch("qwen3-8b"), num_layers=2)
+    return arch, lm.init_params(arch, torch.Generator(device=dev).manual_seed(seed),
+                                torch.float32, dev)
+
+
+def bf16_step_vs_plain(dev, counters) -> dict:
+    """One bf16 forward + backward of forward_train at qwen3-8b's full width,
+    2 layers and the train path's B, S (TRAIN_BS: the shapes at which the
+    8-layer path calls K1 and K2), through the kernels and through their plain
+    versions, from the same f32 params and batch. Returns the loss gap, the
+    worst grad leaf's rel (max |diff| / max |plain|), that leaf, every
+    leaf's rel and the kernels' launches."""
+    from repro_torch.models import lm
+
+    arch, params = _parity_model(dev, 13)
+    B, S = TRAIN_BS
+    batch = {"tokens": torch.randint(0, arch.vocab, (B, S), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(14))}
+    cfg = lm.ModelCfg(dtype=torch.bfloat16)
+    loss_k, grads_k, c = _loss_and_grads(params, arch, cfg, batch, counters)
+    loss_p, grads_p, _ = _loss_and_grads(params, arch, _plain(cfg), batch, counters)
+    rels = dict(zip(_leaf_names(params), _leaf_rels(grads_k, grads_p)))
+    leaf = max(rels, key=rels.get)
+    return {"loss": loss_k, "plain_loss": loss_p, "d_loss": abs(loss_k - loss_p),
+            "grad_rel": rels[leaf], "leaf": leaf, "rels": rels, "launches": c}
+
+
+def train_parity_phase(dev, counters) -> None:
+    """Loss and every grad of one f32 step at 2 layers through the kernels,
+    against the plain versions and the "xla" path; then the same in bf16 at
+    the train path's shapes, against the plain versions."""
+    from repro_torch.models import lm
+
+    arch, params = _parity_model(dev, 9)
+    batch = {"tokens": torch.randint(0, arch.vocab, (2, 1024), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(10))}
+    names = list(_leaf_names(params))
+
+    def loss_and_grads(impl):
+        cfg = lm.ModelCfg(dtype=torch.float32, attn_impl=impl, norm_impl=impl)
+        return _loss_and_grads(params, arch, cfg, batch, counters)
+
+    loss_k, grads_k, c = loss_and_grads("cuda")
+    check(c == {"rmsnorm_fwd": 4 * 2 + 1, "flash_attention_fwd": 2, "ssd_scan_fwd": 0},
+          f"f32 step launches {c}")
+    for other in ("torch", "xla"):
+        loss_o, grads_o, c = loss_and_grads(other)
+        check(sum(c.values()) == 0, f"the {other} path launched a kernel: {c}")
+        rel, i = _leaf_rel(grads_k, grads_o)
+        d_loss = abs(loss_k - loss_o) / abs(loss_o)
+        log("train", f"f32 step at 2 layers, B=2 S=1024, kernels vs {other}: loss {loss_k:.6f} "
+            f"vs {loss_o:.6f} (rel {d_loss:.3e}), worst grad leaf {names[i]} of {len(names)} "
+            f"rel {rel:.3e} (bound {TRAIN_F32_REL})")
+        check(d_loss <= TRAIN_F32_REL and rel <= TRAIN_F32_REL, f"f32 step vs {other}")
+        del grads_o
+    del grads_k, params
+    _free()
+    r = bf16_step_vs_plain(dev, counters)
+    log("train", f"bf16 step at 2 layers, B={TRAIN_BS[0]} S={TRAIN_BS[1]}, kernels vs plain: "
+        f"loss {r['loss']:.6f} vs {r['plain_loss']:.6f} (gap {r['d_loss']:.3e}, bound "
+        f"{TRAIN_BF16_LOSS_TOL}), worst grad leaf {r['leaf']} rel {r['grad_rel']:.3e} (bound "
+        f"{TRAIN_BF16_GRAD_REL}); launches {r['launches']}")
+    check(r["launches"] == {"rmsnorm_fwd": 4 * 2 + 1, "flash_attention_fwd": 2,
+                            "ssd_scan_fwd": 0}, "bf16 step launches")
+    check(r["d_loss"] <= TRAIN_BF16_LOSS_TOL, "bf16 loss, kernels vs plain")
+    check(r["grad_rel"] <= TRAIN_BF16_GRAD_REL, "bf16 grads, kernels vs plain")
+
+
+def train_driver_phase(counters) -> None:
+    from repro_torch.launch import train as driver
+
+    reset_counts(counters)
+    argv = ["--arch", "qwen3-8b", "--reduced", "--steps", "60", "--batch", "16", "--seq", "64"]
+    res = driver.main(argv)
+    c, _ = read_counts(counters)
+    times = [t * 1e3 for t in res["step_times"]]
+    log("train", f"driver {' '.join(argv)}: loss {res['first_loss']:.4f} -> "
+        f"{res['last_loss']:.4f} (entropy floor {res['entropy_floor']:.4f}); step ms first "
+        f"{times[0]:.1f}, median {statistics.median(times):.2f}, max of the rest "
+        f"{max(times[1:]):.2f}; launches {c}")
+    check(res["last_loss"] < res["first_loss"] - 1.0, "the driver's loss did not drop by 1.0")
+    check(c == {"rmsnorm_fwd": 60 * (4 * 2 + 1), "flash_attention_fwd": 60 * 2,
+                "ssd_scan_fwd": 0}, "driver launches")
+
+
+def train_mamba_phase(dev, counters) -> tuple[dict, dict]:
+    """Two steps of mamba2-370m at full width and 2 of 48 layers, B=1 S=256,
+    through K3 (forward) and the plain scan's VJP (backward): measured, not
+    optimised."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.train import TrainStepCfg, adamw_init, make_train_step
+
+    arch = dataclasses.replace(get_arch("mamba2-370m"), num_layers=2)
+    params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(11), torch.float32,
+                            dev)
+    opt = adamw_init(params)
+    batch = {"tokens": torch.randint(0, arch.vocab, (1, 256), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(12))}
+    step = make_train_step(arch, lm.ModelCfg(dtype=torch.bfloat16), TrainStepCfg())
+    _free()
+    reset_counts(counters)
+    rows = []
+    with OptimizerTimer() as timer:
+        for _ in range(2):
+            params, opt, r = timed_step(step, params, opt, batch, timer)
+            rows.append(r)
+    counts, shapes = read_counts(counters)
+    log("train", "mamba2-370m, 2 of 48 layers, B=1 S=256, bf16: " + "; ".join(
+        f"step {i} wall {r['wall_ms']:.1f} ms, forward + backward {r['fwd_bwd_ms']:.1f} ms, "
+        f"optimizer {r['opt_ms']:.1f} ms, loss {r['loss']:.4f}" for i, r in enumerate(rows))
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {counts}")
+    check(all(math.isfinite(r["loss"]) for r in rows), "non-finite mamba2 train loss")
+    check(counts == {"rmsnorm_fwd": 2 * 3, "flash_attention_fwd": 0, "ssd_scan_fwd": 2 * 2},
+          "mamba2 train launches")
+    return counts, shapes
+
+
+def train_phase(dev, counters, card: str) -> list[tuple[dict, dict]]:
+    """Phase 6. Returns read_counts of the two main train paths (qwen3-8b's
+    five steps, mamba2's two). card: nvidia-smi's name and power limit."""
+    _free()
+    t0 = time.perf_counter()
+    runs = [train_steps_phase(dev, counters, card)]
+    _free()
+    train_parity_phase(dev, counters)
+    _free()
+    train_driver_phase(counters)
+    runs.append(train_mamba_phase(dev, counters))
+    _free()
+    log("train", f"done in {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -957,9 +1385,13 @@ def main() -> int:
          "ssd_scan_fwd": 0},
         main_bs=(4, 2048), compare_bs=(2, 512))
     log("serve", f"mamba2-370m done at {time.perf_counter() - t_start:.1f} s")
+    train_runs = train_phase(dev, counters, smi)
+    runs += train_runs
 
     for e in entries:
         e["launches"] = sum(counts[e["name"]] for counts, _ in runs)
+        e["train_launches_per_step"] = {"qwen3-8b": train_runs[0][0][e["name"]] / TRAIN_STEPS,
+                                        "mamba2-370m": train_runs[1][0][e["name"]] / 2}
         e["kernel_ms"] = e["ms"]
         check(e["launches"] > 0, f"{e['name']} never launched on the main path")
     # launches x (device ms - bound ms): RMSNorm over the shapes it ran at
@@ -987,6 +1419,15 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _leaf_names(tree, prefix=""):
+    """The dotted paths of tree's leaves, in _leaves's order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_names(v, f"{prefix}{k}.")
+    else:
+        yield prefix.rstrip(".")
 
 
 if __name__ == "__main__":

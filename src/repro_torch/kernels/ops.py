@@ -5,7 +5,12 @@
 Each op takes ``impl``:
   * ``"cuda"``  - the hand-written kernel (its wrapper runs the plain version
                   for a tensor on the CPU);
-  * ``"torch"`` - the plain PyTorch version (``ref``), on any device.
+  * ``"torch"`` - the plain PyTorch version (``ref``), on any device: the JAX
+                  package's "naive" path, which the kernels are held against;
+  * ``"xla"``   - the JAX package's "xla" path: attention through
+                  ``xla_flash.flash_xla_train`` (blockwise, with a
+                  blockwise-recompute backward), the norm and the SSD scan
+                  through their plain versions.
 
 The kernel path is a ``torch.autograd.Function``. Its backward is the JAX
 package's: the VJP of the plain version, recomputed from the saved inputs
@@ -22,8 +27,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch.kernels.ssd import ssd_scan_fwd
+from repro_torch.kernels.xla_flash import flash_xla_train
 
-IMPLS = ("cuda", "torch")
+IMPLS = ("cuda", "torch", "xla")
 
 
 def _check_impl(impl: str) -> None:
@@ -91,6 +97,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _check_impl(impl)
     if impl == "cuda":
         return _FlashAttention.apply(q, k, v, causal, sm_scale)
+    if impl == "xla":
+        return flash_xla_train(q, k, v, causal, sm_scale, 512)
     return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale)
 
 

@@ -1,10 +1,14 @@
 """Blockwise online-softmax attention in plain PyTorch.
 
-Counterpart of ``repro/kernels/xla_flash.py:flash_xla`` (a ``jnp`` scan, not a
-Pallas kernel, so it stays plain PyTorch here; the module keeps its name so a
-reader finds the counterpart). It is the serving path's attention against a
-(partially filled) KV cache: ``q_start`` places the queries, ``kv_valid_len``
-hides the cache slots not written yet.
+Counterparts of ``repro/kernels/xla_flash.py`` (``jnp`` scans, not Pallas
+kernels, so they stay plain PyTorch here; the module keeps its name so a
+reader finds them):
+
+  * ``flash_xla_train`` - the training path's ``impl="xla"`` attention: a
+    forward over KV blocks with a blockwise-recompute backward;
+  * ``flash_xla``       - the serving path's attention against a (partially
+    filled) KV cache: ``q_start`` places the queries, ``kv_valid_len`` hides
+    the cache slots not written yet.
 """
 from __future__ import annotations
 
@@ -14,6 +18,102 @@ from typing import Optional
 import torch
 
 _NEG = -1e30
+
+
+def _kv_blocks(k: torch.Tensor, group: int, block: int):
+    """k ``(B, Hkv, T, D)`` repeated to the query-head count (head h reads kv
+    head h // group, as the JAX package's ``_kv_repeat``), padded with zeros
+    to whole blocks of ``min(block, T)`` keys and cast to f32: ``(B, Hq, nb,
+    bk, D)``."""
+    B, Hkv, T, D = k.shape
+    bk = min(block, T)
+    nb = -(-T // bk)
+    kx = k.repeat_interleave(group, dim=1) if group > 1 else k
+    kx = torch.nn.functional.pad(kx, (0, 0, 0, nb * bk - T))
+    return kx.float().reshape(B, Hkv * group, nb, bk, D)
+
+
+def _block_scores(qf, kblk, ib: int, bk: int, T: int, qpos, causal: bool, scale: float):
+    """Masked f32 scores of block ib: padding past T and, when causal, keys
+    after the query are _NEG."""
+    s = torch.einsum("bhsd,bhtd->bhst", qf, kblk) * scale
+    kpos = ib * bk + torch.arange(bk, device=qf.device)
+    mask = (kpos < T)[None, :]
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    return torch.where(mask, s, _NEG)
+
+
+class _FlashXlaTrain(torch.autograd.Function):
+    """The forward keeps only (q, k, v, out, lse); the backward recomputes
+    each block's probabilities from lse, as the JAX package's
+    ``_flash_train_bwd``. Autograd
+    through the forward loop would keep every block's probabilities, O(S*T)
+    per head, which is what flash attention exists to avoid."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: Optional[float], block: int):
+        B, Hq, S, D = q.shape
+        group, T = Hq // k.shape[1], k.shape[2]
+        scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+        kb, vb = _kv_blocks(k, group, block), _kv_blocks(v, group, block)
+        nb, bk = kb.shape[2], kb.shape[3]
+        qf = q.float()
+        qpos = (T - S) + torch.arange(S, device=q.device)
+        m = torch.full((B, Hq, S), _NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Hq, S, D), dtype=torch.float32, device=q.device)
+        for ib in range(nb):
+            s = _block_scores(qf, kb[:, :, ib], ib, bk, T, qpos, causal, scale)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhst,bhtd->bhsd", p, vb[:, :, ib])
+            m = m_new
+        l_safe = torch.where(l == 0.0, 1.0, l)
+        out = (acc / l_safe[..., None]).to(q.dtype)
+        lse = m + torch.log(l_safe)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale, ctx.block = causal, scale, block
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        B, Hq, S, D = q.shape
+        Hkv, T = k.shape[1], k.shape[2]
+        group = Hq // Hkv
+        scale = ctx.scale
+        kb, vb = _kv_blocks(k, group, ctx.block), _kv_blocks(v, group, ctx.block)
+        nb, bk = kb.shape[2], kb.shape[3]
+        qf = q.float()
+        qpos = (T - S) + torch.arange(S, device=q.device)
+        do = dout.float()
+        delta = torch.sum(do * out.float(), dim=-1)  # (B, Hq, S)
+        dq = torch.zeros((B, Hq, S, D), dtype=torch.float32, device=q.device)
+        dks, dvs = [], []
+        for ib in range(nb):
+            kblk, vblk = kb[:, :, ib], vb[:, :, ib]
+            s = _block_scores(qf, kblk, ib, bk, T, qpos, ctx.causal, scale)
+            p = torch.exp(s - lse[..., None])
+            dvs.append(torch.einsum("bhst,bhsd->bhtd", p, do))
+            dp = torch.einsum("bhsd,bhtd->bhst", do, vblk)
+            ds = p * (dp - delta[..., None]) * scale
+            dq = dq + torch.einsum("bhst,bhtd->bhsd", ds, kblk)
+            dks.append(torch.einsum("bhst,bhsd->bhtd", ds, qf))
+        # fold the repeated kv heads back: sum over each group
+        dk = torch.cat(dks, dim=2)[:, :, :T].reshape(B, Hkv, group, T, D).sum(dim=2)
+        dv = torch.cat(dvs, dim=2)[:, :, :T].reshape(B, Hkv, group, T, D).sum(dim=2)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+def flash_xla_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                    sm_scale: Optional[float] = None, block: int = 512) -> torch.Tensor:
+    """Differentiable GQA attention over KV blocks of ``block`` keys, the
+    queries as the last S of the T keys. q ``(B, Hq, S, D)``, k/v ``(B, Hkv,
+    T, D)``; returns ``(B, Hq, S, D)`` in q's dtype. Math in f32."""
+    return _FlashXlaTrain.apply(q, k, v, causal, sm_scale, block)
 
 
 def flash_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

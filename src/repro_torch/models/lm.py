@@ -1,11 +1,14 @@
 """Decoder-only LM: the port's counterpart of ``repro/models/lm.py``, for the
-dense family (without sliding window) and the ssm family (Mamba-2).
+dense family (without sliding window) and the ssm family (Mamba-2): the
+full-sequence forward and its training loss, and the cached serving path.
 
 Same layouts as the JAX package at the public functions: params are the same
 nested dict, each per-layer leaf stacked on a leading L axis with the same
 names; q/k/v are ``(B, H, S, D)``. A Python loop over layer slices takes the
-place of ``lax.scan``. The caches (KV for dense, conv and SSM state for ssm)
-are updated in place instead of being returned as new arrays.
+place of ``lax.scan``, and ``torch.utils.checkpoint`` around each layer the
+place of ``jax.checkpoint`` around the scan body. The caches (KV for dense,
+conv and SSM state for ssm) are updated in place instead of being returned as
+new arrays.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.core.arch import ModelArch
@@ -27,15 +32,18 @@ class ModelCfg:
     """Runtime (non-architectural) model options.
 
     ``attn_impl`` / ``norm_impl`` / ``ssm_impl``: ``"cuda"`` (the hand-written
-    kernels, the default) or ``"torch"`` (their plain versions). The JAX
+    kernels, the default), ``"torch"`` (their plain versions) or ``"xla"``
+    (the JAX package's "xla" path, ``ops.IMPLS``). ``remat``: the paper's
+    recompute granularity, as the JAX package's (``REMATS``). The JAX
     package's serve knobs (``kv_cache_repeat``, ``kv_scatter_write``,
-    ``kv_cache_quant``, ``decode_dense_attn``) and ``remat`` are not ported
-    yet; passing one is a ``TypeError``."""
+    ``kv_cache_quant``, ``decode_dense_attn``) and its MoE options are not
+    ported yet; passing one is a ``TypeError``."""
 
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "cuda"
     norm_impl: str = "cuda"
     ssm_impl: str = "cuda"
+    remat: str = "none"
     cast_params_in_forward: bool = True  # False => caller pre-casts once
 
     def __post_init__(self):
@@ -43,6 +51,16 @@ class ModelCfg:
             if getattr(self, field) not in ops.IMPLS:
                 raise ValueError(f"{field} must be one of {ops.IMPLS}, "
                                  f"got {getattr(self, field)!r}")
+        if self.remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got {self.remat!r}")
+
+
+# "full": each layer keeps only its input and runs its forward again in the
+# backward (JAX's nothing_saveable). "selective": the layer also keeps the
+# outputs of its weight products, x @ W, which reach aten.mm (JAX's
+# dots_with_no_batch_dims_saveable); the attention einsums (aten.bmm), the
+# norms and the elementwise ops run again.
+REMATS = ("none", "selective", "full")
 
 
 def _check_family(arch: ModelArch) -> None:
@@ -215,6 +233,25 @@ def _head(params: dict, arch: ModelArch, cfg: ModelCfg, h: torch.Tensor) -> torc
 # forward (full sequence)
 # ---------------------------------------------------------------------------
 
+def _save_weight_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _selective_contexts():
+    return create_selective_checkpoint_contexts(_save_weight_products)
+
+
+def _train_layer(arch: ModelArch, cfg: ModelCfg, lp: dict, h: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One layer of the full-sequence forward under ``cfg.remat``."""
+    if cfg.remat == "none":
+        return _layer_fn(arch, cfg, lp, h, positions, None)
+    extra = {"context_fn": _selective_contexts} if cfg.remat == "selective" else {}
+    return checkpoint(_layer_fn, arch, cfg, lp, h, positions, None, use_reentrant=False,
+                      **extra)
+
+
 def forward_logits(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict) -> torch.Tensor:
     """Full-sequence forward over ``batch["tokens"]`` (B, S). Returns (B, S, V)
     logits. Attention goes through the flash-attention kernel, the ssm mixer
@@ -226,8 +263,28 @@ def forward_logits(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict) ->
     h = params["embed"][tokens].to(cfg.dtype)
     positions = torch.arange(h.shape[1], device=h.device)
     for i in range(arch.num_layers):
-        h = _layer_fn(arch, cfg, _layer(params["layers"], i), h, positions, None)
+        h = _train_layer(arch, cfg, _layer(params["layers"], i), h, positions)
     return _head(params, arch, cfg, h)
+
+
+def forward_train(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict):
+    """Next-token cross-entropy over ``batch["tokens"]`` (B, S), logits in
+    f32, averaged over ``batch["loss_mask"]`` (B, S) where given (position t
+    weighs the prediction of token t). Returns ``(loss, {"ce_loss",
+    "loss"})``. The MoE family's aux loss is not ported (``_check_family``
+    refuses the family)."""
+    logits = forward_logits(params, arch, cfg, batch)
+    targets = batch["tokens"][:, 1:].long()
+    lg = logits[:, :-1, :].float()
+    del logits
+    nll = torch.logsumexp(lg, dim=-1) - lg.gather(-1, targets[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        m = mask[:, 1:].float()
+        loss = (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    else:
+        loss = nll.mean()
+    return loss, {"ce_loss": loss, "loss": loss}
 
 
 # ---------------------------------------------------------------------------

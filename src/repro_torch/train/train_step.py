@@ -1,0 +1,105 @@
+"""Train-step factory: microbatched grad accumulation + AdamW, the
+counterpart of ``repro/train/train_step.py``.
+
+One Astra strategy maps to one ``TrainStepCfg``: micro_batch_size /
+num_microbatches -> the accumulation loop, recompute_granularity ->
+``ModelCfg.remat``, bf16 grad accumulation -> ``accum_dtype``. The JAX
+package's ``batch_axes`` (the batch dim's mesh axes) belongs to sharding,
+which is not ported; passing it is a ``TypeError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.core.arch import ModelArch
+from repro_torch.models.lm import ModelCfg, cast_params, forward_train
+from repro_torch.train.optimizer import OptState, adamw_update, cosine_schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepCfg:
+    num_microbatches: int = 1
+    base_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    accum_dtype: torch.dtype = torch.float32  # bf16 => compressed accumulation
+    # cast the f32 master weights to the compute dtype once per step instead
+    # of in every microbatch's forward; grads are taken with respect to the
+    # cast weights and widened back to f32
+    pre_cast: bool = False
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _unflatten(tree, leaves):
+    """``tree``'s structure with the leaves taken in ``_leaves`` order from
+    the iterator ``leaves``. Module-level: a recursive closure would hold the
+    iterator, and with it every leaf, in a reference cycle that outlives the
+    step (11 GB of grads at the full-width train step on the card)."""
+    if isinstance(tree, dict):
+        return {k: _unflatten(v, leaves) for k, v in tree.items()}
+    return next(leaves)
+
+
+def make_train_step(arch: ModelArch, model_cfg: ModelCfg, cfg: TrainStepCfg) -> Callable:
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``. ``batch["tokens"]``: (global_batch, seq); K microbatches are
+    the K consecutive slices of global_batch / K rows. The params and the
+    optimizer state are updated in place and returned."""
+    lr = cosine_schedule(cfg.base_lr, cfg.warmup_steps, cfg.total_steps)
+    fwd_cfg = (dataclasses.replace(model_cfg, cast_params_in_forward=False)
+               if cfg.pre_cast else model_cfg)
+
+    def value_and_grad(fwd_params: dict, batch: dict):
+        inputs = [t.detach().requires_grad_() for t in _leaves(fwd_params)]
+        loss, metrics = forward_train(_unflatten(fwd_params, iter(inputs)), arch, fwd_cfg,
+                                      batch)
+        grads = torch.autograd.grad(loss, inputs)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+    def train_step(params: dict, opt_state: OptState, batch: dict):
+        K = cfg.num_microbatches
+        if cfg.pre_cast:
+            with torch.no_grad():
+                fwd_params = cast_params(params, model_cfg.dtype)
+        else:
+            fwd_params = params
+        if K == 1:
+            loss, metrics, grads = value_and_grad(fwd_params, batch)
+            if cfg.pre_cast:
+                grads = [g.float() for g in grads]
+        else:
+            n = next(iter(batch.values())).shape[0] // K
+            g_sum, l_sum = None, 0.0
+            for i in range(K):
+                l, _, g = value_and_grad(fwd_params, {k: x[i * n:(i + 1) * n]
+                                                      for k, x in batch.items()})
+                if g_sum is None:
+                    g_sum = [gi.to(cfg.accum_dtype) for gi in g]
+                else:
+                    for a, b in zip(g_sum, g):
+                        a.add_(b.to(cfg.accum_dtype))
+                l_sum = l_sum + l
+                del g
+            grads = [(g / K).float() for g in g_sum]
+            del g_sum
+            loss = l_sum / K
+            metrics = {"loss": loss}
+        params, opt_state, opt_metrics = adamw_update(
+            params, _unflatten(params, iter(grads)), opt_state,
+            lr=lr, weight_decay=cfg.weight_decay, clip_norm=cfg.clip_norm)
+        metrics = dict(metrics)
+        metrics.update(opt_metrics)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step

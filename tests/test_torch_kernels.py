@@ -19,13 +19,14 @@ from repro.kernels.flash_attention import flash_attention_fwd as jax_flash  # no
 from repro.kernels.rmsnorm import rmsnorm_fwd as jax_rmsnorm  # noqa: E402
 from repro.kernels.ssd import ssd_scan_fwd as jax_ssd  # noqa: E402
 from repro.kernels.xla_flash import flash_xla as jax_flash_xla  # noqa: E402
+from repro.kernels.xla_flash import flash_xla_train as jax_flash_xla_train  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS, _plan  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd  # noqa: E402
 from repro_torch.kernels.ssd import DEFAULT_CHUNK, ssd_scan_fwd  # noqa: E402
 from repro_torch.kernels.ssd import _plan as _ssd_plan  # noqa: E402
-from repro_torch.kernels.xla_flash import flash_xla  # noqa: E402
+from repro_torch.kernels.xla_flash import flash_xla, flash_xla_train  # noqa: E402
 
 # f32: 2e-5, as tests/test_kernels.py. bf16: 2e-2 as there, plus one bf16 ulp
 # (2^-7 of the value): both sides round the same f32 math once, and f32 results
@@ -224,6 +225,40 @@ def test_flash_xla_matches_jax(S, T, block, causal, q_start, valid):
     _assert_close(got, want, "float32")
 
 
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,D,causal,block", [
+    (2, 4, 2, 200, 200, 32, True, 64),     # T not a multiple of the block, GQA
+    (1, 8, 2, 130, 130, 16, False, 64),    # groups of 4, not causal
+    (2, 4, 4, 64, 64, 32, True, 512),      # one block longer than T
+    (1, 4, 1, 40, 100, 32, True, 32),      # S < T: the queries are the last S keys
+])
+def test_flash_xla_train_matches_jax(B, Hq, Hkv, S, T, D, causal, block):
+    """Out and the grads of q, k and v (the blockwise-recompute backward,
+    the kv heads' grads summed over their groups) against the JAX custom_vjp
+    on one cotangent, f32; grads by 1e-5 of their value too, as
+    test_kernel_backward_matches_jax_grad."""
+    q = np.random.default_rng(S).standard_normal((B, Hq, S, D)).astype(np.float32)
+    _, k, v = _qkv(B, Hq, Hkv, S, T, D, seed=T + 1)
+    g = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda q_, k_, v_: jax_flash_xla_train(q_, k_, v_, causal, None, block),
+                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    inputs = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = flash_xla_train(*inputs, causal=causal, block=block)
+    _assert_close(out.detach(), out_j, "float32")
+    _assert_close(out.detach(), ref.attention(*inputs, causal=causal).detach(), "float32")
+    got = torch.autograd.grad(out, inputs, torch.from_numpy(g))
+    for t, w in zip(got, want):
+        assert t.shape == w.shape
+        np.testing.assert_allclose(t.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+
+def test_flash_xla_train_is_the_xla_impl():
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(1, 4, 2, 16, 16, 16))
+    out = ops.flash_attention(q, k, v, impl="xla")
+    assert type(out.grad_fn).__name__ == "_FlashXlaTrainBackward"
+    torch.testing.assert_close(out, flash_xla_train(q, k, v), rtol=0, atol=0)
+
+
 def test_flash_xla_ring_is_not_ported():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 1, 8, 16))
     with pytest.raises(NotImplementedError):
@@ -265,7 +300,7 @@ def test_kernel_wrappers_reject_bad_operands():
                      torch.ones(1, 4, 4), torch.ones(1, 4, 4), chunk=0)
     with pytest.raises(ValueError):
         ops.ssd(torch.ones(1, 4, 2, 8), torch.ones(1, 4, 2), torch.ones(2),
-                torch.ones(1, 4, 4), torch.ones(1, 4, 4), impl="xla")
+                torch.ones(1, 4, 4), torch.ones(1, 4, 4), impl="naive")
 
 
 # ---------------------------------------------------------------------------

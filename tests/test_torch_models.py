@@ -164,7 +164,7 @@ def test_model_cfg_and_families_outside_the_slice_raise():
     import dataclasses
 
     with pytest.raises(ValueError):
-        lm.ModelCfg(ssm_impl="xla")
+        lm.ModelCfg(ssm_impl="naive")
     moe = dataclasses.replace(get_reduced("qwen3-8b"), family="moe")
     with pytest.raises(NotImplementedError):
         lm.init_params(moe, torch.Generator(), torch.float32, "cpu")
