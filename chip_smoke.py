@@ -39,7 +39,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
                which the train step calls K1 and K2); the train driver on
                the reduced config; one mamba2-370m step at 2 of 48 layers,
                timed;
-  7. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-6, with
+  7. astra   - the train driver with --auto-strategy --emit-traces (the
+               searched strategy, its launches, the trace read back); then
+               the port's Astra searches phase 6's step, and the five steps
+               of phase 6, as one StepTrace, are scored by a CalibrationLoop
+               under the analytic and the GBT eta model: predicted, measured
+               and accuracy in an {"astra": ...} JSON line (a measurement:
+               no check holds it to a bound);
+  8. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-6, with
                the launches its wrapper counted there at that shape, beside
                F.rms_norm at the same shape and the launch floor (a one-block
                elementwise op), at D = 128 also on k head views; then the
@@ -52,8 +59,10 @@ It imports nothing of the JAX package and never falls back to the CPU.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import math
@@ -63,6 +72,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1049,9 +1059,10 @@ def _leaf_rel(got, want) -> tuple[float, int]:
     return rel[i], i
 
 
-def train_steps_phase(dev, counters, card: str) -> tuple[dict, dict]:
+def train_steps_phase(dev, counters, card: str) -> tuple[tuple[dict, dict], list[dict]]:
     """Five steps at TRAIN_BS through the kernels, a profiled step, then one
-    step under each remat policy. Returns read_counts of the five steps."""
+    step under each remat policy. Returns read_counts of the five steps, and
+    the five steps' times (timed_step's rows)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
@@ -1178,7 +1189,7 @@ def train_steps_phase(dev, counters, card: str) -> tuple[dict, dict]:
           f"recomputed weight products {({k: v['mm'] for k, v in res.items()})}")
     peaks = [res[r]["fwd_bwd_peak"] for r in ("full", "selective", "none")]
     check(peaks == sorted(set(peaks)), f"remat peaks full < selective < none: {peaks}")
-    return counts, shapes
+    return (counts, shapes), rows
 
 
 def _loss_and_grads(params, arch, cfg, batch, counters):
@@ -1265,11 +1276,17 @@ def train_parity_phase(dev, counters) -> None:
     check(r["grad_rel"] <= TRAIN_BF16_GRAD_REL, "bf16 grads, kernels vs plain")
 
 
+DRIVER_ARGV = ["--arch", "qwen3-8b", "--reduced", "--steps", "60", "--batch", "16",
+               "--seq", "64"]
+DRIVER_LAUNCHES = {"rmsnorm_fwd": 60 * (4 * 2 + 1), "flash_attention_fwd": 60 * 2,
+                   "ssd_scan_fwd": 0}
+
+
 def train_driver_phase(counters) -> None:
     from repro_torch.launch import train as driver
 
     reset_counts(counters)
-    argv = ["--arch", "qwen3-8b", "--reduced", "--steps", "60", "--batch", "16", "--seq", "64"]
+    argv = DRIVER_ARGV
     res = driver.main(argv)
     c, _ = read_counts(counters)
     times = [t * 1e3 for t in res["step_times"]]
@@ -1278,8 +1295,7 @@ def train_driver_phase(counters) -> None:
         f"{times[0]:.1f}, median {statistics.median(times):.2f}, max of the rest "
         f"{max(times[1:]):.2f}; launches {c}")
     check(res["last_loss"] < res["first_loss"] - 1.0, "the driver's loss did not drop by 1.0")
-    check(c == {"rmsnorm_fwd": 60 * (4 * 2 + 1), "flash_attention_fwd": 60 * 2,
-                "ssd_scan_fwd": 0}, "driver launches")
+    check(c == DRIVER_LAUNCHES, "driver launches")
 
 
 def train_mamba_phase(dev, counters) -> tuple[dict, dict]:
@@ -1315,12 +1331,14 @@ def train_mamba_phase(dev, counters) -> tuple[dict, dict]:
     return counts, shapes
 
 
-def train_phase(dev, counters, card: str) -> list[tuple[dict, dict]]:
+def train_phase(dev, counters, card: str) -> tuple[list[tuple[dict, dict]], list[dict]]:
     """Phase 6. Returns read_counts of the two main train paths (qwen3-8b's
-    five steps, mamba2's two). card: nvidia-smi's name and power limit."""
+    five steps, mamba2's two), and the five qwen3-8b steps' times. card:
+    nvidia-smi's name and power limit."""
     _free()
     t0 = time.perf_counter()
-    runs = [train_steps_phase(dev, counters, card)]
+    counts, rows = train_steps_phase(dev, counters, card)
+    runs = [counts]
     _free()
     train_parity_phase(dev, counters)
     _free()
@@ -1328,7 +1346,125 @@ def train_phase(dev, counters, card: str) -> list[tuple[dict, dict]]:
     runs.append(train_mamba_phase(dev, counters))
     _free()
     log("train", f"done in {time.perf_counter() - t0:.1f} s")
-    return runs
+    return runs, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Astra's cost model against the card
+# ---------------------------------------------------------------------------
+
+def astra_driver_phase(counters):
+    """The train driver as train_driver_phase runs it, with --auto-strategy
+    and --emit-traces: the strategy it prints, its launches, and the trace it
+    appends, read back through the port's read_traces. Returns the trace."""
+    from repro_torch.calibration.traces import StepTrace, read_traces
+    from repro_torch.launch import train as driver
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "traces.jsonl")
+        argv = DRIVER_ARGV + ["--auto-strategy", "--emit-traces", path]
+        out = io.StringIO()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = driver.main(argv)
+        seconds = time.perf_counter() - t0
+        c, _ = read_counts(counters)
+        for line in out.getvalue().splitlines():
+            log("astra", f"driver: {line}")
+        traces = read_traces(path)
+    picked = [x for x in out.getvalue().splitlines() if x.startswith("[astra] strategy:")]
+    times = [t * 1e3 for t in res["step_times"]]
+    log("astra", f"driver {' '.join(argv[:-1])} <tmp>: {seconds:.1f} s with the search "
+        f"(and the eta model's training where artifacts/ holds none); step ms median "
+        f"{statistics.median(times):.2f}; launches {c}")
+    check(len(picked) == 1 and " tp=1 pp=1 dp=1 " in picked[0],
+          f"the driver's searched strategy is not one card's: {picked}")
+    check(c == DRIVER_LAUNCHES, "driver launches with --auto-strategy")
+    check(res["last_loss"] < res["first_loss"] - 1.0,
+          "the driver's loss did not drop by 1.0 with --auto-strategy")
+    check(len(traces) == 1, f"{len(traces)} traces in the driver's file, 1 expected")
+    t = traces[0]
+    check(t.source == "train" and t.strategy.device == "H100" and len(t.step_times) == 60,
+          f"the driver's trace: source {t.source}, device {t.strategy.device}, "
+          f"{len(t.step_times)} step times")
+    check(StepTrace.from_json(t.to_json()) == t, "the driver's trace does not round-trip")
+    log("astra", f"trace: {t.pool_key}, strategy {t.strategy_key}, median step "
+        f"{t.measured_step_time * 1e3:.2f} ms")
+    return t
+
+
+def astra_cost_phase(rows: list[dict], driver_trace, card: str) -> dict:
+    """Astra's search and cost model on phase 6's step (qwen3-8b at full
+    width and TRAIN_LAYERS layers, TRAIN_BS, one H100), scored against the
+    five steps phase 6 timed, under the analytic and the GBT eta model; the
+    driver's trace scored beside it."""
+    from repro_torch.calibration import CalibrationLoop, StepTrace
+    from repro_torch.calibration.fit import AnalyticEtaModel, load_or_train
+    from repro_torch.configs import get_arch
+    from repro_torch.core import Astra, CostSimulator, FixedPool, SearchSpec, Workload
+    from repro_torch.core.params import ParallelStrategy
+
+    arch = dataclasses.replace(get_arch("qwen3-8b"), num_layers=TRAIN_LAYERS)
+    B, S = TRAIN_BS
+    # what phase 6 ran: the whole batch as one micro-batch, no remat, one card
+    ran = ParallelStrategy(device="H100", num_devices=1, micro_batch_size=B,
+                           recompute_granularity="none")
+    trace = StepTrace(arch=arch, strategy=ran, global_batch=B, seq=S,
+                      step_times=tuple(r["wall_ms"] / 1e3 for r in rows), source="train")
+    fwd_bwd_ms = statistics.median(r["fwd_bwd_ms"] for r in rows)
+    opt_ms = statistics.median(r["opt_ms"] for r in rows)
+    out = {"card": card, "arch": f"qwen3-8b, {TRAIN_LAYERS} layers", "global_batch": B,
+           "seq": S, "measured_step_ms": trace.measured_step_time * 1e3,
+           "measured_fwd_bwd_ms": fwd_bwd_ms, "measured_optimizer_ms": opt_ms, "eta": {}}
+    for name, make in (("analytic", AnalyticEtaModel),
+                       ("gbt", lambda: load_or_train()[0])):
+        t0 = time.perf_counter()
+        eta = make()
+        report = Astra(eta).search(SearchSpec(arch=arch, pool=FixedPool("H100", 1),
+                                              workload=Workload(B, S)))
+        best = report.best
+        check(best is not None, f"{name}: Astra found no strategy for phase 6's step")
+        n = report.counts
+        log("astra", f"{name} ({eta.version_string()}): {n.generated} strategies, "
+            f"{n.after_memory} fit in memory, {report.evaluated} simulated; best "
+            f"{best.to_dict()}, step {report.best_sim.step_time * 1e3:.2f} ms predicted")
+        check((best.tensor_parallel, best.pipeline_parallel, best.data_parallel) == (1, 1, 1),
+              f"{name}: Astra's best strategy is not one card's")
+        loop = CalibrationLoop(eta)
+        ack = loop.ingest(trace)
+        drv = loop.ingest(driver_trace)
+        sim = CostSimulator(eta).simulate(arch, ran, global_batch=B, seq=S)
+        row = {"version": ack["eta_model_version"],
+               "predicted_step_ms": ack["predicted_step_time"] * 1e3,
+               "measured_step_ms": ack["measured_step_time"] * 1e3,
+               "accuracy": ack["accuracy"],
+               "pipeline_ms": sim.pipeline_time * 1e3, "optimizer_ms": sim.optimizer_time * 1e3,
+               "best": {"mbs": best.micro_batch_size, "remat": best.recompute_granularity,
+                        "dist_opt": best.use_distributed_optimizer},
+               "driver": {"predicted_step_ms": drv["predicted_step_time"] * 1e3,
+                          "measured_step_ms": drv["measured_step_time"] * 1e3,
+                          "accuracy": drv["accuracy"]},
+               "seconds": time.perf_counter() - t0}
+        out["eta"][name] = row
+        log("astra", f"{name}: step {row['predicted_step_ms']:.2f} ms predicted, "
+            f"{row['measured_step_ms']:.2f} ms measured, accuracy {row['accuracy']:.4f} "
+            f"(1 - |p - m| / m); forward + backward {row['pipeline_ms']:.2f} ms predicted, "
+            f"{fwd_bwd_ms:.2f} measured; optimizer {row['optimizer_ms']:.2f} ms predicted, "
+            f"{opt_ms:.2f} measured; on {card}")
+        log("astra", f"{name}, the driver's reduced step: {row['driver']['predicted_step_ms']:.4f} "
+            f"ms predicted, {row['driver']['measured_step_ms']:.2f} ms measured, accuracy "
+            f"{row['driver']['accuracy']:.4f}")
+    return out
+
+
+def astra_phase(counters, rows: list[dict], card: str) -> None:
+    """Phase 7."""
+    t0 = time.perf_counter()
+    driver_trace = astra_driver_phase(counters)
+    _free()
+    print(json.dumps({"astra": astra_cost_phase(rows, driver_trace, card)}), flush=True)
+    log("astra", f"done in {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1385,8 +1521,9 @@ def main() -> int:
          "ssd_scan_fwd": 0},
         main_bs=(4, 2048), compare_bs=(2, 512))
     log("serve", f"mamba2-370m done at {time.perf_counter() - t_start:.1f} s")
-    train_runs = train_phase(dev, counters, smi)
+    train_runs, train_rows = train_phase(dev, counters, smi)
     runs += train_runs
+    astra_phase(counters, train_rows, smi)
 
     for e in entries:
         e["launches"] = sum(counts[e["name"]] for counts, _ in runs)

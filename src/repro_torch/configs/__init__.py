@@ -10,7 +10,8 @@ import importlib
 
 from repro_torch.core.arch import ModelArch
 
-_MODULES = {"qwen3-8b": "qwen3_8b", "yi-6b": "yi_6b", "mamba2-370m": "mamba2_370m"}
+_MODULES = {"qwen3-8b": "qwen3_8b", "yi-6b": "yi_6b", "mamba2-370m": "mamba2_370m",
+            "qwen3-32b": "qwen3_32b", "command-r-35b": "command_r_35b"}
 
 
 def _module(name: str):

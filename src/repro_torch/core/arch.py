@@ -49,7 +49,7 @@ class ModelArch:
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.hidden // max(self.heads, 1))
 
-    # -- census helpers ----------------------------------------------------
+    # -- census helpers (used by memory/cost models and roofline) ----------
     @property
     def attn_q_dim(self) -> int:
         return self.heads * self.head_dim
@@ -61,6 +61,11 @@ class ModelArch:
     @property
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic in sequence length => long_500k shape is runnable."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
 
     def layer_params(self) -> dict[str, float]:
         """Parameter counts per decoder layer, split by component."""
@@ -79,6 +84,7 @@ class ModelArch:
         if self.family in ("ssm", "hybrid"):
             d_inner = self.ssm_expand * h
             nheads = self.ssm_heads or max(d_inner // 64, 1)
+            # in_proj (z,x,B,C,dt) + out_proj + conv + A,D
             out["ssm"] = (
                 h * (2 * d_inner + 2 * self.ssm_state + nheads)
                 + d_inner * h
@@ -91,6 +97,14 @@ class ModelArch:
     def params_per_layer(self) -> float:
         return float(sum(self.layer_params().values()))
 
+    def active_params_per_layer(self) -> float:
+        """Per-token activated parameters (MoE: top_k experts, not all)."""
+        p = dict(self.layer_params())
+        if self.family == "moe":
+            eff = self.moe_ffn or self.ffn
+            p["moe_experts"] = self.top_k * 3 * self.hidden * eff
+        return float(sum(p.values()))
+
     def embedding_params(self) -> float:
         n = self.vocab * self.hidden
         return float(n if self.tie_embeddings else 2 * n)
@@ -100,3 +114,32 @@ class ModelArch:
         n += self.encoder_layers * self.params_per_layer()  # enc-dec: same width
         n += self.hidden  # final norm
         return float(n)
+
+    def total_active_params(self) -> float:
+        n = self.num_layers * self.active_params_per_layer() + self.embedding_params()
+        n += self.encoder_layers * self.active_params_per_layer()
+        n += self.hidden
+        return float(n)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One assigned workload shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = InputShape("train_4k", 4096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524288, 1, "decode")
+ASSIGNED_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)

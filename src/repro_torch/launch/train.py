@@ -4,11 +4,13 @@
         --steps 60 --batch 16 --seq 64
 
 Same CLI as the JAX driver, plus ``--device`` (default ``cuda``; ``cpu`` runs
-the kernels' plain versions). Not ported yet, and refused with the ROADMAP
-item each waits for: ``--auto-strategy`` and ``--emit-traces`` (they need
-the search half, ``repro.core``'s ``Astra`` and ``StepTrace``, copied into
-the port), ``--checkpoint-dir``, ``--checkpoint-every`` and ``--resume``
-(checkpoints). Each is refused whenever it is given, at any value.
+the kernels' plain versions). ``--auto-strategy`` runs the paper's mode-1
+search for one H100 through the port's copy of the search half and applies
+the winner's microbatching and recompute granularity; ``--emit-traces PATH``
+appends one measured :class:`StepTrace` for a calibration loop. Not ported
+yet, and refused with the ROADMAP item they wait for: ``--checkpoint-dir``,
+``--checkpoint-every`` and ``--resume`` (checkpoints). Each is refused
+whenever it is given, at any value.
 
 Attention and the norms take the port's default impls, the CUDA kernels. The
 JAX driver trains through ``attn_impl="xla"`` because interpret-mode Pallas
@@ -27,21 +29,46 @@ import time
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.calibration.fit import AnalyticEtaModel, load_or_train
+from repro_torch.calibration.traces import StepTrace, append_trace
 from repro_torch.configs import PAPER_MODELS, get_arch, get_reduced
+from repro_torch.core import Astra, FixedPool, SearchSpec, Workload
+from repro_torch.core.params import ParallelStrategy
 from repro_torch.data import MarkovCorpus, SyntheticPipeline
 from repro_torch.models.lm import ModelCfg, init_params
+from repro_torch.serve.search_service import SearchService
 from repro_torch.train.optimizer import adamw_init
 from repro_torch.train.train_step import TrainStepCfg, make_train_step
 
 # flag -> what it waits for
 _NOT_PORTED = {
-    "auto_strategy": "the search half copied into repro_torch (ROADMAP Queue 1 item 2)",
-    "emit_traces": "StepTrace, with the search half copied into repro_torch "
-                   "(ROADMAP Queue 1 item 2)",
     "checkpoint_dir": "checkpoints (ROADMAP Queue 1 item 8)",
     "checkpoint_every": "checkpoints (ROADMAP Queue 1 item 8)",
     "resume": "checkpoints (ROADMAP Queue 1 item 8)",
 }
+
+# the one card the driver runs on; sharding is not ported (ROADMAP Queue 1)
+DEVICE = "H100"
+
+
+def pick_strategy(arch, num_devices: int, global_batch: int, seq: int):
+    """Run the paper's mode-1 search for this cluster (H100 cards).
+
+    Goes through the spec-keyed :class:`SearchService`, as the JAX driver
+    does. The spec keeps the default ``Limits`` (one worker): more workers
+    would fork a process pool, which is unsafe once CUDA is initialised, so
+    call this before the first CUDA call."""
+    try:
+        eta, _ = load_or_train()
+    except Exception:
+        eta = AnalyticEtaModel()
+    service = SearchService(Astra(eta))
+    report = service.search(SearchSpec(
+        arch=arch,
+        pool=FixedPool(DEVICE, max(num_devices, 1)),
+        workload=Workload(global_batch, seq),
+    ))
+    return report.best
 
 
 def main(argv=None) -> dict:
@@ -61,7 +88,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--dtype", default="float32")
-    ap.add_argument("--emit-traces", default=None, metavar="PATH")
+    ap.add_argument("--emit-traces", default=None, metavar="PATH",
+                    help="append one measured StepTrace (JSONL, wire format) "
+                         "per run — feed it to a calibration-enabled search "
+                         "service via 'python -m repro_torch.serve.search_service "
+                         "traces' or CalibrationLoop.ingest")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     for flag, needs in _NOT_PORTED.items():
@@ -72,10 +103,23 @@ def main(argv=None) -> dict:
 
     arch = get_reduced(args.arch) if args.reduced and args.arch not in PAPER_MODELS \
         else get_arch(args.arch)
+
+    remat, micro = args.remat, args.microbatches
+    searched = None  # the auto-strategy winner, reused for trace attribution
+    if args.auto_strategy:  # before the first CUDA call (see pick_strategy)
+        s = searched = pick_strategy(arch, 1, args.batch, args.seq)
+        if s is not None:
+            remat = s.recompute_granularity
+            # num_microbatches is per-DP-rank (GB / (dp * mbs)); the train
+            # step splits the *global* batch K ways, so K is exactly it
+            micro = max(s.num_microbatches(args.batch), 1)
+            print(f"[astra] strategy: tp={s.tensor_parallel} pp={s.pipeline_parallel} "
+                  f"dp={s.data_parallel} mbs={s.micro_batch_size} remat={remat} "
+                  f"dist_opt={s.use_distributed_optimizer}")
     device = resolve_device(args.device)
 
-    cfg = ModelCfg(dtype=getattr(torch, args.dtype), remat=args.remat)
-    step_cfg = TrainStepCfg(num_microbatches=args.microbatches, base_lr=args.lr,
+    cfg = ModelCfg(dtype=getattr(torch, args.dtype), remat=remat)
+    step_cfg = TrainStepCfg(num_microbatches=micro, base_lr=args.lr,
                             warmup_steps=10, total_steps=args.steps)
     train_step = make_train_step(arch, cfg, step_cfg)
 
@@ -101,6 +145,20 @@ def main(argv=None) -> dict:
             print(f"step {step:5d} loss {loss:.4f} "
                   f"gnorm {float(metrics.get('grad_norm', 0)):.3f} "
                   f"({(time.time() - t0):.1f}s)")
+    if args.emit_traces and step_times:
+        # attribute the measurement to the searched strategy when there is
+        # one; otherwise describe what this run used: one card, no sharding
+        strategy = searched if searched is not None else ParallelStrategy(
+            device=DEVICE, num_devices=1, micro_batch_size=max(args.batch // micro, 1),
+        )
+        trace = StepTrace(
+            arch=arch, strategy=strategy,
+            global_batch=args.batch, seq=args.seq,
+            step_times=tuple(step_times), source="train",
+        )
+        append_trace(args.emit_traces, trace)
+        print(f"[trace] appended {len(step_times)}-step trace "
+              f"(median {trace.measured_step_time:.4f}s) to {args.emit_traces}")
     result = {
         "first_loss": losses[0], "last_loss": losses[-1],
         "entropy_floor": corpus.entropy_rate(), "steps": len(losses),

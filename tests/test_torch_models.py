@@ -120,6 +120,23 @@ def test_forward_logits_matches_jax(name, impl):
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
 
 
+
+@pytest.mark.parametrize("name", ["qwen3-32b", "command-r-35b"])
+def test_copied_config_matches_jax_and_its_logits(name):
+    """The dense configs copied beside qwen3-8b: the same published and
+    reduced configs as the JAX package, and the reduced model's logits."""
+    import dataclasses
+
+    from repro.configs import get_arch as jax_arch
+
+    assert dataclasses.asdict(get_arch(name)) == dataclasses.asdict(jax_arch(name))
+    jarch, arch, jparams, params, toks = _setup(name)
+    assert dataclasses.asdict(arch) == dataclasses.asdict(jarch)
+    want = np.asarray(jlm.forward_logits(jparams, jarch, JCFG, {"tokens": jnp.asarray(toks)}))
+    got = lm.forward_logits(params, arch, CFG, {"tokens": torch.from_numpy(toks).long()})
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+
 @pytest.mark.parametrize("name", ARCHS)
 def test_prefill_decode_matches_teacher_forcing(name):
     """prefill + step-by-step decode == the full forward (tests/test_models.py)."""

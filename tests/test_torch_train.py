@@ -456,9 +456,61 @@ def test_driver_lowers_the_loss_on_the_cpu(capsys):
     assert out[0].startswith("step     0 loss") and out[-1].startswith('{"first_loss"')
 
 
+@pytest.fixture
+def small_eta(tmp_path, monkeypatch):
+    """A small GBT eta model cached where both packages' ``load_or_train``
+    look, so the driver and the JAX search below score with one model."""
+    from repro.calibration.fit import train_eta_model
+
+    model, _ = train_eta_model(n_samples=600, n_estimators=40, seed=0)
+    model.save(str(tmp_path / "eta_model.json"))
+    monkeypatch.setenv("REPRO_ARTIFACTS", str(tmp_path))
+    return model
+
+
+_DRIVER = ["--arch", "qwen3-8b", "--reduced", "--steps", "4", "--batch", "16", "--seq", "32",
+           "--device", "cpu", "--log-every", "5"]
+
+
+def test_driver_auto_strategy_picks_what_jax_astra_picks(small_eta, capsys):
+    from repro.core import Astra, FixedPool, SearchSpec, Workload
+
+    want = Astra(small_eta).search(SearchSpec(
+        arch=jax_reduced("qwen3-8b"), pool=FixedPool("H100", 1), workload=Workload(16, 32),
+    )).best
+    got = driver.pick_strategy(get_reduced("qwen3-8b"), 1, 16, 32)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    res = driver.main(_DRIVER + ["--auto-strategy"])
+    assert res["last_loss"] < res["first_loss"]
+    line = [x for x in capsys.readouterr().out.splitlines() if x.startswith("[astra]")]
+    assert line == [
+        f"[astra] strategy: tp={want.tensor_parallel} pp={want.pipeline_parallel} "
+        f"dp={want.data_parallel} mbs={want.micro_batch_size} "
+        f"remat={want.recompute_granularity} dist_opt={want.use_distributed_optimizer}"]
+    assert (want.tensor_parallel, want.pipeline_parallel, want.data_parallel) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("auto", [False, True], ids=["given", "searched"])
+def test_driver_emits_a_trace_the_jax_package_reads(auto, small_eta, tmp_path):
+    from repro.calibration.traces import read_traces
+
+    path = str(tmp_path / "t.jsonl")
+    res = driver.main(_DRIVER + ["--emit-traces", path, "--microbatches", "2"]
+                      + ["--auto-strategy"] * auto)
+    (trace,) = read_traces(path)
+    assert trace.source == "train" and trace.step_times == tuple(res["step_times"])
+    assert len(trace.step_times) == res["steps"] == 4
+    assert (trace.global_batch, trace.seq, trace.arch.name) == (16, 32, "qwen3-8b-reduced")
+    s = trace.strategy
+    assert (s.device, s.num_devices, s.tensor_parallel, s.pipeline_parallel) == ("H100", 1, 1, 1)
+    if auto:
+        assert dataclasses.asdict(s) == dataclasses.asdict(
+            driver.pick_strategy(get_reduced("qwen3-8b"), 1, 16, 32))
+    else:
+        assert s.micro_batch_size == 8  # 16 rows in 2 microbatches
+
+
 @pytest.mark.parametrize("flag,item", [
-    (["--auto-strategy"], "Queue 1 item 2"),
-    (["--emit-traces", "t.jsonl"], "Queue 1 item 2"),
     (["--checkpoint-dir", "ck"], "Queue 1 item 8"),
     (["--checkpoint-every", "25"], "Queue 1 item 8"),
     (["--checkpoint-every", "0"], "Queue 1 item 8"),
