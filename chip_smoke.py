@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's inference and training paths on one CUDA card:
-the dense family (qwen3-8b) and the ssm family (mamba2-370m).
+the dense family (qwen3-8b), the ssm family (mamba2-370m), the hybrid family
+(hymba-1.5b: a sliding window and a ring KV cache) and the moe family
+(granite-moe-3b-a800m).
 
     python3 chip_smoke.py
 
@@ -12,7 +14,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
                plain PyTorch version at the shapes of the main paths and the
                edge cases of the JAX tests (RMSNorm also at every width of the
                JAX configs and on the q/k head views of a fused qkv row, read
-               in place; an unaligned view is refused), timed beside its plain version,
+               in place; an unaligned view is refused; flash attention also at
+               hymba's and granite's forward shapes, with the path each dtype
+               took), timed beside its plain version,
                its bound and a library call where one exists. Each time is
                given twice: `ms`, the device time per call (the durations of
                the CUDA kernels that torch.profiler records over N calls,
@@ -23,10 +27,18 @@ Phases, each reported on its own lines; any failure exits non-zero:
                seeded generator): forward_logits through the kernels, with
                the launches of each kernel counted, against the same forward
                through the plain versions, in bf16 and, on the same weights
-               cast up, in f32; plus the reduced model in f32 where kernels,
-               plain versions and the cached path agree;
+               cast up, in f32 (for granite the plain run replays the kernel
+               run's expert choices, and its own routing is logged beside);
+               plus the reduced model in f32 where kernels, plain versions
+               and the cached path agree; hymba also at B=1, S=2048, past its
+               window (banded_flash_xla: K2 must not launch), granite's share
+               of dropped assignments at capacity factor 1.25;
   5. serve   - per model, ServeEngine.generate, checked against teacher
-               forcing, and the device's busy share while decoding;
+               forcing, and the device's busy share while decoding; hymba
+               also with a 1024-token prompt whose prefill fills the ring
+               and whose every decode step wraps it, and with the int8 KV
+               cache, scatter writes and dense decode attention (tokens and
+               cache bytes beside the default run's);
   6. train   - qwen3-8b at full width and 8 of its 36 layers (f32 AdamW at
                full depth needs 131 GB): five make_train_step steps through
                the kernels (wall, forward + backward and optimizer ms, peak
@@ -38,7 +50,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
                in bf16 at 2 layers and the five steps' B, S (the shapes at
                which the train step calls K1 and K2); the train driver on
                the reduced config; one mamba2-370m step at 2 of 48 layers,
-               timed;
+               timed; two granite-moe-3b-a800m steps at 4 of 32 layers (wall,
+               forward + backward and optimizer ms, peak memory, ce_loss and
+               aux_loss, launches), and its loss and grads through the
+               kernels against the plain versions in f32 at 2 layers;
   7. astra   - the train driver with --auto-strategy --emit-traces (the
                searched strategy, its launches, the trace read back); then
                the port's Astra searches phase 6's step, and the five steps
@@ -102,12 +117,29 @@ LSE_TOL = 1e-4
 #   the same weights, moved the bf16 logits by 0.95 at 0.80 argmax agreement
 #   on an H100 at B=2, S=512 (PERF.md); serve compares only 128 tokens
 #   (binomial spread ~0.035), hence the lower agreement bound.
+#   hymba-1.5b: 32 layers with an SSM recurrence beside attention, as mamba2.
+#   An H100 (700 W) read 0.47 and 0.848 at B=2, S=1024; its serve runs 0.81
+#   (128 tokens), 0.91 (the ring run, 64 tokens) and 0.73 (int8 KV cache).
+#   granite-moe-3b-a800m: the plain run replays the kernel run's expert
+#   choices (RoutingReplay). An H100 read 0.078 and 0.996 at B=2, S=512, and
+#   0.961 for serve, whose decode and teacher forcing route on their own: a
+#   bf16 rounding flips near-ties of the router (1515 of 32768 token-layers
+#   in that forward). The plain run on its own routing is held to the same
+#   agreement bound (an H100 read 0.985 and 0.989).
 # The f32 comparison on the same weights is the one that tells a fault from
 # rounding.
-BF16_BOUNDS = {"qwen3-8b": (0.5, 0.75), "mamba2-370m": (1.5, 0.6)}
+BF16_BOUNDS = {"qwen3-8b": (0.5, 0.75), "mamba2-370m": (1.5, 0.6),
+               "hymba-1.5b": (1.0, 0.6), "granite-moe-3b-a800m": (0.25, 0.9)}
+# the capacity factor of the moe serve runs (see _serve_cfg)
+MOE_SERVE_CAPACITY = 8.0
 # the same model in f32: rounding noise near 1e-5 of the logits
 F32_MAX_ABS = 1e-3
 F32_ARGMAX_MIN = 0.99
+# moe in f32, the plain run on its own routing: the share of token-layers
+# whose top-k differs from the kernel run's. An H100 read 1 of 32768 in the
+# forward and 0 of 4096 in the train step; bf16 rounding alone flips 4.6-4.8%.
+# A fault that moves the router's inputs flips far more than this.
+MOE_F32_FLIP_SHARE = 1e-3
 REDUCED_TOL = 1e-4
 # SSD kernel vs the sequential plain scan, y in f32 and the f32 state in both
 # types: 2e-3, as tests/test_kernels.py (bf16 y takes TOL: both sides take the
@@ -355,10 +387,13 @@ def rmsnorm_phase(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(1)
     # (rows, D): forward ln over B*S=1024 rows of d=4096 and train ln over
     # B*S=4096, q/k norms over B*S*32 and B*S*8 rows of head_dim 128 (train:
-    # 131072 and 32768), decode rows (B=4), edge widths; then every width of
-    # RMSNORM_WIDTHS at every row count of RMSNORM_ROWS
+    # 131072 and 32768), decode rows (B=4), edge widths, the ln rows of the
+    # hymba (B*S=2048, d=1600) and granite (1024 and the train step's 4096,
+    # d=1536) forwards; then every width of RMSNORM_WIDTHS at every row count
+    # of RMSNORM_ROWS
     named = [(1024, 4096), (4096, 4096), (32768, 128), (131072, 128), (8192, 128),
-             (4, 4096), (128, 128), (1000, 16), (1000, 80), (1000, 8192), (3, 100)]
+             (4, 4096), (128, 128), (1000, 16), (1000, 80), (1000, 8192), (3, 100),
+             (2048, 1600), (1024, 1536), (4096, 1536)]
     cases = named + [(rows, D) for D in RMSNORM_WIDTHS for rows in RMSNORM_ROWS]
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -491,14 +526,21 @@ def _qkv_views(B, Hq, Hkv, S, T, D, dtype, g, dev):
             torch.randn(B, Hkv, T, D, generator=g, device=dev).to(dtype))
 
 
+# K2 at the full-sequence forwards of hymba-1.5b (B=2, S=1024 = its window:
+# groups of 5) and granite-moe-3b-a800m (B=2, S=512: groups of 3), causal
+FLASH_MODEL_SHAPES = {"hymba": (2, 25, 5, 1024, 1024, 64, True),
+                      "granite": (2, 24, 8, 512, 512, 64, True)}
+
+
 def flash_phase(dev) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels._build import load_kernels
-    from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_fwd
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, _plan, flash_attention_fwd
 
     g = torch.Generator(device=dev).manual_seed(2)
     cases = [  # B, Hq, Hkv, S, T, D, causal
         (2, 32, 8, 512, 512, 128, True),    # the forward's shape (GQA)
+        *FLASH_MODEL_SHAPES.values(),       # hymba's (groups of 5), granite's (of 3)
         (2, 32, 8, 512, 512, 128, False),
         (4, 32, 8, 1024, 1024, 128, True),  # the train step's shape
         (1, 8, 1, 512, 512, 64, True),      # MQA
@@ -525,8 +567,8 @@ def flash_phase(dev) -> dict:
             e, ok = err_vs(out, out_r, dtype)
             e_lse = float((lse - lse_r).abs().max())
             worst = max(worst, e)
-            log("kernels", f"flash {str(dtype)[6:]} B={B} Hq={Hq} Hkv={Hkv} S={S} T={T} "
-                f"D={D} causal={causal} out_err={e:.3e} lse_err={e_lse:.3e}")
+            log("kernels", f"flash {str(dtype)[6:]} ({_plan(q, k, v)}) B={B} Hq={Hq} Hkv={Hkv} "
+                f"S={S} T={T} D={D} causal={causal} out_err={e:.3e} lse_err={e_lse:.3e}")
             check(ok and e_lse <= LSE_TOL, f"flash {dtype} {(B, Hq, Hkv, S, T, D, causal)} "
                   f"out {e} lse {e_lse}")
 
@@ -547,38 +589,42 @@ def flash_phase(dev) -> dict:
             raise SmokeFailure("an unaligned bf16 view was launched")
     check(flash_attention_fwd.launches == before, "an unaligned launch was counted")
 
-    B, Hq, Hkv, S, T, D = 2, 32, 8, 512, 512, 128
     dtype = torch.bfloat16
-    nbytes = (2 * B * Hq * S * D + 2 * B * Hkv * T * D) * 2 + B * Hq * S * 4
-    pairs = sum(min(T - S + i + 1, T) for i in range(S))  # causal (q, k) pairs
-    ops = 4.0 * B * Hq * D * pairs
-    sets = copies(lambda: _qkv_views(B, Hq, Hkv, S, T, D, dtype, g, dev), nbytes)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    t = _times("", lambda q, k, v: flash_attention_fwd(q, k, v, causal=True), sets)
-    t |= _times("plain_", lambda q, k, v: ref.flash_attention_fwd_ref(q, k, v, causal=True),
-                sets)
-    t |= _times("library_", lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True),
-                sets)
+    t = {}
+    for name, (B, Hq, Hkv, S, T, D, causal) in (("", cases[0]), *(
+            (f"{m}_", shape) for m, shape in FLASH_MODEL_SHAPES.items())):
+        nbytes = (2 * B * Hq * S * D + 2 * B * Hkv * T * D) * 2 + B * Hq * S * 4
+        pairs = sum(min(T - S + i + 1, T) for i in range(S))  # causal (q, k) pairs
+        ops = 4.0 * B * Hq * D * pairs
+        sets = copies(lambda: _qkv_views(B, Hq, Hkv, S, T, D, dtype, g, dev), nbytes)
+        t |= _times(name, lambda q, k, v: flash_attention_fwd(q, k, v, causal=True), sets)
+        t |= _times(f"{name}plain_",
+                    lambda q, k, v: ref.flash_attention_fwd_ref(q, k, v, causal=True), sets)
+        t |= _times(f"{name}library_",
+                    lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True), sets)
+        # SDPA picks cuDNN's wgmma kernel here; its FA2 backend is an mma.sync
+        # kernel like this one
+        from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    # SDPA picks cuDNN's wgmma kernel here; its FA2 backend is an mma.sync
-    # kernel like this one
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-        fa2_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True),
-                         sets)[0]
-    bms, by = bound_ms(nbytes, ops, dtype)
-    log("kernels", f"flash timing bf16 {(B, Hq, Hkv, S, T, D)} causal: kernel {t['ms']:.4f} ms "
-        f"(call {t['call_ms']:.4f}), "
-        f"plain {t['plain_ms']:.4f} ({t['plain_call_ms']:.4f}), sdpa {t['library_ms']:.4f} "
-        f"({t['library_call_ms']:.4f}), sdpa's FA2 backend {fa2_ms:.4f}, bound {bms:.4f} ms "
-        f"({by}); kernel "
-        f"{ops / t['ms'] / 1e9:.2f} TFLOP/s, sdpa {ops / t['library_ms'] / 1e9:.2f} TFLOP/s, "
-        f"kernel / sdpa {t['ms'] / t['library_ms']:.3f}, bound / kernel {bms / t['ms']:.3f}")
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            fa2_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                             sets)[0]
+        del sets
+        bms, by = bound_ms(nbytes, ops, dtype)
+        t |= {f"{name}bound_ms": bms, f"{name}bound_by": by}
+        ms, lib = t[f"{name}ms"], t[f"{name}library_ms"]
+        log("kernels", f"flash timing bf16 {(B, Hq, Hkv, S, T, D)} causal: kernel {ms:.4f} ms "
+            f"(call {t[name + 'call_ms']:.4f}), plain {t[name + 'plain_ms']:.4f} "
+            f"({t[name + 'plain_call_ms']:.4f}), sdpa {lib:.4f} "
+            f"({t[name + 'library_call_ms']:.4f}), sdpa's FA2 backend {fa2_ms:.4f}, bound "
+            f"{bms:.4f} ms ({by}); kernel {ops / ms / 1e9:.2f} TFLOP/s, sdpa "
+            f"{ops / lib / 1e9:.2f} TFLOP/s, kernel / sdpa {ms / lib:.3f}, bound / kernel "
+            f"{bms / ms:.3f}")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:108",
-            "max_abs_err": worst, **t, "bound_ms": bms, "bound_by": by}
+            "max_abs_err": worst, **t}
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, seed, dev):
@@ -620,6 +666,7 @@ def ssd_phase(dev) -> dict:
     cases = [  # B, S, H, P, N, chunk
         (4, 2048, 32, 64, 128, DEFAULT_CHUNK),  # the mamba2-370m forward's shape
         (2, 1024, 50, 64, 16, DEFAULT_CHUNK),   # hymba-1.5b's ssm heads
+        (1, 2048, 50, 64, 16, DEFAULT_CHUNK),   #   and its banded forward's
         (1, 128, 2, 32, 16, 64),                # the cases of tests/test_kernels.py
         (2, 300, 4, 64, 32, 128),               #   uneven chunks
         (1, 64, 1, 16, 8, 256),                 #   chunk > seq
@@ -680,8 +727,9 @@ def ssd_phase(dev) -> dict:
         t |= _times(name, lambda *a: ssd_scan_fwd(*a), sets)
         bms, by = bound_ms(nbytes, ssd_ops(B, S, H, P, N, DEFAULT_CHUNK), dtype)
         t |= {f"{name}bound_ms": bms, f"{name}bound_by": by}
+        t |= _times(f"{name}plain_", lambda *a: ref.ssd_scan(*a, return_state=True), sets,
+                    iters=2)
         if name == "":
-            t |= _times("plain_", lambda *a: ref.ssd_scan(*a, return_state=True), sets, iters=2)
             # the chunk is the kernel's choice: both that it takes, in turns
             other = 128 if DEFAULT_CHUNK == 64 else 64
             chunk_ms = {c: [] for c in (DEFAULT_CHUNK, other)}
@@ -693,8 +741,8 @@ def ssd_phase(dev) -> dict:
         ops = ssd_ops(B, S, H, P, N, DEFAULT_CHUNK)
         log("kernels", f"ssd timing bf16 {(B, S, H, P, N)} chunk {DEFAULT_CHUNK}: kernel "
             f"{t[name + 'ms']:.4f} ms (call {t[name + 'call_ms']:.4f}), "
-            + (f"plain {t['plain_ms']:.4f} ms ({t['plain_call_ms']:.4f}), " if name == "" else "")
-            + f"no library call, bound {bms:.4f} ms ({by}), "
+            + f"plain {t[name + 'plain_ms']:.4f} ms ({t[name + 'plain_call_ms']:.4f}), "
+            f"no library call, bound {bms:.4f} ms ({by}), "
             f"{ops / t[name + 'ms'] / 1e9:.2f} TFLOP/s, {nbytes / t[name + 'ms'] / 1e6:.1f} GB/s, "
             f"bound / kernel {bms / t[name + 'ms']:.3f}")
     return {"name": "ssd_scan_fwd", "route": "cuda",
@@ -728,6 +776,18 @@ def read_counts(counters) -> tuple[dict, dict]:
              if hasattr(c, "shapes")})
 
 
+def _serve_cfg(arch, dtype, **kw):
+    """The model config of the cached paths. For moe, capacity factor 8.0:
+    the capacity depends on the number of tokens, so a prefill, its decode
+    steps and the teacher-forced forward drop different assignments at the
+    default 1.25 (tests/test_models.py does the same)."""
+    from repro_torch.models import lm
+
+    if arch.family == "moe":
+        kw.setdefault("capacity_factor", MOE_SERVE_CAPACITY)
+    return lm.ModelCfg(dtype=dtype, **kw)
+
+
 def reduced_phase(dev, name: str) -> None:
     """Small input, f32: kernels == plain versions, and prefill + decode ==
     teacher forcing, at the 1e-4 of tests/test_models.py."""
@@ -739,7 +799,7 @@ def reduced_phase(dev, name: str) -> None:
                             torch.float32, dev)
     toks = torch.randint(0, arch.vocab, (2, 12), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(4))
-    cfg = lm.ModelCfg(dtype=torch.float32)
+    cfg = _serve_cfg(arch, torch.float32)
     full = lm.forward_logits(params, arch, cfg, {"tokens": toks})
     plain = lm.forward_logits(params, arch, _plain(cfg), {"tokens": toks})
     e_plain = float((full - plain).abs().max())
@@ -801,8 +861,7 @@ def forward_phase(dev, name, arch, params, counters, expect: dict, main_bs,
 
     B, S = compare_bs
     toks = toks[:B, :S]
-    logits = lm.forward_logits(params, arch, cfg, {"tokens": toks})
-    ref_logits = lm.forward_logits(params, arch, plain_cfg, {"tokens": toks})
+    logits, ref_logits = kernels_and_plain(params, arch, cfg, toks, "bf16")
     max_abs, max_rel, agree = _compare_logits(logits, ref_logits)
     abs_bound, agree_bound = BF16_BOUNDS[name]
     log("forward", f"{arch.name} B={B} S={S} bf16 kernels vs plain: max_abs {max_abs:.4f}, "
@@ -824,14 +883,81 @@ def forward_phase(dev, name, arch, params, counters, expect: dict, main_bs,
 
     p32 = lm.cast_params(params, torch.float32)
     cfg32 = lm.ModelCfg(dtype=torch.float32)
-    l32 = lm.forward_logits(p32, arch, cfg32, {"tokens": toks})
-    r32 = lm.forward_logits(p32, arch, _plain(cfg32), {"tokens": toks})
+    l32, r32 = kernels_and_plain(p32, arch, cfg32, toks, "f32")
     max_abs, max_rel, agree = _compare_logits(l32, r32)
     log("forward", f"{arch.name} f32 (same weights) kernels vs plain: max_abs {max_abs:.3e}, "
         f"max_rel {max_rel:.3e}, argmax agreement {agree:.4f} (bounds: max_abs <= "
         f"{F32_MAX_ABS}, agreement >= {F32_ARGMAX_MIN})")
     check(max_abs <= F32_MAX_ABS and agree >= F32_ARGMAX_MIN, "f32 forward parity")
     return counts, shapes
+
+
+class RoutingReplay:
+    """For the with block, repro_torch.models.moe.select records the experts
+    each of its calls chose (``RoutingReplay()``), or hands back those of a
+    recorded run in the same order (``RoutingReplay(recorded)``), with gates
+    from the call's own router logits at those experts. Top-k is
+    discontinuous: an f32 difference of 1e-5 in a layer's input flips a
+    near-tie between two experts, and at a full capacity that moves other
+    assignments to the drop slot. Replaying the kernel path's choices in the
+    plain path holds the kernels to the plain versions on the same dispatch;
+    ``flips`` counts the token-layers whose own choice would have differed."""
+
+    def __init__(self, recorded=None):
+        self.recorded, self.experts, self.flips, self.rows = recorded, [], 0, 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._real = moe, moe.select
+        replay = iter(self.recorded or ())
+
+        def select(p, xt, top_k):
+            gates, experts = self._real(p, xt, top_k)
+            if self.recorded is None:
+                self.experts.append(experts)
+                return gates, experts
+            want = next(replay)
+            self.rows += want.shape[0]
+            self.flips += int((experts.sort(-1).values != want.sort(-1).values).any(-1).sum())
+            logits = xt.float() @ p["router"].float()
+            return torch.softmax(logits.gather(-1, want), dim=-1).to(xt.dtype), want
+
+        moe.select = select
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.select = self._real
+
+
+def kernels_and_plain(params, arch, cfg, toks, what: str):
+    """forward_logits through the kernels and through the plain versions. For
+    moe, the plain run replays the kernel run's expert choices
+    (RoutingReplay); the plain run on its own choices is held to the argmax
+    agreement bound of cfg's dtype and, in f32, to MOE_F32_FLIP_SHARE."""
+    from repro_torch.models import lm
+
+    batch = {"tokens": toks}
+    if arch.family != "moe":
+        return (lm.forward_logits(params, arch, cfg, batch),
+                lm.forward_logits(params, arch, _plain(cfg), batch))
+    with RoutingReplay() as rec:
+        logits = lm.forward_logits(params, arch, cfg, batch)
+    with RoutingReplay(rec.experts) as rep:
+        ref_logits = lm.forward_logits(params, arch, _plain(cfg), batch)
+    own = lm.forward_logits(params, arch, _plain(cfg), batch)
+    max_abs, max_rel, agree = _compare_logits(logits, own)
+    f32 = cfg.dtype == torch.float32
+    agree_bound = F32_ARGMAX_MIN if f32 else BF16_BOUNDS[arch.name][1]
+    flip_bound = f", bound <= {MOE_F32_FLIP_SHARE}" if f32 else ", a reading"
+    log("forward", f"{arch.name} {what} kernels vs plain on its own routing: max_abs "
+        f"{max_abs:.4e} (a reading), max_rel {max_rel:.4e}, argmax agreement {agree:.4f} "
+        f"(bound >= {agree_bound}); the plain run's own top-{arch.top_k} differs at "
+        f"{rep.flips} of {rep.rows} token-layers ({rep.flips / rep.rows:.2e}{flip_bound})")
+    check(agree >= agree_bound, f"{what} moe forward vs plain on its own routing")
+    check(not f32 or rep.flips <= MOE_F32_FLIP_SHARE * rep.rows,
+          "f32 moe forward: the plain run's own routing differs too often")
+    return logits, ref_logits
 
 
 def _norm_paths(counters) -> dict:
@@ -847,18 +973,33 @@ def _compare_logits(got, want) -> tuple[float, float, float]:
             float((got.argmax(-1) == want.argmax(-1)).float().mean()))
 
 
-def serve_phase(dev, name, arch, params, counters, per_forward: dict) -> tuple[dict, dict]:
-    """per_forward: each kernel's launches in one cached forward; generate
-    runs N + 1 of them (the prefill and N decode steps). Returns read_counts
-    after generate."""
+def kv_cache_bytes(arch, cfg, B: int, max_len: int) -> int:
+    """Bytes of the KV cache (k, v and, under kv_cache_quant, their scales)
+    that init_caches allocates, counted on the meta device."""
+    from repro_torch.models import lm
+
+    caches = lm.init_caches(arch, cfg, B, max_len, device="meta")
+    return sum(t.numel() * t.element_size() for n, t in caches.items()
+               if n in ("k", "v", "k_scale", "v_scale"))
+
+
+def serve_phase(dev, name, arch, params, counters, per_forward: dict, *, B: int = 4,
+                P: int = 128, N: int = 32, max_len: int = 256, cfg=None, busy: bool = True,
+                label: str = ""):
+    """ServeEngine.generate of B prompts of P tokens and N new ones.
+    per_forward: each kernel's launches in one cached forward; generate runs
+    N + 1 of them (the prefill and N decode steps). The greedy tokens are
+    held against the teacher-forced argmax through the kernels (cfg: the
+    model config, by default _serve_cfg's in bf16). Returns read_counts after
+    generate, the GenerateResult and the median decode step in ms."""
     from repro_torch.models import lm
     from repro_torch.serve import ServeEngine
 
-    B, P, N = 4, 128, 32
     expect = {k: (N + 1) * v for k, v in per_forward.items()}
-    cfg = lm.ModelCfg(dtype=torch.bfloat16)
-    engine = ServeEngine(arch, cfg, params, max_len=256)
+    cfg = cfg or _serve_cfg(arch, torch.bfloat16)
+    engine = ServeEngine(arch, cfg, params, max_len=max_len)
     prompts = np.random.default_rng(6).integers(0, arch.vocab, size=(B, P))
+    what = f"{arch.name}{label} B={B} prompt={P} new={N} max_len={max_len}"
     torch.cuda.synchronize()
     reset_counts(counters)
     res = engine.generate(prompts, max_new_tokens=N)
@@ -866,10 +1007,10 @@ def serve_phase(dev, name, arch, params, counters, per_forward: dict) -> tuple[d
     norm_paths = _norm_paths(counters)
     steps = res.step_times[res.warmup_steps:]
     med = statistics.median(steps)
-    log("serve", f"{arch.name} B={B} prompt={P} new={N}: launches {counts} (expect "
+    log("serve", f"{what}: launches {counts} (expect "
         f"{expect}); prefill {res.prefill_time * 1e3:.2f} ms, median decode step "
         f"{med * 1e3:.3f} ms (first step {res.step_times[0] * 1e3:.3f} ms), decode "
-        f"{B / med:.1f} tokens/s")
+        f"{B / med:.1f} tokens/s; KV cache {kv_cache_bytes(arch, cfg, B, max_len)} bytes")
     check(counts == expect, "serve launch counts")
     check(norm_paths == {"vector": expect["rmsnorm_fwd"]},
           f"serve's RMSNorm launches took the kernels {norm_paths}")
@@ -880,28 +1021,34 @@ def serve_phase(dev, name, arch, params, counters, per_forward: dict) -> tuple[d
     with torch.inference_mode():
         tf = lm.forward_logits(params, arch, cfg, {"tokens": seq[:, :-1]})
     agree = float((tf[:, P - 1:].argmax(-1) == seq[:, P:]).float().mean())
+    del tf
     agree_bound = BF16_BOUNDS[name][1]
-    log("serve", f"{arch.name} greedy tokens vs teacher-forced argmax (through the kernels): "
+    log("serve", f"{what} greedy tokens vs teacher-forced argmax (through the kernels): "
         f"agreement {agree:.4f} (bound >= {agree_bound})")
     check(agree >= agree_bound, "serve vs teacher forcing")
+    if busy:
+        # device busy share while decoding (warm engine, a few steps)
+        from torch.profiler import ProfilerActivity, profile
 
-    # device busy share while decoding (warm engine, a few steps)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = engine.generate(prompts, max_new_tokens=4)
-    busy_ms = device_us(prof) / 1e3
-    twice_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
-    wall_ms = (res.prefill_time + sum(res.step_times)) * 1e3
-    log("serve", f"{arch.name} profiled generate (prefill + 4 steps): wall {wall_ms:.1f} ms, "
-        f"device kernels {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f} (the sum over "
-        f"key_averages(), which counts an op's kernels twice: {twice_ms:.1f} ms)")
-    check(busy_ms > 0, "the profiler saw no device time")
-    return counts, shapes
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            r4 = engine.generate(prompts, max_new_tokens=4)
+        busy_ms = device_us(prof) / 1e3
+        twice_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        wall_ms = (r4.prefill_time + sum(r4.step_times)) * 1e3
+        log("serve", f"{what} profiled generate (prefill + 4 steps): wall {wall_ms:.1f} ms, "
+            f"device kernels {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f} (the sum "
+            f"over key_averages(), which counts an op's kernels twice: {twice_ms:.1f} ms)")
+        check(busy_ms > 0, "the profiler saw no device time")
+    return (counts, shapes), res, med * 1e3
 
 
 def model_phases(dev, name: str, counters, expect_forward: dict, expect_cached: dict,
-                 main_bs, compare_bs) -> list[tuple[dict, dict]]:
+                 main_bs, compare_bs, extra=None,
+                 serve_max_len: int = 256) -> list[tuple[str, dict, dict]]:
+    """Phases 4 and 5 for one model at full width and depth, and extra(dev,
+    arch, params, counters, serve_result, decode_ms) where given: the
+    family's own runs. Returns (label, launches, launches by shape) for each
+    main-path run."""
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
 
@@ -918,14 +1065,207 @@ def model_phases(dev, name: str, counters, expect_forward: dict, expect_cached: 
             f"{time.perf_counter() - t0:.1f} s")
         fwd = forward_phase(dev, name, arch, params, counters, expect_forward, main_bs,
                             compare_bs)
-    srv = serve_phase(dev, name, arch, params, counters, expect_cached)
+    srv, res, decode_ms = serve_phase(dev, name, arch, params, counters, expect_cached,
+                                      max_len=serve_max_len)
+    runs = [(f"{name} forward B={main_bs[0]} S={main_bs[1]}", *fwd),
+            (f"{name} serve 4 x 128 + 32", *srv)]
+    if extra is not None:
+        runs += extra(dev, arch, params, counters, res, decode_ms)
     log("serve", f"{name} peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
     del params
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    return [fwd, srv]
+    return runs
+
+
+# hymba-1.5b: per forward, ln1 and ln2 in each of its 32 layers and the final
+# norm through K1; attention through K2 while S <= its window of 1024 and
+# through banded_flash_xla past it; the full-sequence SSD scan through K3.
+# The cached paths (prefill and decode) run attention through flash_xla and
+# the plain scan on the cache, as the JAX package does: K1 only.
+HYMBA_BANDED_BS = (1, 2048)
+HYMBA_SERVE_MAX_LEN = 160  # 4 x 128 + 32: a ring of 160 slots that never wraps
+# the serve run whose prefill fills the 1024-slot ring (ring prefill through
+# banded_flash_xla and the roll) and whose every decode step wraps it
+HYMBA_RING_SERVE = dict(B=2, P=1024, N=32, max_len=1056)
+# the serve options of the JAX package, all three on the 4 x 128 + 32 run
+KV_OPTIONS = dict(kv_cache_quant=True, decode_dense_attn=True, kv_scatter_write=True)
+# The options against the default cache, f32 on the same weights, the same
+# tokens through prefill and KV_OPTION_STEPS decode steps, logits step by
+# step: (B, prompt, max_len) of the 4 x 128 + 32 run and of one whose prefill
+# fills the 1024-slot ring and whose every step wraps it.
+#   Dense decode attention with scatter writes, against the default cache and
+#   under int8 against the int8 cache alone, only reorders f32 sums:
+#   F32_MAX_ABS.
+#   Layer 0's K and V depend on the tokens alone, so its int8 cache, read
+#   back as the attention reads it (_kv_dequantize), is held slot by slot to
+#   the default's, in steps of the row's stored bf16 scale:
+#   rounding to the nearest step is half a step, and the scale's own bf16
+#   rounding (2^-8 of it at most) adds 127 x 2^-8 of one, so (0.5 + 127 x
+#   2^-8) / (1 - 2^-8) = 1.0 at most, and the f32 products a little more.
+#   The int8 cache's logits against the default's: a rounding of K and V of
+#   a bf16 rounding's order, which the 32 layers carry as they carry bf16's,
+#   so hymba's bf16 bound on the max abs logit difference. An H100 read 0.064
+#   of the largest logit over the 4 x 128 prefill, 0.024 in decode; the CPU
+#   tests' 0.02 holds at their 2 layers.
+KV_OPTION_RUNS = ((4, 128, HYMBA_SERVE_MAX_LEN), (1, 1024, 1024 + 8))
+KV_OPTION_STEPS = 8
+KV_QUANT_STEPS = 1.001
+
+
+def kv_options_vs_default(dev, arch, params) -> None:
+    """Prefill and KV_OPTION_STEPS decode steps under the default cache,
+    decode_dense_attn + kv_scatter_write, kv_cache_quant alone and
+    KV_OPTIONS (params in f32), held to each other as set out above."""
+    from repro_torch.models import lm
+
+    dense = {k: v for k, v in KV_OPTIONS.items() if k != "kv_cache_quant"}
+    settings = {"default": {}, "dense": dense, "int8": {"kv_cache_quant": True},
+                "all": KV_OPTIONS}
+    abs_bound = BF16_BOUNDS[arch.name][0]
+    for B, P, max_len in KV_OPTION_RUNS:
+        toks = torch.randint(0, arch.vocab, (B, P + KV_OPTION_STEPS), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(21))
+        logits, layer0 = {}, {}
+        for name, opts in settings.items():
+            cfg = _serve_cfg(arch, torch.float32, **opts)
+            caches = lm.init_caches(arch, cfg, B, max_len, device=dev)
+            lg, caches = lm.prefill(params, arch, cfg, caches, toks[:, :P])
+            steps = [lg]
+            for i in range(P, P + KV_OPTION_STEPS):
+                lg, caches = lm.decode_step(params, arch, cfg, caches, toks[:, i:i + 1], i)
+                steps.append(lg)
+            logits[name] = torch.cat(steps, dim=1).float()
+            layer0[name] = {n: t[0].clone() for n, t in caches.items()
+                            if n in ("k", "v", "k_scale", "v_scale")}
+            del caches, steps, lg
+        want = logits["default"]
+        e_dense = float((logits["dense"] - want).abs().max())
+        e_opts = float((logits["all"] - logits["int8"]).abs().max())
+        e_slot = 0.0
+        for name in ("int8", "all"):
+            for kv in ("k", "v"):
+                q, scale = layer0[name][kv], layer0[name][f"{kv}_scale"]
+                err = (lm._kv_dequantize(q, scale, torch.float32) - layer0["default"][kv]).abs()
+                e_slot = max(e_slot, float((err / scale.float()[..., None].clamp(min=1e-30))
+                                           .max()))
+        T = min(max_len, arch.sliding_window)
+        what = (f"{arch.name} f32 B={B} prompt={P} + {KV_OPTION_STEPS} steps, {T}-slot cache "
+                f"(positions up to {P + KV_OPTION_STEPS - 1})")
+        log("serve", f"{what}: {sorted(dense)} vs the default cache max_abs {e_dense:.3e}, "
+            f"{sorted(KV_OPTIONS)} vs kv_cache_quant alone {e_opts:.3e} (bound "
+            f"{F32_MAX_ABS}); layer 0's int8 K/V within {e_slot:.4f} of a scale step of "
+            f"the default cache at every slot (bound {KV_QUANT_STEPS})")
+        check(e_dense <= F32_MAX_ABS, f"{sorted(dense)} vs the default cache")
+        check(e_opts <= F32_MAX_ABS, f"{sorted(KV_OPTIONS)} vs kv_cache_quant alone")
+        check(e_slot <= KV_QUANT_STEPS, "layer 0's int8 cache vs the default cache")
+        for name in ("int8", "all"):
+            diff = (logits[name] - want).abs()
+            rel = diff.amax(dim=(0, 2)) / want.abs().amax(dim=(0, 2))  # per position
+            agree = float((logits[name].argmax(-1) == want.argmax(-1)).float().mean())
+            log("serve", f"{what}: {sorted(settings[name])} vs the default cache max_abs "
+                f"{float(diff.max()):.4f} (bound {abs_bound}), of the largest logit: prefill "
+                f"{float(rel[:P].max()):.4f}, decode {float(rel[P:].max()):.4f}; argmax "
+                f"agreement {agree:.4f}")
+            check(float(diff.max()) <= abs_bound, f"{sorted(settings[name])} logits")
+        del logits, want, layer0
+
+
+def hymba_extra(dev, arch, params, counters, res, decode_ms) -> list[tuple[str, dict, dict]]:
+    """hymba's own runs: the banded forward (K2 must not launch), the serve
+    run that wraps the ring, and the 4 x 128 + 32 run under KV_OPTIONS beside
+    the default one (res, decode_ms)."""
+    from repro_torch.models import lm
+
+    L = arch.num_layers
+    B, S = HYMBA_BANDED_BS
+    toks = torch.randint(0, arch.vocab, (B, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(15))
+    cfg = lm.ModelCfg(dtype=torch.bfloat16)
+    expect = {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": 0, "ssd_scan_fwd": L}
+    runs = []
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        logits = lm.forward_logits(params, arch, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts, shapes = read_counts(counters)
+        log("forward", f"{arch.name} B={B} S={S} (window {arch.sliding_window}: "
+            f"banded_flash_xla): launches {counts} (expect {expect}); wall {wall:.1f} ms "
+            f"(first call)")
+        check(counts == expect, "hymba banded forward launch counts")
+        check(tuple(logits.shape) == (B, S, arch.vocab)
+              and bool(torch.isfinite(logits).all()), "hymba banded forward logits")
+        del logits
+        runs.append((f"{arch.name} forward B={B} S={S} (banded)", counts, shapes))
+        # the banded forward in f32 on the same weights, kernels vs plain
+        p32 = lm.cast_params(params, torch.float32)
+        l32, r32 = kernels_and_plain(p32, arch, lm.ModelCfg(dtype=torch.float32), toks, "f32")
+        max_abs, max_rel, agree = _compare_logits(l32, r32)
+        log("forward", f"{arch.name} B={B} S={S} (banded) f32 (same weights) kernels vs plain: "
+            f"max_abs {max_abs:.3e}, max_rel {max_rel:.3e}, argmax agreement {agree:.4f} "
+            f"(bounds: max_abs <= {F32_MAX_ABS}, agreement >= {F32_ARGMAX_MIN})")
+        check(max_abs <= F32_MAX_ABS and agree >= F32_ARGMAX_MIN,
+              "hymba banded f32 forward parity")
+        del l32, r32
+        t0 = time.perf_counter()
+        kv_options_vs_default(dev, arch, p32)
+        log("serve", f"{arch.name} KV options vs the default cache done in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del p32
+
+    per_forward = {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": 0, "ssd_scan_fwd": 0}
+    t0 = time.perf_counter()
+    srv, _, _ = serve_phase(dev, arch.name, arch, params, counters, per_forward, busy=False,
+                            label=" (ring: prefill fills it, every decode step wraps it)",
+                            **HYMBA_RING_SERVE)
+    log("serve", f"{arch.name} ring serve run done in {time.perf_counter() - t0:.1f} s")
+    runs.append((f"{arch.name} serve 2 x 1024 + 32 (ring wraps)", *srv))
+
+    opt_cfg = _serve_cfg(arch, torch.bfloat16, **KV_OPTIONS)
+    srv, res_opt, opt_ms = serve_phase(dev, arch.name, arch, params, counters, per_forward,
+                                       cfg=opt_cfg, busy=False, label=f" {KV_OPTIONS}",
+                                       max_len=HYMBA_SERVE_MAX_LEN)
+    runs.append((f"{arch.name} serve 4 x 128 + 32 {sorted(KV_OPTIONS)}", *srv))
+    B, P = res.tokens.shape[0], res.prompt_len
+    same = float((res_opt.tokens[:, P:] == res.tokens[:, P:]).mean())
+    first = [int(np.argmax(a != b)) if (a != b).any() else None
+             for a, b in zip(res_opt.tokens[:, P:], res.tokens[:, P:])]
+    default_bytes = kv_cache_bytes(arch, _serve_cfg(arch, torch.bfloat16), B,
+                                   HYMBA_SERVE_MAX_LEN)
+    opt_bytes = kv_cache_bytes(arch, opt_cfg, B, HYMBA_SERVE_MAX_LEN)
+    log("serve", f"{arch.name} {KV_OPTIONS} against the default cache: new tokens equal at "
+        f"{same:.4f} of positions (first difference per prompt {first}); KV cache "
+        f"{opt_bytes} bytes against {default_bytes} ({opt_bytes / default_bytes:.4f}); "
+        f"median decode step {opt_ms:.3f} ms against {decode_ms:.3f} ms")
+    check(opt_bytes < default_bytes, "the int8 cache is not smaller")
+    return runs
+
+
+def granite_extra(dev, arch, params, counters, res, decode_ms) -> list:
+    """The share of dropped assignments at the default capacity factor, on
+    the forward's tokens: a reading, not a check. An expert keeps its first C
+    assignments, so each layer drops max(count - C, 0) of each expert's."""
+    from repro_torch.models import lm, moe
+
+    toks = torch.randint(0, arch.vocab, (2, 512), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+    cfg = lm.ModelCfg(dtype=torch.bfloat16)
+    with torch.inference_mode(), RoutingReplay() as rec:
+        lm.forward_logits(params, arch, cfg, {"tokens": toks})
+    C = moe.capacity(toks.numel(), arch.top_k, cfg.capacity_factor, arch.num_experts)
+    dropped = [int((torch.bincount(e.flatten(), minlength=arch.num_experts) - C)
+                   .clamp(min=0).sum()) for e in rec.experts]
+    total = sum(e.numel() for e in rec.experts)
+    shares = [d / e.numel() for d, e in zip(dropped, rec.experts)]
+    log("forward", f"{arch.name} B=2 S=512 capacity factor {cfg.capacity_factor}: "
+        f"{C} slots an expert, {sum(dropped) / total:.4f} of {total} assignments "
+        f"dropped (by layer {min(shares):.4f} to {max(shares):.4f})")
+    return []
 
 
 # ---------------------------------------------------------------------------
@@ -1013,7 +1353,9 @@ def timed_step(step, params, opt, batch, timer: OptimizerTimer):
     wall = (time.perf_counter() - t0) * 1e3
     enter, leave = timer.events[-1]
     return params, opt, {"wall_ms": wall, "fwd_bwd_ms": start.elapsed_time(enter),
-                         "opt_ms": enter.elapsed_time(leave), "loss": loss, "grad_norm": gnorm}
+                         "opt_ms": enter.elapsed_time(leave), "loss": loss, "grad_norm": gnorm,
+                         **{k: float(metrics[k]) for k in ("ce_loss", "aux_loss")
+                            if k in metrics}}
 
 
 class CountMM(TorchDispatchMode):
@@ -1331,20 +1673,121 @@ def train_mamba_phase(dev, counters) -> tuple[dict, dict]:
     return counts, shapes
 
 
-def train_phase(dev, counters, card: str) -> tuple[list[tuple[dict, dict]], list[dict]]:
-    """Phase 6. Returns read_counts of the two main train paths (qwen3-8b's
-    five steps, mamba2's two), and the five qwen3-8b steps' times. card:
-    nvidia-smi's name and power limit."""
+# granite-moe-3b-a800m at full width and 4 of its 32 layers: 0.555e9 params,
+# 8.9 GB with f32 AdamW state; B x S = 4096 tokens, 1024 slots an expert at
+# the default capacity factor
+GRANITE_TRAIN_LAYERS = 4
+GRANITE_TRAIN_STEPS = 2
+
+
+def train_granite_phase(dev, counters, card: str) -> tuple[dict, dict]:
+    """GRANITE_TRAIN_STEPS make_train_step steps of granite at full width and
+    GRANITE_TRAIN_LAYERS layers, TRAIN_BS, through the kernels (wall, forward
+    + backward and optimizer ms, peak memory, ce_loss and aux_loss,
+    launches); then the loss and every grad of one f32 step at 2 layers,
+    kernels against plain versions."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.train import TrainStepCfg, adamw_init, make_train_step
+
+    full = get_arch("granite-moe-3b-a800m")
+    arch = dataclasses.replace(full, num_layers=GRANITE_TRAIN_LAYERS)
+    B, S = TRAIN_BS
+    L = arch.num_layers
+    params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(16), torch.float32,
+                            dev)
+    opt = adamw_init(params)
+    batch = {"tokens": torch.randint(0, arch.vocab, (B, S), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(17))}
+    step = make_train_step(arch, lm.ModelCfg(dtype=torch.bfloat16),
+                           TrainStepCfg(num_microbatches=1, warmup_steps=2, total_steps=10))
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    log("train", f"granite-moe-3b-a800m at full width, {L} of its {full.num_layers} layers, "
+        f"B={B} S={S}: params {n_params / 1e9:.4f} B, params + AdamW state "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB; f32 master weights, bf16 compute")
+    _free()
+    reset_counts(counters)
+    rows = []
+    with OptimizerTimer() as timer:
+        for i in range(GRANITE_TRAIN_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            params, opt, r = timed_step(step, params, opt, batch, timer)
+            rows.append(r)
+            log("train", f"granite step {i}: wall {r['wall_ms']:.1f} ms, forward + backward "
+                f"{r['fwd_bwd_ms']:.1f} ms, optimizer {r['opt_ms']:.1f} ms, loss "
+                f"{r['loss']:.4f} (ce_loss {r['ce_loss']:.4f}, aux_loss {r['aux_loss']:.4f}), "
+                f"grad_norm {r['grad_norm']:.4f}, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (forward + backward "
+                f"{timer.fwd_bwd_peak[-1] / 1e9:.2f}) on {card}")
+    counts, shapes = read_counts(counters)
+    per_step = {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": L, "ssd_scan_fwd": 0}
+    log("train", f"granite launches {counts} over {GRANITE_TRAIN_STEPS} steps, per step "
+        f"{per_step} expected; rmsnorm launches by kernel {_norm_paths(counters)}")
+    check(counts == {k: GRANITE_TRAIN_STEPS * v for k, v in per_step.items()},
+          "granite train launch counts")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["aux_loss"]) for r in rows),
+          "non-finite granite loss")
+    first_want = math.log(arch.vocab) + 0.5
+    check(abs(rows[0]["ce_loss"] - first_want) <= FIRST_LOSS_TOL,
+          f"granite first ce_loss {rows[0]['ce_loss']} not within {FIRST_LOSS_TOL} of "
+          f"ln(vocab) + 1/2 = {first_want}")
+    del params, opt, step
+    _free()
+
+    # f32 at 2 layers: kernels against the plain versions
+    arch2 = dataclasses.replace(full, num_layers=2)
+    params = lm.init_params(arch2, torch.Generator(device=dev).manual_seed(18), torch.float32,
+                            dev)
+    batch = {"tokens": torch.randint(0, arch2.vocab, (2, 1024), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(19))}
+    names = list(_leaf_names(params))
+    cfg = lm.ModelCfg(dtype=torch.float32)
+    with RoutingReplay() as rec:
+        loss_k, grads_k, c = _loss_and_grads(params, arch2, cfg, batch, counters)
+    loss_o, grads_o, _ = _loss_and_grads(params, arch2, _plain(cfg), batch, counters)
+    rel, i = _leaf_rel(grads_k, grads_o)
+    d_own = abs(loss_k - loss_o) / abs(loss_o)
+    log("train", f"granite f32 step at 2 layers, B=2 S=1024, kernels vs plain on its own "
+        f"routing: loss {loss_k:.6f} vs {loss_o:.6f} (rel {d_own:.3e}, bound "
+        f"{TRAIN_F32_REL}), worst grad leaf {names[i]} rel {rel:.3e} (a reading)")
+    check(d_own <= TRAIN_F32_REL, "granite f32 step vs plain on its own routing")
+    del grads_o
+    with RoutingReplay(rec.experts) as replay:
+        loss_p, grads_p, c_p = _loss_and_grads(params, arch2, _plain(cfg), batch, counters)
+    rel, i = _leaf_rel(grads_k, grads_p)
+    d_loss = abs(loss_k - loss_p) / abs(loss_p)
+    log("train", f"granite f32 step at 2 layers, B=2 S=1024, kernels vs plain on the kernel "
+        f"run's routing ({replay.flips} of {replay.rows} token-layers would have chosen "
+        f"otherwise): loss {loss_k:.6f} vs {loss_p:.6f} (rel {d_loss:.3e}), worst grad leaf "
+        f"{names[i]} of {len(names)} rel {rel:.3e} (bound {TRAIN_F32_REL}); launches {c}, "
+        f"plain {c_p}")
+    check(c == {"rmsnorm_fwd": 2 * 2 + 1, "flash_attention_fwd": 2, "ssd_scan_fwd": 0}
+          and sum(c_p.values()) == 0, "granite f32 step launches")
+    check(d_loss <= TRAIN_F32_REL and rel <= TRAIN_F32_REL, "granite f32 step vs plain")
+    check(replay.flips <= MOE_F32_FLIP_SHARE * replay.rows,
+          "granite f32 step: the plain run's own routing differs too often")
+    del grads_k, grads_p, params
+    _free()
+    return counts, shapes
+
+
+def train_phase(dev, counters, card: str) -> tuple[list[tuple[str, dict, dict]], list[dict]]:
+    """Phase 6. Returns (label, launches, launches by shape) of the main train
+    paths (qwen3-8b's five steps, mamba2's two, granite's two), and the five
+    qwen3-8b steps' times. card: nvidia-smi's name and power limit."""
     _free()
     t0 = time.perf_counter()
     counts, rows = train_steps_phase(dev, counters, card)
-    runs = [counts]
+    runs = [(f"qwen3-8b train x{TRAIN_STEPS}", *counts)]
     _free()
     train_parity_phase(dev, counters)
     _free()
     train_driver_phase(counters)
-    runs.append(train_mamba_phase(dev, counters))
+    runs.append(("mamba2-370m train x2", *train_mamba_phase(dev, counters)))
     _free()
+    runs.append((f"granite-moe-3b-a800m train x{GRANITE_TRAIN_STEPS}",
+                 *train_granite_phase(dev, counters, card)))
     log("train", f"done in {time.perf_counter() - t0:.1f} s")
     return runs, rows
 
@@ -1502,6 +1945,7 @@ def main() -> int:
     log("kernels", f"done at {time.perf_counter() - t_start:.1f} s")
 
     qwen, mamba = get_arch("qwen3-8b"), get_arch("mamba2-370m")
+    hymba, granite = get_arch("hymba-1.5b"), get_arch("granite-moe-3b-a800m")
 
     runs = model_phases(
         dev, "qwen3-8b", counters,
@@ -1521,19 +1965,42 @@ def main() -> int:
          "ssd_scan_fwd": 0},
         main_bs=(4, 2048), compare_bs=(2, 512))
     log("serve", f"mamba2-370m done at {time.perf_counter() - t_start:.1f} s")
+    # hymba: ln1, ln2 and K3 in each layer, K2 while S <= the window; its
+    # cached paths run flash_xla and the plain scan (K1 only)
+    runs += model_phases(
+        dev, "hymba-1.5b", counters,
+        {"rmsnorm_fwd": 2 * hymba.num_layers + 1, "flash_attention_fwd": hymba.num_layers,
+         "ssd_scan_fwd": hymba.num_layers},
+        {"rmsnorm_fwd": 2 * hymba.num_layers + 1, "flash_attention_fwd": 0,
+         "ssd_scan_fwd": 0},
+        main_bs=(2, 1024), compare_bs=(2, 1024), extra=hymba_extra,
+        serve_max_len=HYMBA_SERVE_MAX_LEN)
+    log("serve", f"hymba-1.5b done at {time.perf_counter() - t_start:.1f} s")
+    runs += model_phases(
+        dev, "granite-moe-3b-a800m", counters,
+        {"rmsnorm_fwd": 2 * granite.num_layers + 1, "flash_attention_fwd": granite.num_layers,
+         "ssd_scan_fwd": 0},
+        {"rmsnorm_fwd": 2 * granite.num_layers + 1, "flash_attention_fwd": 0,
+         "ssd_scan_fwd": 0},
+        main_bs=(2, 512), compare_bs=(2, 512), extra=granite_extra)
+    log("serve", f"granite-moe-3b-a800m done at {time.perf_counter() - t_start:.1f} s")
     train_runs, train_rows = train_phase(dev, counters, smi)
     runs += train_runs
     astra_phase(counters, train_rows, smi)
 
     for e in entries:
-        e["launches"] = sum(counts[e["name"]] for counts, _ in runs)
-        e["train_launches_per_step"] = {"qwen3-8b": train_runs[0][0][e["name"]] / TRAIN_STEPS,
-                                        "mamba2-370m": train_runs[1][0][e["name"]] / 2}
+        e["launches"] = sum(counts[e["name"]] for _, counts, _ in runs)
+        e["launches_by_path"] = {label: counts[e["name"]] for label, counts, _ in runs
+                                 if counts[e["name"]]}
+        steps = {"qwen3-8b": TRAIN_STEPS, "mamba2-370m": 2,
+                 "granite-moe-3b-a800m": GRANITE_TRAIN_STEPS}
+        e["train_launches_per_step"] = {name: counts[e["name"]] / steps[name]
+                                        for (_, counts, _), name in zip(train_runs, steps)}
         e["kernel_ms"] = e["ms"]
         check(e["launches"] > 0, f"{e['name']} never launched on the main path")
     # launches x (device ms - bound ms): RMSNorm over the shapes it ran at
     norm = entries[0]
-    norm_shapes = sum((shapes[norm["name"]] for _, shapes in runs), collections.Counter())
+    norm_shapes = sum((shapes[norm["name"]] for _, _, shapes in runs), collections.Counter())
     check(sum(norm_shapes.values()) == norm["launches"],
           f"RMSNorm launches by shape {sum(norm_shapes.values())} != counted {norm['launches']}")
     with torch.inference_mode():

@@ -1,8 +1,10 @@
-"""Architecture registry of the port: the dense and ssm models it runs.
+"""Architecture registry of the port: the dense, ssm, hybrid and moe models
+it runs.
 
 Each config module keeps its own copy of the JAX package's ``ARCH`` (the
 published config) and ``reduced()`` (a small same-family config for CPU
-tests). Families the port does not run yet raise.
+tests). A model the port does not run yet (the encdec and vlm families) is a
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -11,7 +13,9 @@ import importlib
 from repro_torch.core.arch import ModelArch
 
 _MODULES = {"qwen3-8b": "qwen3_8b", "yi-6b": "yi_6b", "mamba2-370m": "mamba2_370m",
-            "qwen3-32b": "qwen3_32b", "command-r-35b": "command_r_35b"}
+            "qwen3-32b": "qwen3_32b", "command-r-35b": "command_r_35b",
+            "hymba-1.5b": "hymba_1_5b", "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+            "llama4-scout-17b-a16e": "llama4_scout_17b_a16e"}
 
 
 def _module(name: str):

@@ -8,7 +8,11 @@ reader finds them):
     forward over KV blocks with a blockwise-recompute backward;
   * ``flash_xla``       - the serving path's attention against a (partially
     filled) KV cache: ``q_start`` places the queries, ``kv_valid_len`` hides
-    the cache slots not written yet.
+    the cache slots not written yet, ``ring`` marks a sliding-window cache
+    that wraps around;
+  * ``banded_flash_xla`` - causal sliding-window attention over Q blocks,
+    each against the ``window + block_q`` keys it can see, with a
+    blockwise-recompute backward.
 """
 from __future__ import annotations
 
@@ -122,9 +126,10 @@ def flash_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sm_scale: Optional[float] = None, block: int = 512) -> torch.Tensor:
     """q ``(B, Hq, S, D)`` at absolute positions ``q_start + i`` (default
     ``T - S``); k/v ``(B, Hkv, T, D)`` of which slots ``< kv_valid_len`` are
-    live (default all). Returns ``(B, Hq, S, D)`` in q's dtype."""
-    if ring:
-        raise NotImplementedError("ring-buffer KV caches belong to the hybrid family")
+    live (default all). ``ring``: k/v is a ring buffer of the last T
+    positions; once it has wrapped (``q_start + S - 1 >= T``) every slot is
+    live and no causal mask applies. Returns ``(B, Hq, S, D)`` in q's
+    dtype."""
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -132,6 +137,7 @@ def flash_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q_start is None:
         q_start = T - S
     valid = T if kv_valid_len is None else kv_valid_len
+    wrapped = ring and q_start + S - 1 >= T
     qf = q.float().reshape(B, Hkv, group, S, D)
     qpos = q_start + torch.arange(S, device=q.device)
 
@@ -144,10 +150,11 @@ def flash_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kblk = k[:, :, k0:k0 + bk].float()
         vblk = v[:, :, k0:k0 + bk].float()
         s = torch.einsum("bhgsd,bhtd->bhgst", qf, kblk) * scale
-        mask = (kpos < valid)[None, :]
-        if causal:
-            mask = mask & (kpos[None, :] <= qpos[:, None])
-        s = torch.where(mask, s, _NEG)
+        if not wrapped:
+            mask = (kpos < valid)[None, :]
+            if causal:
+                mask = mask & (kpos[None, :] <= qpos[:, None])
+            s = torch.where(mask, s, _NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
@@ -156,3 +163,92 @@ def flash_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     l = torch.where(l == 0.0, 1.0, l)
     return (acc / l[..., None]).reshape(B, Hq, S, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# sliding window: Q blocks against the keys each can see
+# ---------------------------------------------------------------------------
+
+def _banded_block(qblk, kblk, vblk, start: int, window: int, S: int, scale: float):
+    """Queries ``start .. start + bq - 1`` ``(B, Hkv, g, bq, D)`` f32 against
+    the keys ``start - window .. start + bq - 1`` ``(B, Hkv, span, D)`` f32:
+    key j is seen by query i when ``i - window < j <= i`` and ``0 <= j < S``."""
+    bq, span = qblk.shape[3], kblk.shape[2]
+    s = torch.einsum("bhgsd,bhtd->bhgst", qblk, kblk) * scale
+    qpos = start + torch.arange(bq, device=qblk.device)
+    kpos = start - window + torch.arange(span, device=qblk.device)
+    mask = ((kpos[None, :] <= qpos[:, None]) & (kpos[None, :] > qpos[:, None] - window)
+            & (kpos[None, :] >= 0) & (kpos[None, :] < S))
+    p = torch.softmax(torch.where(mask, s, _NEG), dim=-1)
+    return torch.einsum("bhgst,bhtd->bhgsd", p, vblk)
+
+
+def _banded_operands(q, k, v, window: int, block_q: int):
+    """Q padded to whole blocks of ``bq = min(block_q, S)`` queries, in f32
+    ``(B, Hkv, g, nq, bq, D)``; k/v padded by ``window`` zero keys in front
+    and to the padded length behind, f32 ``(B, Hkv, window + nq bq, D)``."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    bq = min(block_q, S)
+    nq = -(-S // bq)
+    pad = nq * bq - S
+    qb = torch.nn.functional.pad(q, (0, 0, 0, pad)).float().reshape(
+        B, Hkv, Hq // Hkv, nq, bq, D)
+    kpad = torch.nn.functional.pad(k, (0, 0, window, pad)).float()
+    vpad = torch.nn.functional.pad(v, (0, 0, window, pad)).float()
+    return qb, kpad, vpad, bq, nq
+
+
+class _BandedFlashXla(torch.autograd.Function):
+    """Forward block by block (``_banded_impl``); the backward recomputes
+    each block's probabilities and takes their VJP, adding each block's dk/dv
+    into the window it read, as the JAX package's ``_banded_bwd``. Only q, k
+    and v are kept between the two."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, block_q: int, scale: float):
+        B, Hq, S, D = q.shape
+        qb, kpad, vpad, bq, nq = _banded_operands(q, k, v, window, block_q)
+        span = window + bq
+        outs = [_banded_block(qb[:, :, :, ib], kpad[:, :, ib * bq:ib * bq + span],
+                              vpad[:, :, ib * bq:ib * bq + span], ib * bq, window, S, scale)
+                for ib in range(nq)]
+        out = torch.stack(outs, dim=3).reshape(B, Hq, nq * bq, D)[:, :, :S]
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.block_q, ctx.scale = window, block_q, scale
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        window, scale = ctx.window, ctx.scale
+        B, Hq, S, D = q.shape
+        qb, kpad, vpad, bq, nq = _banded_operands(q, k, v, window, ctx.block_q)
+        dob = torch.nn.functional.pad(dout, (0, 0, 0, nq * bq - S)).float().reshape(qb.shape)
+        span = window + bq
+        dk, dv = torch.zeros_like(kpad), torch.zeros_like(vpad)
+        dqs = []
+        for ib in range(nq):
+            start = ib * bq
+            with torch.enable_grad():
+                blk = [t.detach().requires_grad_() for t in
+                       (qb[:, :, :, ib], kpad[:, :, start:start + span],
+                        vpad[:, :, start:start + span])]
+                out = _banded_block(*blk, start, window, S, scale)
+                dq_b, dk_b, dv_b = torch.autograd.grad(out, blk, dob[:, :, :, ib])
+            dqs.append(dq_b)
+            dk[:, :, start:start + span] += dk_b
+            dv[:, :, start:start + span] += dv_b
+        dq = torch.stack(dqs, dim=3).reshape(B, Hq, nq * bq, D)[:, :, :S]
+        return (dq.to(q.dtype), dk[:, :, window:window + S].to(k.dtype),
+                dv[:, :, window:window + S].to(v.dtype), None, None, None)
+
+
+def banded_flash_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int,
+                     block_q: int = 512, sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Causal sliding-window GQA attention: query i sees keys ``i - window <
+    j <= i``. q ``(B, Hq, S, D)``, k/v ``(B, Hkv, S, D)``; returns ``(B, Hq,
+    S, D)`` in q's dtype, math in f32. Work and memory O(S (window +
+    block_q)); differentiable, with a blockwise-recompute backward."""
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _BandedFlashXla.apply(q, k, v, window, block_q, scale)

@@ -260,9 +260,19 @@ def test_flash_xla_train_is_the_xla_impl():
 
 
 def test_flash_xla_ring_is_not_ported():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 1, 8, 16))
-    with pytest.raises(NotImplementedError):
-        flash_xla(q, k, v, ring=True)
+    """(The name is the one this test had while the port refused rings.)
+    Once the ring has wrapped, every slot is live and no causal mask
+    applies: the result is attention over all T slots in any order. Before,
+    the ring mask is the plain causal one with kv_valid_len."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 1, 8, 16))
+    perm = torch.randperm(8, generator=torch.Generator().manual_seed(0))
+    full = ref.attention(q, k, v, causal=False)
+    for q_start in (8, 13):
+        got = flash_xla(q, k[:, :, perm], v[:, :, perm], q_start=q_start,
+                        kv_valid_len=q_start + 1, ring=True)
+        torch.testing.assert_close(got, full, rtol=0, atol=2e-6)
+    torch.testing.assert_close(flash_xla(q, k, v, q_start=4, kv_valid_len=5, ring=True),
+                               flash_xla(q, k, v, q_start=4, kv_valid_len=5), rtol=0, atol=0)
 
 
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():

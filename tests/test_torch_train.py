@@ -301,8 +301,9 @@ def test_model_cfg_takes_the_new_values_and_refuses_others():
     lm.ModelCfg(attn_impl="xla", norm_impl="xla", ssm_impl="xla", remat="selective")
     with pytest.raises(ValueError, match="remat"):
         lm.ModelCfg(remat="some")
-    with pytest.raises(TypeError):
-        lm.ModelCfg(capacity_factor=1.25)
+    lm.ModelCfg(capacity_factor=8.0, moe_aux_weight=0.0)
+    with pytest.raises(TypeError):  # activation shardings: the sharding slice
+        lm.ModelCfg(act_shard={"batch": ("data",), "model": "model"})
 
 
 # ---------------------------------------------------------------------------
