@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's inference and training paths on one CUDA card:
 the dense family (qwen3-8b), the ssm family (mamba2-370m), the hybrid family
-(hymba-1.5b: a sliding window and a ring KV cache) and the moe family
-(granite-moe-3b-a800m).
+(hymba-1.5b: a sliding window and a ring KV cache), the moe family
+(granite-moe-3b-a800m), the encdec family (whisper-tiny: a bidirectional
+encoder over 1500 stub frames, cross-attended by the decoder) and the vlm
+family (pixtral-12b: 1024 stub patch embeddings in front of the text).
 
     python3 chip_smoke.py
 
@@ -15,8 +17,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
                edge cases of the JAX tests (RMSNorm also at every width of the
                JAX configs and on the q/k head views of a fused qkv row, read
                in place; an unaligned view is refused; flash attention also at
-               hymba's and granite's forward shapes, with the path each dtype
-               took), timed beside its plain version,
+               the forward shapes of hymba, granite, whisper's encoder (not
+               causal, T = 1500) and pixtral (head size 160), with the path
+               each dtype took), timed beside its plain version,
                its bound and a library call where one exists. Each time is
                given twice: `ms`, the device time per call (the durations of
                the CUDA kernels that torch.profiler records over N calls,
@@ -24,21 +27,27 @@ Phases, each reported on its own lines; any failure exits non-zero:
                calls, which also holds the host's dispatch when a kernel is
                shorter than it;
   4. forward - per model, at full width and depth (random bf16 weights from a
-               seeded generator): forward_logits through the kernels, with
-               the launches of each kernel counted, against the same forward
-               through the plain versions, in bf16 and, on the same weights
-               cast up, in f32 (for granite the plain run replays the kernel
+               seeded generator, and the stub inputs of whisper and pixtral
+               too): forward_logits through the kernels, with the launches of
+               each kernel counted, against the same forward through the
+               plain versions, in bf16 and, on the same weights cast up, in
+               f32 (pixtral's first 4 of 40 layers: f32 weights at full depth
+               would be 51 GB; for granite the plain run replays the kernel
                run's expert choices, and its own routing is logged beside);
                plus the reduced model in f32 where kernels, plain versions
                and the cached path agree; hymba also at B=1, S=2048, past its
                window (banded_flash_xla: K2 must not launch), granite's share
                of dropped assignments at capacity factor 1.25;
   5. serve   - per model, ServeEngine.generate, checked against teacher
-               forcing, and the device's busy share while decoding; hymba
-               also with a 1024-token prompt whose prefill fills the ring
-               and whose every decode step wraps it, and with the int8 KV
-               cache, scatter writes and dense decode attention (tokens and
-               cache bytes beside the default run's);
+               forcing, and the device's busy share while decoding (whisper
+               with its frames encoded into the cache, pixtral with 1024
+               patch embeddings in front of each prompt, so decode starts at
+               position 1152); hymba also with a 1024-token prompt whose
+               prefill fills the ring and whose every decode step wraps it,
+               and with the int8 KV cache, scatter writes and dense decode
+               attention (tokens and cache bytes beside the default run's);
+               then the serve driver (python -m repro_torch.launch.serve
+               --arch qwen3-8b --emit-traces), its trace read back;
   6. train   - qwen3-8b at full width and 8 of its 36 layers (f32 AdamW at
                full depth needs 131 GB): five make_train_step steps through
                the kernels (wall, forward + backward and optimizer ms, peak
@@ -126,10 +135,19 @@ LSE_TOL = 1e-4
 #   bf16 rounding flips near-ties of the router (1515 of 32768 token-layers
 #   in that forward). The plain run on its own routing is held to the same
 #   agreement bound (an H100 read 0.985 and 0.989).
+#   whisper-tiny: 4 encoder and 4 decoder layers. An H100 (700 W) read
+#   0.109 and 0.959 at B=4, 448 tokens behind 1500 frames (f32 on the same
+#   weights 1.2e-05: rounding alone), its serve 0.961 over 128 tokens
+#   (binomial spread ~0.017); about twice the reading, as qwen3's bound is
+#   about twice its own, and 0.9 for the agreement.
+#   pixtral-12b: 40 layers, qwen3-8b's bounds (36). An H100 read 0.313 and
+#   0.923 at B=1, 1024 + 512 positions (f32 over 4 layers 2.8e-05), its
+#   serve 0.891 over 64 tokens (spread ~0.039).
 # The f32 comparison on the same weights is the one that tells a fault from
 # rounding.
 BF16_BOUNDS = {"qwen3-8b": (0.5, 0.75), "mamba2-370m": (1.5, 0.6),
-               "hymba-1.5b": (1.0, 0.6), "granite-moe-3b-a800m": (0.25, 0.9)}
+               "hymba-1.5b": (1.0, 0.6), "granite-moe-3b-a800m": (0.25, 0.9),
+               "whisper-tiny": (0.25, 0.9), "pixtral-12b": (0.5, 0.75)}
 # the capacity factor of the moe serve runs (see _serve_cfg)
 MOE_SERVE_CAPACITY = 8.0
 # the same model in f32: rounding noise near 1e-5 of the logits
@@ -186,11 +204,13 @@ def time_ms(fn, arg_sets, iters: int = 20) -> tuple[float, float]:
     kernels the calls launch, under torch.profiler, after a warm-up step of
     as many calls whose events it drops: right after it starts, the profiler
     loses the device events of short calls (8 of 20 RMSNorm launches on an
-    H100). Traces are taken until two hold the same number of events, the
-    most any held and a multiple of the calls; at most twelve (the plain
-    RMSNorm's nine kernels a call have taken more than five on an H100),
-    after which the fullest trace counts if it holds a multiple of the calls
-    (a long trace may lose a few events in every take); a timing that took
+    H100), and a trace can hold a few events too many (22 for 20 RMSNorm
+    launches, once on an H100). A trace whose events are not a multiple of
+    the calls is retaken; the timing takes the first two whole traces that
+    hold the same number of events, the most any whole one held; at most
+    twelve traces (the plain RMSNorm's nine kernels a call have taken more
+    than five on an H100), after which the fullest whole trace counts (a
+    long trace may lose a few events in every take); a timing that took
     more than two says so. call_ms: CUDA events around a
     loop of calls, which is the host's dispatch rate when that is slower."""
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -216,14 +236,16 @@ def time_ms(fn, arg_sets, iters: int = 20) -> tuple[float, float]:
     for _ in range(12):
         events = trace()
         seen.append(len(events))
-        if len(events) == len(best) and len(events) % iters == 0 and events:
+        if not events or len(events) % iters:
+            continue
+        if len(events) == len(best):
             break
         if len(events) > len(best):
             best = events
     else:
-        # no two agreed: the fullest, if it holds whole calls (the plain SSD's
-        # 28720 events a trace came whole once in twelve traces on an H100)
-        if not best or len(best) % iters:
+        # no two agreed: the fullest whole one (the plain SSD's 28720 events
+        # a trace came whole once in twelve traces on an H100)
+        if not best:
             raise SmokeFailure(f"the profiler's traces of {iters} calls held {seen} device "
                                f"events")
         events = best
@@ -389,11 +411,13 @@ def rmsnorm_phase(dev) -> dict:
     # B*S=4096, q/k norms over B*S*32 and B*S*8 rows of head_dim 128 (train:
     # 131072 and 32768), decode rows (B=4), edge widths, the ln rows of the
     # hymba (B*S=2048, d=1600) and granite (1024 and the train step's 4096,
-    # d=1536) forwards; then every width of RMSNORM_WIDTHS at every row count
-    # of RMSNORM_ROWS
+    # d=1536) forwards, whisper's encoder (4 x 1500 frames) and decoder (4 x
+    # 448 tokens) at d=384, pixtral's (1024 + 512 positions, d=5120); then
+    # every width of RMSNORM_WIDTHS at every row count of RMSNORM_ROWS
     named = [(1024, 4096), (4096, 4096), (32768, 128), (131072, 128), (8192, 128),
              (4, 4096), (128, 128), (1000, 16), (1000, 80), (1000, 8192), (3, 100),
-             (2048, 1600), (1024, 1536), (4096, 1536)]
+             (2048, 1600), (1024, 1536), (4096, 1536), (6000, 384), (1792, 384),
+             (1536, 5120)]
     cases = named + [(rows, D) for D in RMSNORM_WIDTHS for rows in RMSNORM_ROWS]
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -527,9 +551,13 @@ def _qkv_views(B, Hq, Hkv, S, T, D, dtype, g, dev):
 
 
 # K2 at the full-sequence forwards of hymba-1.5b (B=2, S=1024 = its window:
-# groups of 5) and granite-moe-3b-a800m (B=2, S=512: groups of 3), causal
+# groups of 5), granite-moe-3b-a800m (B=2, S=512: groups of 3), whisper-tiny's
+# encoder (B=4, 1500 frames, not causal: the last 64-key tile holds 28 live
+# keys) and pixtral-12b (B=1, 1024 + 512 positions, head size 160, groups of 4)
 FLASH_MODEL_SHAPES = {"hymba": (2, 25, 5, 1024, 1024, 64, True),
-                      "granite": (2, 24, 8, 512, 512, 64, True)}
+                      "granite": (2, 24, 8, 512, 512, 64, True),
+                      "whisper_enc": (4, 6, 6, 1500, 1500, 64, False),
+                      "pixtral": (1, 32, 8, 1536, 1536, 160, True)}
 
 
 def flash_phase(dev) -> dict:
@@ -595,26 +623,29 @@ def flash_phase(dev) -> dict:
     for name, (B, Hq, Hkv, S, T, D, causal) in (("", cases[0]), *(
             (f"{m}_", shape) for m, shape in FLASH_MODEL_SHAPES.items())):
         nbytes = (2 * B * Hq * S * D + 2 * B * Hkv * T * D) * 2 + B * Hq * S * 4
-        pairs = sum(min(T - S + i + 1, T) for i in range(S))  # causal (q, k) pairs
+        # the (q, k) pairs the mask leaves: each query sees the keys up to its
+        # position when causal, all T otherwise
+        pairs = sum(min(T - S + i + 1, T) for i in range(S)) if causal else S * T
         ops = 4.0 * B * Hq * D * pairs
         sets = copies(lambda: _qkv_views(B, Hq, Hkv, S, T, D, dtype, g, dev), nbytes)
-        t |= _times(name, lambda q, k, v: flash_attention_fwd(q, k, v, causal=True), sets)
+        t |= _times(name, lambda q, k, v: flash_attention_fwd(q, k, v, causal=causal), sets)
         t |= _times(f"{name}plain_",
-                    lambda q, k, v: ref.flash_attention_fwd_ref(q, k, v, causal=True), sets)
+                    lambda q, k, v: ref.flash_attention_fwd_ref(q, k, v, causal=causal), sets)
         t |= _times(f"{name}library_",
-                    lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True), sets)
+                    lambda q, k, v: sdpa(q, k, v, is_causal=causal, enable_gqa=True), sets)
         # SDPA picks cuDNN's wgmma kernel here; its FA2 backend is an mma.sync
         # kernel like this one
         from torch.nn.attention import SDPBackend, sdpa_kernel
 
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-            fa2_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+            fa2_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
                              sets)[0]
         del sets
         bms, by = bound_ms(nbytes, ops, dtype)
         t |= {f"{name}bound_ms": bms, f"{name}bound_by": by}
         ms, lib = t[f"{name}ms"], t[f"{name}library_ms"]
-        log("kernels", f"flash timing bf16 {(B, Hq, Hkv, S, T, D)} causal: kernel {ms:.4f} ms "
+        log("kernels", f"flash timing bf16 {(B, Hq, Hkv, S, T, D)} causal={causal}: kernel "
+            f"{ms:.4f} ms "
             f"(call {t[name + 'call_ms']:.4f}), plain {t[name + 'plain_ms']:.4f} "
             f"({t[name + 'plain_call_ms']:.4f}), sdpa {lib:.4f} "
             f"({t[name + 'library_call_ms']:.4f}), sdpa's FA2 backend {fa2_ms:.4f}, bound "
@@ -788,6 +819,24 @@ def _serve_cfg(arch, dtype, **kw):
     return lm.ModelCfg(dtype=dtype, **kw)
 
 
+def stub_inputs(arch, B: int, dev, seed: int, dtype=torch.bfloat16) -> dict:
+    """The family's stub inputs from a seeded generator: encdec's encoder
+    frames (B, encoder_seq, d), vlm's patch embeddings in front of the text
+    (B, frontend_seq, d); none for the other families."""
+    if arch.family == "encdec":
+        name, n = "enc_features", arch.encoder_seq
+    elif arch.frontend_stub and arch.frontend_seq:
+        name, n = "frontend", arch.frontend_seq
+    else:
+        return {}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {name: torch.randn(B, n, arch.hidden, generator=g, device=dev).to(dtype)}
+
+
+def _frontend_len(batch: dict) -> int:
+    return batch["frontend"].shape[1] if "frontend" in batch else 0
+
+
 def reduced_phase(dev, name: str) -> None:
     """Small input, f32: kernels == plain versions, and prefill + decode ==
     teacher forcing, at the 1e-4 of tests/test_models.py."""
@@ -799,40 +848,55 @@ def reduced_phase(dev, name: str) -> None:
                             torch.float32, dev)
     toks = torch.randint(0, arch.vocab, (2, 12), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(4))
+    batch = {"tokens": toks, **stub_inputs(arch, 2, dev, 4, torch.float32)}
+    F = _frontend_len(batch)
     cfg = _serve_cfg(arch, torch.float32)
-    full = lm.forward_logits(params, arch, cfg, {"tokens": toks})
-    plain = lm.forward_logits(params, arch, _plain(cfg), {"tokens": toks})
+    full = lm.forward_logits(params, arch, cfg, batch)
+    plain = lm.forward_logits(params, arch, _plain(cfg), batch)
     e_plain = float((full - plain).abs().max())
-    caches = lm.init_caches(arch, cfg, 2, 16, device=dev)
-    lg, caches = lm.prefill(params, arch, cfg, caches, toks[:, :10])
-    e_pre = float((lg - full[:, :10]).abs().max())
-    lg1, caches = lm.decode_step(params, arch, cfg, caches, toks[:, 10:11], 10)
-    lg2, caches = lm.decode_step(params, arch, cfg, caches, toks[:, 11:12], 11)
-    e_dec = max(float((lg1[:, 0] - full[:, 10]).abs().max()),
-                float((lg2[:, 0] - full[:, 11]).abs().max()))
+    caches = lm.init_caches(arch, cfg, 2, F + 16, enc_features=batch.get("enc_features"),
+                            params=params, device=dev)
+    lg, caches = lm.prefill(params, arch, cfg, caches, toks[:, :10],
+                            frontend=batch.get("frontend"))
+    e_pre = float((lg - full[:, :F + 10]).abs().max())
+    lg1, caches = lm.decode_step(params, arch, cfg, caches, toks[:, 10:11], F + 10)
+    lg2, caches = lm.decode_step(params, arch, cfg, caches, toks[:, 11:12], F + 11)
+    e_dec = max(float((lg1[:, 0] - full[:, F + 10]).abs().max()),
+                float((lg2[:, 0] - full[:, F + 11]).abs().max()))
     log("forward", f"reduced {name} f32: kernels vs plain {e_plain:.3e}, prefill vs "
         f"teacher forcing {e_pre:.3e}, decode vs teacher forcing {e_dec:.3e} "
         f"(bound {REDUCED_TOL})")
     check(max(e_plain, e_pre, e_dec) <= REDUCED_TOL, f"reduced {name} parity")
 
 
+def _first_layers(params: dict, n: int) -> dict:
+    """params with each per-layer leaf cut to its first n layers (views)."""
+    from repro_torch.models import lm
+
+    return dict(params, layers=lm._tree_map(lambda x: x[:n], params["layers"]))
+
+
 def forward_phase(dev, name, arch, params, counters, expect: dict, main_bs,
-                  compare_bs) -> tuple[dict, dict]:
-    """forward_logits at main_bs = (B, S) through the kernels, the main path
-    whose launches are counted (read_counts); then kernels against plain
+                  compare_bs, f32_layers=None) -> tuple[dict, dict]:
+    """forward_logits at main_bs = (B, S) text tokens (behind the stub's
+    positions for vlm; encdec's frames besides) through the kernels, the main
+    path whose launches are counted (read_counts); then kernels against plain
     versions at compare_bs (the plain SSD is a loop over S, so mamba2
-    compares shorter)."""
+    compares shorter), in bf16 at full depth and in f32 over the first
+    f32_layers layers (all where None)."""
     from repro_torch.models import lm
 
     B, S = main_bs
     toks = torch.randint(0, arch.vocab, (B, S), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(5))
+    batch = {"tokens": toks, **stub_inputs(arch, B, dev, 5)}
+    F = _frontend_len(batch)
     cfg = lm.ModelCfg(dtype=torch.bfloat16)
     plain_cfg = _plain(cfg)
     torch.cuda.synchronize()
     reset_counts(counters)
     t0 = time.perf_counter()
-    logits = lm.forward_logits(params, arch, cfg, {"tokens": toks})
+    logits = lm.forward_logits(params, arch, cfg, batch)
     torch.cuda.synchronize()
     t_fwd = time.perf_counter() - t0
     counts, shapes = read_counts(counters)
@@ -840,28 +904,30 @@ def forward_phase(dev, name, arch, params, counters, expect: dict, main_bs,
     paths = dict(ssd.paths)
     want_paths = {"tensor_cores": expect["ssd_scan_fwd"]} if expect["ssd_scan_fwd"] else {}
     norm_paths = _norm_paths(counters)
-    log("forward", f"{arch.name} B={B} S={S}: launches {counts} (expect {expect}); ssd "
+    what = f"{arch.name} B={B} S={S}" + (f" behind {F} frontend positions" if F else "") + (
+        f", {arch.encoder_seq} encoder frames" if "enc_features" in batch else "")
+    log("forward", f"{what}: launches {counts} (expect {expect}); ssd "
         f"launches by path {paths} (expect {want_paths}); rmsnorm launches by kernel "
         f"{norm_paths}")
     check(counts == expect, "forward launch counts")
     check(paths == want_paths, "the bf16 forward's SSD launches took another path")
     check(norm_paths == {"vector": expect["rmsnorm_fwd"]},
           "the forward's RMSNorm launches took another kernel")
-    check(tuple(logits.shape) == (B, S, arch.vocab), f"logits shape {tuple(logits.shape)}")
+    check(tuple(logits.shape) == (B, F + S, arch.vocab), f"logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
     del logits
     walls = []
     for _ in range(2):
         t0 = time.perf_counter()
-        lm.forward_logits(params, arch, cfg, {"tokens": toks})
+        lm.forward_logits(params, arch, cfg, batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    log("forward", f"{arch.name} B={B} S={S} warm forward wall ms through the kernels: "
+    log("forward", f"{what} warm forward wall ms through the kernels: "
         f"{walls} (first call {t_fwd * 1e3:.1f} ms)")
 
     B, S = compare_bs
-    toks = toks[:B, :S]
-    logits, ref_logits = kernels_and_plain(params, arch, cfg, toks, "bf16")
+    batch = {k: (x[:B, :S] if k == "tokens" else x[:B]) for k, x in batch.items()}
+    logits, ref_logits = kernels_and_plain(params, arch, cfg, batch, "bf16")
     max_abs, max_rel, agree = _compare_logits(logits, ref_logits)
     abs_bound, agree_bound = BF16_BOUNDS[name]
     log("forward", f"{arch.name} B={B} S={S} bf16 kernels vs plain: max_abs {max_abs:.4f}, "
@@ -874,18 +940,22 @@ def forward_phase(dev, name, arch, params, counters, expect: dict, main_bs,
     times = {"kernels": [], "plain": []}
     for which in ("kernels", "plain", "plain", "kernels"):
         t0 = time.perf_counter()
-        lm.forward_logits(params, arch, cfg if which == "kernels" else plain_cfg,
-                          {"tokens": toks})
+        lm.forward_logits(params, arch, cfg if which == "kernels" else plain_cfg, batch)
         torch.cuda.synchronize()
         times[which].append((time.perf_counter() - t0) * 1e3)
     log("forward", f"{arch.name} B={B} S={S} warm forward wall ms: kernels "
         f"{times['kernels']}, plain {times['plain']}")
 
-    p32 = lm.cast_params(params, torch.float32)
+    arch32, p32 = arch, params
+    if f32_layers is not None:
+        arch32 = dataclasses.replace(arch, num_layers=f32_layers)
+        p32 = _first_layers(params, f32_layers)
+    p32 = lm.cast_params(p32, torch.float32)
     cfg32 = lm.ModelCfg(dtype=torch.float32)
-    l32, r32 = kernels_and_plain(p32, arch, cfg32, toks, "f32")
+    l32, r32 = kernels_and_plain(p32, arch32, cfg32, batch, "f32")
     max_abs, max_rel, agree = _compare_logits(l32, r32)
-    log("forward", f"{arch.name} f32 (same weights) kernels vs plain: max_abs {max_abs:.3e}, "
+    log("forward", f"{arch.name} f32 (same weights, {arch32.num_layers} of "
+        f"{arch.num_layers} layers) kernels vs plain: max_abs {max_abs:.3e}, "
         f"max_rel {max_rel:.3e}, argmax agreement {agree:.4f} (bounds: max_abs <= "
         f"{F32_MAX_ABS}, agreement >= {F32_ARGMAX_MIN})")
     check(max_abs <= F32_MAX_ABS and agree >= F32_ARGMAX_MIN, "f32 forward parity")
@@ -930,14 +1000,13 @@ class RoutingReplay:
         self._moe.select = self._real
 
 
-def kernels_and_plain(params, arch, cfg, toks, what: str):
-    """forward_logits through the kernels and through the plain versions. For
-    moe, the plain run replays the kernel run's expert choices
+def kernels_and_plain(params, arch, cfg, batch: dict, what: str):
+    """forward_logits of batch through the kernels and through the plain
+    versions. For moe, the plain run replays the kernel run's expert choices
     (RoutingReplay); the plain run on its own choices is held to the argmax
     agreement bound of cfg's dtype and, in f32, to MOE_F32_FLIP_SHARE."""
     from repro_torch.models import lm
 
-    batch = {"tokens": toks}
     if arch.family != "moe":
         return (lm.forward_logits(params, arch, cfg, batch),
                 lm.forward_logits(params, arch, _plain(cfg), batch))
@@ -975,34 +1044,48 @@ def _compare_logits(got, want) -> tuple[float, float, float]:
 
 def kv_cache_bytes(arch, cfg, B: int, max_len: int) -> int:
     """Bytes of the KV cache (k, v and, under kv_cache_quant, their scales)
-    that init_caches allocates, counted on the meta device."""
+    that init_caches allocates, counted on the meta device; for encdec also
+    the cross K/V it keeps from the encoder pass, counted from their shape."""
     from repro_torch.models import lm
 
-    caches = lm.init_caches(arch, cfg, B, max_len, device="meta")
-    return sum(t.numel() * t.element_size() for n, t in caches.items()
-               if n in ("k", "v", "k_scale", "v_scale"))
+    self_attn = dataclasses.replace(arch, family="dense") if arch.family == "encdec" else arch
+    caches = lm.init_caches(self_attn, cfg, B, max_len, device="meta")
+    n = sum(t.numel() * t.element_size() for name, t in caches.items()
+            if name in ("k", "v", "k_scale", "v_scale"))
+    if arch.family == "encdec":
+        n += (2 * arch.num_layers * B * arch.kv_heads * arch.encoder_seq * arch.head_dim
+              * cfg.dtype.itemsize)
+    return n
 
 
 def serve_phase(dev, name, arch, params, counters, per_forward: dict, *, B: int = 4,
                 P: int = 128, N: int = 32, max_len: int = 256, cfg=None, busy: bool = True,
-                label: str = ""):
-    """ServeEngine.generate of B prompts of P tokens and N new ones.
-    per_forward: each kernel's launches in one cached forward; generate runs
-    N + 1 of them (the prefill and N decode steps). The greedy tokens are
-    held against the teacher-forced argmax through the kernels (cfg: the
-    model config, by default _serve_cfg's in bf16). Returns read_counts after
-    generate, the GenerateResult and the median decode step in ms."""
+                label: str = "", cache_pass=None):
+    """ServeEngine.generate of B prompts of P tokens and N new ones, with the
+    family's stub inputs (stub_inputs: encdec's frames, encoded into the
+    cache; vlm's F patch embeddings in front of each prompt, so decoding
+    starts at F + P). per_forward: each kernel's launches in one cached
+    forward; generate runs N + 1 of them (the prefill and N decode steps),
+    after cache_pass's launches where given (the cache's encoder pass). The
+    greedy tokens are held against the teacher-forced argmax through the
+    kernels (cfg: the model config, by default _serve_cfg's in bf16).
+    Returns read_counts after generate, the GenerateResult and the median
+    decode step in ms."""
     from repro_torch.models import lm
     from repro_torch.serve import ServeEngine
 
-    expect = {k: (N + 1) * v for k, v in per_forward.items()}
+    expect = {k: (N + 1) * v + (cache_pass or {}).get(k, 0) for k, v in per_forward.items()}
     cfg = cfg or _serve_cfg(arch, torch.bfloat16)
     engine = ServeEngine(arch, cfg, params, max_len=max_len)
     prompts = np.random.default_rng(6).integers(0, arch.vocab, size=(B, P))
-    what = f"{arch.name}{label} B={B} prompt={P} new={N} max_len={max_len}"
+    stub = stub_inputs(arch, B, dev, 6)
+    F = _frontend_len(stub)
+    what = (f"{arch.name}{label} B={B} prompt={P}" + (f" behind {F} frontend positions"
+                                                      if F else "")
+            + f" new={N} max_len={max_len}")
     torch.cuda.synchronize()
     reset_counts(counters)
-    res = engine.generate(prompts, max_new_tokens=N)
+    res = engine.generate(prompts, max_new_tokens=N, **stub)
     counts, shapes = read_counts(counters)
     norm_paths = _norm_paths(counters)
     steps = res.step_times[res.warmup_steps:]
@@ -1019,8 +1102,8 @@ def serve_phase(dev, name, arch, params, counters, per_forward: dict, *, B: int 
     # greedy tokens against teacher forcing over the generated sequence
     seq = torch.as_tensor(res.tokens, device=dev)
     with torch.inference_mode():
-        tf = lm.forward_logits(params, arch, cfg, {"tokens": seq[:, :-1]})
-    agree = float((tf[:, P - 1:].argmax(-1) == seq[:, P:]).float().mean())
+        tf = lm.forward_logits(params, arch, cfg, {"tokens": seq[:, :-1], **stub})
+    agree = float((tf[:, F + P - 1:].argmax(-1) == seq[:, P:]).float().mean())
     del tf
     agree_bound = BF16_BOUNDS[name][1]
     log("serve", f"{what} greedy tokens vs teacher-forced argmax (through the kernels): "
@@ -1031,7 +1114,7 @@ def serve_phase(dev, name, arch, params, counters, per_forward: dict, *, B: int 
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            r4 = engine.generate(prompts, max_new_tokens=4)
+            r4 = engine.generate(prompts, max_new_tokens=4, **stub)
         busy_ms = device_us(prof) / 1e3
         twice_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
         wall_ms = (r4.prefill_time + sum(r4.step_times)) * 1e3
@@ -1043,12 +1126,15 @@ def serve_phase(dev, name, arch, params, counters, per_forward: dict, *, B: int 
 
 
 def model_phases(dev, name: str, counters, expect_forward: dict, expect_cached: dict,
-                 main_bs, compare_bs, extra=None,
-                 serve_max_len: int = 256) -> list[tuple[str, dict, dict]]:
+                 main_bs, compare_bs, extra=None, serve=None, cache_pass=None,
+                 f32_layers=None) -> list[tuple[str, dict, dict]]:
     """Phases 4 and 5 for one model at full width and depth, and extra(dev,
     arch, params, counters, serve_result, decode_ms) where given: the
-    family's own runs. Returns (label, launches, launches by shape) for each
-    main-path run."""
+    family's own runs. serve: serve_phase's B, P, N and max_len where they
+    differ from its defaults; cache_pass: the launches of the cache's
+    encoder pass (encdec); f32_layers: the depth of the f32 kernels-vs-plain
+    forward where the whole model would not fit in f32. Returns (label,
+    launches, launches by shape) for each main-path run."""
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
 
@@ -1064,11 +1150,14 @@ def model_phases(dev, name: str, counters, expect_forward: dict, expect_cached: 
             f"({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB), init "
             f"{time.perf_counter() - t0:.1f} s")
         fwd = forward_phase(dev, name, arch, params, counters, expect_forward, main_bs,
-                            compare_bs)
+                            compare_bs, f32_layers)
+    serve = serve or {}
     srv, res, decode_ms = serve_phase(dev, name, arch, params, counters, expect_cached,
-                                      max_len=serve_max_len)
-    runs = [(f"{name} forward B={main_bs[0]} S={main_bs[1]}", *fwd),
-            (f"{name} serve 4 x 128 + 32", *srv)]
+                                      cache_pass=cache_pass, **serve)
+    F = arch.frontend_seq if arch.family == "vlm" else 0
+    runs = [(f"{name} forward B={main_bs[0]} S={F + main_bs[1]}", *fwd),
+            (f"{name} serve {serve.get('B', 4)} x {F + serve.get('P', 128)} + "
+             f"{serve.get('N', 32)}", *srv)]
     if extra is not None:
         runs += extra(dev, arch, params, counters, res, decode_ms)
     log("serve", f"{name} peak device memory "
@@ -1204,7 +1293,8 @@ def hymba_extra(dev, arch, params, counters, res, decode_ms) -> list[tuple[str, 
         runs.append((f"{arch.name} forward B={B} S={S} (banded)", counts, shapes))
         # the banded forward in f32 on the same weights, kernels vs plain
         p32 = lm.cast_params(params, torch.float32)
-        l32, r32 = kernels_and_plain(p32, arch, lm.ModelCfg(dtype=torch.float32), toks, "f32")
+        l32, r32 = kernels_and_plain(p32, arch, lm.ModelCfg(dtype=torch.float32),
+                                     {"tokens": toks}, "f32")
         max_abs, max_rel, agree = _compare_logits(l32, r32)
         log("forward", f"{arch.name} B={B} S={S} (banded) f32 (same weights) kernels vs plain: "
             f"max_abs {max_abs:.3e}, max_rel {max_rel:.3e}, argmax agreement {agree:.4f} "
@@ -1266,6 +1356,71 @@ def granite_extra(dev, arch, params, counters, res, decode_ms) -> list:
         f"{C} slots an expert, {sum(dropped) / total:.4f} of {total} assignments "
         f"dropped (by layer {min(shares):.4f} to {max(shares):.4f})")
     return []
+
+
+# whisper-tiny: per forward, ln1 and ln2 of each encoder layer and the
+# encoder's final norm, ln1, ln_cross and ln2 of each decoder layer and the
+# final norm through K1; the encoder's attention (not causal) and the
+# decoder's self-attention through K2; cross-attention through
+# flash_xla_train, as the JAX package pins it. ServeEngine builds the cache
+# with one encoder pass (WHISPER_CACHE_PASS); each cached forward then runs
+# the decoder's norms and attention through flash_xla (K1 only). Forward at
+# B=4: 1500 frames and 448 text tokens (the decoder's context); serve 4 x 32
+# + 32.
+WHISPER_BS = (4, 448)
+WHISPER_SERVE = dict(P=32, max_len=64)
+# pixtral-12b: 1024 patch embeddings in front of 512 text tokens, B=1; serve
+# 2 x (1024 + 128) + 32, decode from position 1152. f32 kernels-vs-plain over
+# its first 4 of 40 layers: f32 weights at full depth would be 51 GB beside
+# the bf16 ones' 25.5 GB.
+PIXTRAL_BS = (1, 512)
+PIXTRAL_SERVE = dict(B=2, P=128, max_len=1024 + 128 + 32)
+PIXTRAL_F32_LAYERS = 4
+
+# the serve driver at its defaults: reduced qwen3-8b (2 layers with q/k
+# norms, f32), 4 prompts of 16 tokens, 24 new ones: 25 cached forwards of 4 x
+# 2 + 1 K1 launches
+SERVE_DRIVER_ARGV = ["--arch", "qwen3-8b"]
+SERVE_DRIVER_LAUNCHES = {"rmsnorm_fwd": 25 * (4 * 2 + 1), "flash_attention_fwd": 0,
+                         "ssd_scan_fwd": 0}
+
+
+def serve_driver_phase(counters) -> tuple[dict, dict]:
+    """python -m repro_torch.launch.serve --arch qwen3-8b --emit-traces PATH,
+    in this process: its launches, and the trace it appends, read back
+    through the port's read_traces."""
+    from repro_torch.calibration.traces import StepTrace, read_traces
+    from repro_torch.launch import serve as driver
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "traces.jsonl")
+        argv = SERVE_DRIVER_ARGV + ["--emit-traces", path]
+        out = io.StringIO()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = driver.main(argv)
+        seconds = time.perf_counter() - t0
+        counts, shapes = read_counts(counters)
+        for line in out.getvalue().splitlines():
+            log("serve", f"driver: {line}")
+        traces = read_traces(path)
+    log("serve", f"driver {' '.join(argv)} <tmp>: exit {rc} in {seconds:.1f} s; launches "
+        f"{counts} (expect {SERVE_DRIVER_LAUNCHES})")
+    check(rc == 0, f"the serve driver exited {rc}")
+    check(counts == SERVE_DRIVER_LAUNCHES, "serve driver launches")
+    check(len(traces) == 1, f"{len(traces)} traces in the serve driver's file, 1 expected")
+    t = traces[0]
+    check(t.source == "serve" and t.strategy.device == "H100"
+          and t.strategy.num_devices == torch.cuda.device_count()
+          and len(t.step_times) == 23 and t.warmup_steps_excluded == 1,
+          f"the serve driver's trace: source {t.source}, device {t.strategy.device} x "
+          f"{t.strategy.num_devices}, {len(t.step_times)} step times, "
+          f"{t.warmup_steps_excluded} excluded")
+    check(StepTrace.from_json(t.to_json()) == t, "the serve driver's trace does not round-trip")
+    log("serve", f"driver trace: {t.pool_key}, strategy {t.strategy_key}, median decode step "
+        f"{t.measured_step_time * 1e3:.3f} ms")
+    return counts, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -1974,7 +2129,7 @@ def main() -> int:
         {"rmsnorm_fwd": 2 * hymba.num_layers + 1, "flash_attention_fwd": 0,
          "ssd_scan_fwd": 0},
         main_bs=(2, 1024), compare_bs=(2, 1024), extra=hymba_extra,
-        serve_max_len=HYMBA_SERVE_MAX_LEN)
+        serve={"max_len": HYMBA_SERVE_MAX_LEN})
     log("serve", f"hymba-1.5b done at {time.perf_counter() - t_start:.1f} s")
     runs += model_phases(
         dev, "granite-moe-3b-a800m", counters,
@@ -1984,6 +2139,26 @@ def main() -> int:
          "ssd_scan_fwd": 0},
         main_bs=(2, 512), compare_bs=(2, 512), extra=granite_extra)
     log("serve", f"granite-moe-3b-a800m done at {time.perf_counter() - t_start:.1f} s")
+    whisper, pixtral = get_arch("whisper-tiny"), get_arch("pixtral-12b")
+    enc_L, L = whisper.encoder_layers, whisper.num_layers
+    runs += model_phases(
+        dev, "whisper-tiny", counters,
+        {"rmsnorm_fwd": 2 * enc_L + 1 + 3 * L + 1, "flash_attention_fwd": enc_L + L,
+         "ssd_scan_fwd": 0},
+        {"rmsnorm_fwd": 3 * L + 1, "flash_attention_fwd": 0, "ssd_scan_fwd": 0},
+        main_bs=WHISPER_BS, compare_bs=WHISPER_BS, serve=WHISPER_SERVE,
+        cache_pass={"rmsnorm_fwd": 2 * enc_L + 1, "flash_attention_fwd": enc_L})
+    log("serve", f"whisper-tiny done at {time.perf_counter() - t_start:.1f} s")
+    runs += model_phases(
+        dev, "pixtral-12b", counters,
+        {"rmsnorm_fwd": 2 * pixtral.num_layers + 1, "flash_attention_fwd": pixtral.num_layers,
+         "ssd_scan_fwd": 0},
+        {"rmsnorm_fwd": 2 * pixtral.num_layers + 1, "flash_attention_fwd": 0,
+         "ssd_scan_fwd": 0},
+        main_bs=PIXTRAL_BS, compare_bs=PIXTRAL_BS, serve=PIXTRAL_SERVE,
+        f32_layers=PIXTRAL_F32_LAYERS)
+    log("serve", f"pixtral-12b done at {time.perf_counter() - t_start:.1f} s")
+    runs.append(("serve driver qwen3-8b reduced", *serve_driver_phase(counters)))
     train_runs, train_rows = train_phase(dev, counters, smi)
     runs += train_runs
     astra_phase(counters, train_rows, smi)

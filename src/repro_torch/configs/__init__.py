@@ -1,10 +1,9 @@
-"""Architecture registry of the port: the dense, ssm, hybrid and moe models
-it runs.
+"""Architecture registry of the port: every assigned model of the JAX
+package (dense, ssm, hybrid, moe, encdec and vlm) and the paper's own models.
 
 Each config module keeps its own copy of the JAX package's ``ARCH`` (the
 published config) and ``reduced()`` (a small same-family config for CPU
-tests). A model the port does not run yet (the encdec and vlm families) is a
-``KeyError``.
+tests). An unknown name is a ``KeyError``.
 """
 from __future__ import annotations
 
@@ -15,13 +14,14 @@ from repro_torch.core.arch import ModelArch
 _MODULES = {"qwen3-8b": "qwen3_8b", "yi-6b": "yi_6b", "mamba2-370m": "mamba2_370m",
             "qwen3-32b": "qwen3_32b", "command-r-35b": "command_r_35b",
             "hymba-1.5b": "hymba_1_5b", "granite-moe-3b-a800m": "granite_moe_3b_a800m",
-            "llama4-scout-17b-a16e": "llama4_scout_17b_a16e"}
+            "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+            "whisper-tiny": "whisper_tiny", "pixtral-12b": "pixtral_12b"}
 
 
 def _module(name: str):
     if name not in _MODULES:
         raise KeyError(
-            f"arch {name!r} is not in the port yet; known: "
+            f"unknown arch {name!r}; known: "
             f"{sorted(_MODULES) + sorted(PAPER_MODELS)}"
         )
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

@@ -18,7 +18,10 @@ cannot be partitioned across devices (``repro/kernels/ops.py``); one card
 partitions nothing, so the kernels run here.
 
 ``MarkovCorpus`` holds (V, V) matrices, so the driver runs reduced configs:
-qwen3-8b's vocab of 151936 would need 185 GB for each.
+qwen3-8b's vocab of 151936 would need 185 GB for each. An encdec model
+(whisper) trains on encoder frames and a vlm (pixtral) behind stub patch
+embeddings, both drawn each step as the JAX driver draws them, from a
+generator seeded with the step.
 """
 from __future__ import annotations
 
@@ -135,6 +138,17 @@ def main(argv=None) -> dict:
         t_step = time.perf_counter()
         batch = {k: torch.as_tensor(v, device=device).long()
                  for k, v in pipe.next_batch().items()}
+        # the frontend stubs' inputs, drawn from the step; the JAX driver
+        # draws them from PRNGKey(step), so the two drivers' values differ
+        stub = None
+        if arch.family == "encdec":
+            stub = ("enc_features", arch.encoder_seq)
+        elif arch.frontend_stub and arch.frontend_seq:
+            stub = ("frontend", arch.frontend_seq)
+        if stub is not None:
+            batch[stub[0]] = torch.randn(
+                (args.batch, stub[1], arch.hidden), dtype=cfg.dtype, device=device,
+                generator=torch.Generator(device).manual_seed(step))
         params, opt, metrics = train_step(params, opt, batch)
         loss = float(metrics["loss"])  # waits for the step's loss
         if device.type == "cuda":

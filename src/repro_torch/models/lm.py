@@ -1,15 +1,18 @@
-"""Decoder-only LM: the port's counterpart of ``repro/models/lm.py``, for the
-dense, moe, ssm (Mamba-2) and hybrid (attention and Mamba-2 heads side by
-side, hymba) families: the full-sequence forward and its training loss (with
-the MoE aux loss), and the cached serving path with the JAX package's
-KV-cache options. A sliding-window model keeps a ring KV cache of the window
-and runs its full-sequence attention through ``banded_flash_xla`` once the
-sequence is longer than the window.
+"""The LM: the port's counterpart of ``repro/models/lm.py``, for every family
+of the JAX package: dense, moe, ssm (Mamba-2), hybrid (attention and Mamba-2
+heads side by side, hymba), encdec (a bidirectional encoder over stub frame
+embeddings, cross-attended by every decoder layer, whisper) and vlm (stub
+patch embeddings in front of the text, pixtral): the full-sequence forward
+and its training loss (with the MoE aux loss), and the cached serving path
+with the JAX package's KV-cache options. A sliding-window model keeps a ring
+KV cache of the window and runs its full-sequence attention through
+``banded_flash_xla`` once the sequence is longer than the window.
 
 Same layouts as the JAX package at the public functions: params are the same
 nested dict, each per-layer leaf stacked on a leading L axis with the same
-names; q/k/v are ``(B, H, S, D)``. A Python loop over layer slices takes the
-place of ``lax.scan``, and ``torch.utils.checkpoint`` around each layer the
+names (an encdec model's encoder under ``params["encoder"]``); q/k/v are
+``(B, H, S, D)``. A Python loop over layer slices takes the place of
+``lax.scan``, and ``torch.utils.checkpoint`` around each layer the
 place of ``jax.checkpoint`` around the scan body. The caches (KV, with
 int8 scales under ``kv_cache_quant``; conv and SSM state) are updated in
 place instead of being returned as new arrays.
@@ -79,14 +82,13 @@ class ModelCfg:
 REMATS = ("none", "selective", "full")
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _check_family(arch: ModelArch) -> None:
     if arch.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{arch.name}: the port runs the {', '.join(FAMILIES)} families, not "
-            f"{arch.family!r} (encdec and vlm wait for their own slice)")
+        raise ValueError(f"{arch.name}: unknown family {arch.family!r}; the families are "
+                         f"{', '.join(FAMILIES)}")
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +136,11 @@ def _layer_param_templates(arch: ModelArch) -> dict[str, tuple[tuple[int, ...], 
         t["ssm.A_log"] = ((Hs,), 0.0)
         t["ssm.D"] = ((Hs,), 0.0)
         t["ssm.out_proj"] = ((di, d), out_scale)
+    if arch.family == "encdec":
+        t["cross.wq"] = ((d, H * hd), fan)
+        t["cross.wkv"] = ((d, 2 * Hkv * hd), fan)
+        t["cross.wo"] = ((H * hd, d), out_scale)
+        t["ln_cross"] = ((d,), 0.0)
     t["ln1"] = ((d,), 0.0)
     if arch.family == "moe" or (arch.ffn > 0 and arch.family != "ssm"):
         t["ln2"] = ((d,), 0.0)
@@ -146,15 +153,11 @@ def _normal(shape, scale, generator, dtype, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator, dtype=dtype, device=device).mul_(scale)
 
 
-def init_params(arch: ModelArch, generator: torch.Generator,
-                dtype: torch.dtype = torch.float32, device=None) -> dict:
-    """Random params in the JAX package's nested layout, drawn from
-    ``generator`` (which must live on ``device``; ``None`` -> cuda)."""
-    device = resolve_device(device)
-    d = arch.hidden
+def _init_layer_stack(arch: ModelArch, n_layers: int, generator: torch.Generator,
+                      dtype: torch.dtype, device: torch.device) -> dict:
     layers: dict[str, Any] = {}
     for name, (shape, scale) in sorted(_layer_param_templates(arch).items()):
-        full = (arch.num_layers,) + shape
+        full = (n_layers,) + shape
         leaf = name.rsplit(".", 1)[-1]
         if leaf in _ZEROS_LEAVES:
             arr = torch.zeros(full, dtype=torch.float32, device=device)
@@ -168,6 +171,21 @@ def init_params(arch: ModelArch, generator: torch.Generator,
         for key in parents:
             node = node.setdefault(key, {})
         node[last] = arr
+    return layers
+
+
+def _encoder_arch(arch: ModelArch) -> ModelArch:
+    """The encoder's layers: dense ones of the model's width, without q/k norms."""
+    return dataclasses.replace(arch, family="dense", qk_norm=False)
+
+
+def init_params(arch: ModelArch, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32, device=None) -> dict:
+    """Random params in the JAX package's nested layout, drawn from
+    ``generator`` (which must live on ``device``; ``None`` -> cuda)."""
+    device = resolve_device(device)
+    d = arch.hidden
+    layers = _init_layer_stack(arch, arch.num_layers, generator, dtype, device)
     params: dict[str, Any] = {
         "embed": _normal((arch.vocab, d), 1.0 / (d ** 0.5), generator, dtype, device),
         "layers": layers,
@@ -176,6 +194,12 @@ def init_params(arch: ModelArch, generator: torch.Generator,
     if not arch.tie_embeddings:
         params["lm_head"] = _normal((d, arch.vocab), 1.0 / (d ** 0.5), generator,
                                     dtype, device)
+    if arch.family == "encdec":
+        params["encoder"] = {
+            "layers": _init_layer_stack(_encoder_arch(arch), arch.encoder_layers, generator,
+                                        dtype, device),
+            "final_norm": torch.ones((d,), dtype=dtype, device=device),
+        }
     return params
 
 
@@ -247,9 +271,12 @@ def _write_cache(cfg: ModelCfg, cache: dict, k: torch.Tensor, v: torch.Tensor,
 
 
 def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
-                   arch: ModelArch, cfg: ModelCfg, cache: Optional[dict]) -> torch.Tensor:
+                   arch: ModelArch, cfg: ModelCfg, cache: Optional[dict],
+                   causal: bool = True) -> torch.Tensor:
     """Self-attention. cache: None (full sequence) or the layer's cache views
     ``{"k", "v"[, "k_scale", "v_scale"], "start"}``, written in place.
+    ``causal=False``: the encoder's bidirectional attention (full sequence
+    only, no window).
 
     With a sliding window the cache is a ring of T slots in which slot j
     holds the position p with ``p % T == j``. A prefill of S >= T tokens
@@ -273,10 +300,10 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
     k = L.rope(k.transpose(1, 2), positions)
     v = v.transpose(1, 2)
     if cache is None:
-        if window and window < S:
+        if causal and window and window < S:
             out = banded_flash_xla(q, k, v, window=window)
         else:
-            out = ops.flash_attention(q, k, v, causal=True, impl=cfg.attn_impl)
+            out = ops.flash_attention(q, k, v, causal=causal, impl=cfg.attn_impl)
     else:
         if cfg.kv_cache_repeat > 1:
             k = k.repeat_interleave(cfg.kv_cache_repeat, dim=1)
@@ -311,6 +338,19 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
     return out @ p["wo"]
 
 
+def _cross_sublayer(p: dict, h: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
+                    arch: ModelArch) -> torch.Tensor:
+    """encdec: the decoder's queries against the encoder's K/V ``(B, Hkv,
+    T_enc, D)``, non-causal. Pinned to the blockwise "xla" attention whatever
+    ``cfg.attn_impl`` says, as the JAX package pins it; its padding mask hides
+    the zero keys that fill T_enc up to whole 512-key blocks."""
+    B, S, _ = h.shape
+    H, D = arch.heads, arch.head_dim
+    q = (h @ p["wq"]).reshape(B, S, H, D).transpose(1, 2)
+    out = ops.flash_attention(q, enc_k, enc_v, causal=False, impl="xla")
+    return out.transpose(1, 2).reshape(B, S, H * D) @ p["wo"]
+
+
 def _ssm_sublayer(arch: ModelArch, cfg: ModelCfg, p: dict, x: torch.Tensor,
                   cache: Optional[dict]) -> torch.Tensor:
     """The Mamba-2 mixer; with a cache, its conv history and state are
@@ -324,20 +364,29 @@ def _ssm_sublayer(arch: ModelArch, cfg: ModelCfg, p: dict, x: torch.Tensor,
 
 
 def _layer_fn(arch: ModelArch, cfg: ModelCfg, lp: dict, h: torch.Tensor,
-              positions: torch.Tensor, cache: Optional[dict]) -> torch.Tensor:
+              positions: torch.Tensor, cache: Optional[dict],
+              enc_kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+              causal: bool = True) -> torch.Tensor:
     """cache: None (full sequence) or the layer's cache views, written in
     place: ``{"k", "v"[, "k_scale", "v_scale"], "start"}`` for attention,
-    ``{"conv", "state"}`` for the mixer; the hybrid has both."""
+    ``{"conv", "state"}`` for the mixer; the hybrid has both; encdec adds
+    ``{"enc_k", "enc_v"}``, which it only reads. enc_kv: encdec's cross K/V
+    for this layer in the full-sequence forward. causal: False for the
+    encoder's layers."""
     family = arch.family
     x = L.norm(h, lp["ln1"], impl=cfg.norm_impl)
     if family == "ssm":
         return h + _ssm_sublayer(arch, cfg, lp["ssm"], x, cache)
-    a = _attn_sublayer(lp["attn"], x, positions, arch, cfg, cache)
+    a = _attn_sublayer(lp["attn"], x, positions, arch, cfg, cache, causal)
     if family == "hybrid":
         # hymba: attention and mamba heads run side by side on one input
         h = h + 0.5 * (a + _ssm_sublayer(arch, cfg, lp["ssm"], x, cache))
     else:
         h = h + a
+    if family == "encdec":
+        enc_k, enc_v = enc_kv if cache is None else (cache["enc_k"], cache["enc_v"])
+        h = h + _cross_sublayer(lp["cross"], L.norm(h, lp["ln_cross"], impl=cfg.norm_impl),
+                                enc_k, enc_v, arch)
     if family == "moe":
         return h + moe_block(lp["moe"], L.norm(h, lp["ln2"], impl=cfg.norm_impl),
                              top_k=arch.top_k, capacity_factor=cfg.capacity_factor)
@@ -366,41 +415,90 @@ def _selective_contexts():
 
 
 def _train_layer(arch: ModelArch, cfg: ModelCfg, lp: dict, h: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """One layer of the full-sequence forward under ``cfg.remat``."""
+                 positions: torch.Tensor, enc_kv=None, causal: bool = True) -> torch.Tensor:
+    """One layer of the full-sequence forward under ``cfg.remat``; encdec's
+    cross K/V reach it as arguments, as the JAX package's
+    ``_encdec_train_layer`` takes them."""
     if cfg.remat == "none":
-        return _layer_fn(arch, cfg, lp, h, positions, None)
+        return _layer_fn(arch, cfg, lp, h, positions, None, enc_kv, causal)
     extra = {"context_fn": _selective_contexts} if cfg.remat == "selective" else {}
-    return checkpoint(_layer_fn, arch, cfg, lp, h, positions, None, use_reentrant=False,
-                      **extra)
+    return checkpoint(_layer_fn, arch, cfg, lp, h, positions, None, enc_kv, causal,
+                      use_reentrant=False, **extra)
+
+
+def _embed_inputs(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict):
+    """The token embeddings in ``cfg.dtype``, behind ``batch["frontend"]``
+    (B, F, d), the stub's embeddings, where the model has a frontend stub and
+    the batch holds them; and the positions 0 .. F + S - 1."""
+    h = params["embed"][batch["tokens"]].to(cfg.dtype)
+    if arch.frontend_stub and "frontend" in batch:
+        h = torch.cat([batch["frontend"].to(cfg.dtype), h], dim=1)
+    return h, torch.arange(h.shape[1], device=h.device)
+
+
+def _encode(params: dict, arch: ModelArch, cfg: ModelCfg,
+            features: torch.Tensor) -> torch.Tensor:
+    """encdec: the bidirectional encoder over stub frame embeddings (B, T, d):
+    dense layers without q/k norms, non-causal attention through the
+    flash-attention kernel, under ``cfg.remat`` as the decoder's, then the
+    encoder's final norm. The JAX package constrains the carry's batch
+    sharding before each layer, the identity on one device."""
+    enc = params["encoder"]
+    enc_arch = _encoder_arch(arch)
+    h = features.to(cfg.dtype)
+    positions = torch.arange(h.shape[1], device=h.device)
+    for i in range(arch.encoder_layers):
+        h = _train_layer(enc_arch, cfg, _layer(enc["layers"], i), h, positions, causal=False)
+    return L.norm(h, enc["final_norm"], impl=cfg.norm_impl)
+
+
+def _cross_kv(params: dict, arch: ModelArch,
+              enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each decoder layer's cross K and V from the encoder output through its
+    ``cross.wkv``: two (L, B, Hkv, T_enc, D)."""
+    B, T, _ = enc_out.shape
+    Hkv, D = arch.kv_heads, arch.head_dim
+    ks, vs = [], []
+    for wkv in params["layers"]["cross"]["wkv"]:
+        k, v = (enc_out @ wkv).chunk(2, dim=-1)
+        ks.append(k.reshape(B, T, Hkv, D).transpose(1, 2))
+        vs.append(v.reshape(B, T, Hkv, D).transpose(1, 2))
+    return torch.stack(ks), torch.stack(vs)
 
 
 def forward_logits(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict) -> torch.Tensor:
-    """Full-sequence forward over ``batch["tokens"]`` (B, S). Returns (B, S, V)
-    logits. Attention goes through the flash-attention kernel (through
-    ``banded_flash_xla`` when a sliding window is shorter than S), the ssm
-    mixer through the SSD kernel."""
+    """Full-sequence forward over ``batch["tokens"]`` (B, S), behind
+    ``batch["frontend"]`` (B, F, d) for a model with a frontend stub (vlm);
+    encdec encodes ``batch["enc_features"]`` (B, T_enc, d) first. Returns (B,
+    F + S, V) logits. Attention goes through the flash-attention kernel
+    (through ``banded_flash_xla`` when a sliding window is shorter than S;
+    cross-attention through the blockwise "xla" attention), the ssm mixer
+    through the SSD kernel."""
     _check_family(arch)
     if cfg.cast_params_in_forward:
         params = cast_params(params, cfg.dtype)
-    tokens = batch["tokens"]
-    h = params["embed"][tokens].to(cfg.dtype)
-    positions = torch.arange(h.shape[1], device=h.device)
+    h, positions = _embed_inputs(params, arch, cfg, batch)
+    enc_k = enc_v = None
+    if arch.family == "encdec":
+        enc_k, enc_v = _cross_kv(params, arch, _encode(params, arch, cfg, batch["enc_features"]))
     for i in range(arch.num_layers):
-        h = _train_layer(arch, cfg, _layer(params["layers"], i), h, positions)
+        h = _train_layer(arch, cfg, _layer(params["layers"], i), h, positions,
+                         None if enc_k is None else (enc_k[i], enc_v[i]))
     return _head(params, arch, cfg, h)
 
 
 def forward_train(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict):
     """Next-token cross-entropy over ``batch["tokens"]`` (B, S), logits in
     f32, averaged over ``batch["loss_mask"]`` (B, S) where given (position t
-    weighs the prediction of token t). Returns ``(loss, {"ce_loss",
-    "loss"})``; the moe family adds ``moe_aux_weight`` times the
-    load-balancing loss, reported as ``"aux_loss"``. As in the JAX package,
-    that loss is layer 0's router applied to the embedded tokens."""
+    weighs the prediction of token t); frontend positions carry no loss.
+    Returns ``(loss, {"ce_loss", "loss"})``; the moe family adds
+    ``moe_aux_weight`` times the load-balancing loss, reported as
+    ``"aux_loss"``. As in the JAX package, that loss is layer 0's router
+    applied to the embedded inputs."""
     logits = forward_logits(params, arch, cfg, batch)
+    S_txt = batch["tokens"].shape[1]
     targets = batch["tokens"][:, 1:].long()
-    lg = logits[:, :-1, :].float()
+    lg = logits[:, -S_txt:-1, :].float()
     del logits
     nll = torch.logsumexp(lg, dim=-1) - lg.gather(-1, targets[..., None])[..., 0]
     mask = batch.get("loss_mask")
@@ -411,7 +509,7 @@ def forward_train(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict):
         loss = nll.mean()
     metrics = {"ce_loss": loss}
     if arch.family == "moe" and cfg.moe_aux_weight > 0:
-        h = params["embed"][batch["tokens"]].to(cfg.dtype)
+        h, _ = _embed_inputs(params, arch, cfg, batch)
         aux = aux_load_balance_loss(_tree_map(lambda x: x[0], params["layers"]["moe"]), h,
                                     top_k=arch.top_k)
         metrics["aux_loss"] = aux
@@ -425,13 +523,18 @@ def forward_train(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict):
 # ---------------------------------------------------------------------------
 
 def init_caches(arch: ModelArch, cfg: ModelCfg, batch_size: int, max_len: int,
+                enc_features: Optional[torch.Tensor] = None, params: Optional[dict] = None,
                 device=None) -> dict:
     """Per-layer-stacked decode caches: ``{"k", "v"}`` of (L, B, Hkv * r, T,
     D) for attention, r = ``kv_cache_repeat`` and T = max_len, or the window
     when that is shorter (a ring); in ``cfg.dtype``, or int8 beside bf16
     ``{"k_scale", "v_scale"}`` (L, B, Hkv * r, T) under ``kv_cache_quant``.
     ``{"conv"}`` (L, B, CONV_K - 1, conv channels) in ``cfg.dtype`` and
-    ``{"state"}`` (L, B, H, P, N) f32 for the ssm and hybrid mixers."""
+    ``{"state"}`` (L, B, H, P, N) f32 for the ssm and hybrid mixers. For
+    encdec, ``{"enc_k", "enc_v"}`` (L, B, Hkv, T_enc, D): the encoder run once
+    over ``enc_features`` (B, T_enc, d) with ``params`` (cast to
+    ``cfg.dtype`` under ``cast_params_in_forward``), each decoder layer's
+    cross K/V; both are required, a ``ValueError`` otherwise."""
     _check_family(arch)
     device = resolve_device(device)
     Ld = arch.num_layers
@@ -452,22 +555,36 @@ def init_caches(arch: ModelArch, cfg: ModelCfg, batch_size: int, max_len: int,
                                      dtype=cfg.dtype, device=device)
         caches["state"] = torch.zeros((Ld, batch_size, H, P, N),
                                       dtype=torch.float32, device=device)
+    if arch.family == "encdec":
+        if enc_features is None or params is None:
+            raise ValueError(f"{arch.name}: an encdec cache holds the encoder's cross K/V; "
+                             f"init_caches needs enc_features and params")
+        if cfg.cast_params_in_forward:
+            params = cast_params(params, cfg.dtype)
+        with torch.no_grad():
+            enc_out = _encode(params, arch, cfg, enc_features)
+            caches["enc_k"], caches["enc_v"] = _cross_kv(params, arch, enc_out)
     return caches
 
 
 @torch.no_grad()
 def forward_cached(params: dict, arch: ModelArch, cfg: ModelCfg, caches: dict,
-                   tokens: torch.Tensor, start_pos: int):
-    """Shared prefill/decode path: processes S tokens starting at start_pos.
+                   tokens: torch.Tensor, start_pos: int,
+                   frontend: Optional[torch.Tensor] = None):
+    """Shared prefill/decode path: processes the S tokens, behind
+    ``frontend`` (B, F, d) where given, from position start_pos on.
 
-    Writes into ``caches`` in place (the tokens' K/V; the new conv history and
-    SSM state) and returns ``(logits, caches)`` (the same dict), mirroring
-    the JAX signature. Positions must lie in the KV cache, except in a ring
-    that holds the whole window, which serves any position."""
+    Writes into ``caches`` in place (the K/V of the F + S positions; the new
+    conv history and SSM state; encdec's cross K/V are only read) and returns
+    ``(logits, caches)`` (the same dict), mirroring the JAX signature.
+    Positions must lie in the KV cache, except in a ring that holds the whole
+    window, which serves any position."""
     _check_family(arch)
     if cfg.cast_params_in_forward:
         params = cast_params(params, cfg.dtype)
     h = params["embed"][tokens].to(cfg.dtype)
+    if frontend is not None:
+        h = torch.cat([frontend.to(cfg.dtype), h], dim=1)
     S = h.shape[1]
     if "k" in caches:
         T = caches["k"].shape[3]
@@ -482,8 +599,8 @@ def forward_cached(params: dict, arch: ModelArch, cfg: ModelCfg, caches: dict,
     return _head(params, arch, cfg, h), caches
 
 
-def prefill(params, arch, cfg, caches, tokens):
-    return forward_cached(params, arch, cfg, caches, tokens, 0)
+def prefill(params, arch, cfg, caches, tokens, frontend=None):
+    return forward_cached(params, arch, cfg, caches, tokens, 0, frontend=frontend)
 
 
 def decode_step(params, arch, cfg, caches, tokens, position: int):

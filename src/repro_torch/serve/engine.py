@@ -25,7 +25,9 @@ class GenerateResult:
     # first generate at a given batch size, 0 once the engine is warm);
     # consumers drop these
     warmup_steps: int = 0
-    prefill_time: float = 0.0  # seconds, synchronised like step_times
+    # seconds, synchronised like step_times: the cache's build (an encdec
+    # model's encoder pass) and the prefill
+    prefill_time: float = 0.0
 
 
 class ServeEngine:
@@ -47,26 +49,42 @@ class ServeEngine:
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, *, max_new_tokens: int = 32,
-                 temperature: float = 0.0, seed: int = 0) -> GenerateResult:
-        """prompts: (B, S_prompt) token ids. Sampling with temperature draws
-        from the engine's ``torch.Generator`` seeded with ``seed``."""
+                 temperature: float = 0.0, seed: int = 0, enc_features=None,
+                 frontend=None) -> GenerateResult:
+        """prompts: (B, S_prompt) token ids. enc_features (B, T_enc, d): an
+        encdec model's stub frame embeddings, encoded once into the cache.
+        frontend (B, F, d): stub embeddings in front of the prompt (vlm),
+        which take cache slots too; decoding starts at position F + S_prompt.
+        Both are arrays or tensors. Sampling with temperature draws from the
+        engine's ``torch.Generator`` seeded with ``seed``."""
         B, S = prompts.shape
-        total = S + max_new_tokens
+        frontend_len = frontend.shape[1] if frontend is not None else 0
+        total = S + frontend_len + max_new_tokens
         if total > self.max_len:
             raise ValueError(
-                f"prompt_len ({S}) + max_new_tokens ({max_new_tokens}) = {total} "
-                f"exceeds max_len ({self.max_len}); decode positions past the KV "
+                f"prompt_len ({S})"
+                + (f" + frontend_len ({frontend_len})" if frontend_len else "")
+                + f" + max_new_tokens ({max_new_tokens}) = {total} exceeds "
+                f"max_len ({self.max_len}); decode positions past the KV "
                 f"cache would clobber it silently"
             )
-        caches = lm.init_caches(self.arch, self.cfg, B, self.max_len, device=self.device)
+        if enc_features is not None:
+            enc_features = torch.as_tensor(enc_features, device=self.device)
+        if frontend is not None:
+            frontend = torch.as_tensor(frontend, device=self.device)
         toks = torch.as_tensor(np.asarray(prompts), device=self.device).long()
         t0 = time.perf_counter()
-        logits, caches = lm.prefill(self.params, self.arch, self.cfg, caches, toks)
+        caches = lm.init_caches(self.arch, self.cfg, B, self.max_len,
+                                enc_features=enc_features, params=self.params,
+                                device=self.device)
+        logits, caches = lm.prefill(self.params, self.arch, self.cfg, caches, toks,
+                                    frontend=frontend)
         self._sync()
         prefill_time = time.perf_counter() - t0
         gen = torch.Generator(device=self.device).manual_seed(seed)
         out = [toks]
         last = logits[:, -1, :]
+        pos = S + frontend_len
         warmup = 0 if B in self._warm_batches else min(1, max_new_tokens)
         step_times = []
         for i in range(max_new_tokens):
@@ -78,7 +96,7 @@ class ServeEngine:
                 nxt = torch.argmax(last, dim=-1, keepdim=True)
             out.append(nxt)
             logits, caches = lm.decode_step(self.params, self.arch, self.cfg, caches,
-                                            nxt, S + i)
+                                            nxt, pos + i)
             last = logits[:, -1, :]
             self._sync()
             step_times.append(time.perf_counter() - t0)

@@ -1,4 +1,4 @@
-"""The port's LM (dense and ssm families) against the JAX package's, on the CPU.
+"""The port's LM (every family) against the JAX package's, on the CPU.
 
 Weights come from the JAX package's ``init_params`` and cross through numpy
 (``params_from_numpy``), so both sides run the same model. The JAX side runs
@@ -25,8 +25,10 @@ TOL = 1e-4
 JCFG = jlm.ModelCfg(dtype=jnp.float32, attn_impl="pallas", norm_impl="pallas",
                     ssm_impl="pallas")
 CFG = lm.ModelCfg(dtype=torch.float32)
-# yi-6b: no qk_norm, MQA-like kv=1 when reduced; mamba2: attention-free ssm
-ARCHS = ["qwen3-8b", "yi-6b", "mamba2-370m"]
+# yi-6b: no qk_norm, MQA-like kv=1 when reduced; mamba2: attention-free ssm;
+# whisper: encdec (the encoder's frames in every batch); pixtral: vlm (stub
+# patch embeddings in front of the text)
+ARCHS = ["qwen3-8b", "yi-6b", "mamba2-370m", "whisper-tiny", "pixtral-12b"]
 
 
 def _setup(name, B=2, S=12, seed=0):
@@ -35,6 +37,28 @@ def _setup(name, B=2, S=12, seed=0):
     params = params_from_numpy(jax.device_get(jparams), device="cpu")
     toks = np.random.default_rng(seed).integers(0, jarch.vocab, size=(B, S)).astype(np.int32)
     return jarch, get_reduced(name), jparams, params, toks
+
+
+def _extra(arch, B, seed=0) -> dict:
+    """The family's stub inputs as numpy f32: the encoder's frames (encdec),
+    the frontend's embeddings in front of the text (vlm)."""
+    rng = np.random.default_rng(seed + 100)
+    if arch.family == "encdec":
+        return {"enc_features": rng.standard_normal(
+            (B, arch.encoder_seq, arch.hidden)).astype(np.float32)}
+    if arch.family == "vlm":
+        return {"frontend": rng.standard_normal(
+            (B, arch.frontend_seq, arch.hidden)).astype(np.float32)}
+    return {}
+
+
+def _batches(arch, toks, seed=0):
+    """The same batch for both packages: (jax, torch)."""
+    extra = _extra(arch, toks.shape[0], seed)
+    jb = {"tokens": jnp.asarray(toks), **{k: jnp.asarray(v) for k, v in extra.items()}}
+    tb = {"tokens": torch.from_numpy(toks).long(),
+          **{k: torch.from_numpy(v) for k, v in extra.items()}}
+    return jb, tb
 
 
 def _flat(tree, prefix=""):
@@ -83,8 +107,8 @@ def test_full_configs_match_the_jax_package():
         assert dataclasses.asdict(get_reduced(name)) == dataclasses.asdict(jax_reduced(name))
     assert {k: v.total_params() for k, v in T_PAPER.items()} == \
         {k: v.total_params() for k, v in PAPER_MODELS.items()}
-    with pytest.raises(KeyError):  # encdec: not in the port yet
-        get_arch("whisper-tiny")
+    with pytest.raises(KeyError):
+        get_arch("no-such-model")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -113,9 +137,10 @@ def test_init_params_matches_the_jax_layout_and_dtypes_for_ssm(dtype):
 @pytest.mark.parametrize("impl", ["cuda", "torch"])
 def test_forward_logits_matches_jax(name, impl):
     jarch, arch, jparams, params, toks = _setup(name)
-    want = np.asarray(jlm.forward_logits(jparams, jarch, JCFG, {"tokens": jnp.asarray(toks)}))
+    jb, tb = _batches(arch, toks)
+    want = np.asarray(jlm.forward_logits(jparams, jarch, JCFG, jb))
     cfg = lm.ModelCfg(dtype=torch.float32, attn_impl=impl, norm_impl=impl, ssm_impl=impl)
-    got = lm.forward_logits(params, arch, cfg, {"tokens": torch.from_numpy(toks).long()})
+    got = lm.forward_logits(params, arch, cfg, tb)
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
 
@@ -139,34 +164,44 @@ def test_copied_config_matches_jax_and_its_logits(name):
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_prefill_decode_matches_teacher_forcing(name):
-    """prefill + step-by-step decode == the full forward (tests/test_models.py)."""
+    """prefill + step-by-step decode == the full forward (tests/test_models.py);
+    a frontend takes the first F positions, so decoding starts at F + S - 2."""
     _, arch, _, params, toks = _setup(name)
     B, S = toks.shape
-    t = torch.from_numpy(toks).long()
-    full = lm.forward_logits(params, arch, CFG, {"tokens": t})
-    caches = lm.init_caches(arch, CFG, B, S + 4, device="cpu")
-    lg, caches = lm.prefill(params, arch, CFG, caches, t[:, : S - 2])
-    assert float((lg - full[:, : S - 2]).abs().max()) < TOL
-    lg1, caches = lm.decode_step(params, arch, CFG, caches, t[:, S - 2 : S - 1], S - 2)
-    assert float((lg1[:, 0] - full[:, S - 2]).abs().max()) < TOL
-    lg2, caches = lm.decode_step(params, arch, CFG, caches, t[:, S - 1 :], S - 1)
-    assert float((lg2[:, 0] - full[:, S - 1]).abs().max()) < TOL
+    _, tb = _batches(arch, toks)
+    t, fe = tb["tokens"], tb.get("frontend")
+    F = 0 if fe is None else fe.shape[1]
+    full = lm.forward_logits(params, arch, CFG, tb)
+    caches = lm.init_caches(arch, CFG, B, F + S + 4, enc_features=tb.get("enc_features"),
+                            params=params, device="cpu")
+    lg, caches = lm.prefill(params, arch, CFG, caches, t[:, : S - 2], frontend=fe)
+    assert float((lg - full[:, : F + S - 2]).abs().max()) < TOL
+    lg1, caches = lm.decode_step(params, arch, CFG, caches, t[:, S - 2 : S - 1], F + S - 2)
+    assert float((lg1[:, 0] - full[:, F + S - 2]).abs().max()) < TOL
+    lg2, caches = lm.decode_step(params, arch, CFG, caches, t[:, S - 1 :], F + S - 1)
+    assert float((lg2[:, 0] - full[:, F + S - 1]).abs().max()) < TOL
 
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_prefill_decode_logits_match_jax(name):
     jarch, arch, jparams, params, toks = _setup(name, seed=1)
     B, S = toks.shape
-    jc = jlm.init_caches(jarch, JCFG, B, S + 2)
-    tc = lm.init_caches(arch, CFG, B, S + 2, device="cpu")
-    t = torch.from_numpy(toks).long()
-    jl, jc = jlm.prefill(jparams, jarch, JCFG, jc, jnp.asarray(toks[:, : S - 1]))
-    tl, tc = lm.prefill(params, arch, CFG, tc, t[:, : S - 1])
+    jb, tb = _batches(arch, toks, seed=1)
+    F = arch.frontend_seq if "frontend" in tb else 0
+    jc = jlm.init_caches(jarch, JCFG, B, F + S + 2, enc_features=jb.get("enc_features"),
+                         params=jparams)
+    tc = lm.init_caches(arch, CFG, B, F + S + 2, enc_features=tb.get("enc_features"),
+                        params=params, device="cpu")
+    t = tb["tokens"]
+    jl, jc = jlm.prefill(jparams, jarch, JCFG, jc, jnp.asarray(toks[:, : S - 1]),
+                         frontend=jb.get("frontend"))
+    tl, tc = lm.prefill(params, arch, CFG, tc, t[:, : S - 1], frontend=tb.get("frontend"))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=0)
-    jl, jc = jlm.decode_step(jparams, jarch, JCFG, jc, jnp.asarray(toks[:, S - 1 :]), S - 1)
-    tl, tc = lm.decode_step(params, arch, CFG, tc, t[:, S - 1 :], S - 1)
+    jl, jc = jlm.decode_step(jparams, jarch, JCFG, jc, jnp.asarray(toks[:, S - 1 :]),
+                             F + S - 1)
+    tl, tc = lm.decode_step(params, arch, CFG, tc, t[:, S - 1 :], F + S - 1)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=0)
-    # every cache: k/v for attention, conv and state for ssm
+    # every cache: k/v for attention, conv and state for ssm, encdec's cross K/V
     assert sorted(tc) == sorted(jc)
     for name in jc:
         assert tc[name].dtype == getattr(torch, str(jc[name].dtype)), name
@@ -174,6 +209,7 @@ def test_prefill_decode_logits_match_jax(name):
 
 
 def test_model_cfg_and_families_outside_the_slice_raise():
+    """Bad runtime options, an unknown family, and a prefill past the cache."""
     with pytest.raises(ValueError):
         lm.ModelCfg(attn_impl="pallas")
     with pytest.raises(TypeError):  # activation shardings: the sharding slice
@@ -182,13 +218,11 @@ def test_model_cfg_and_families_outside_the_slice_raise():
 
     with pytest.raises(ValueError):
         lm.ModelCfg(ssm_impl="naive")
-    encdec = dataclasses.replace(get_reduced("qwen3-8b"), family="encdec")
-    with pytest.raises(NotImplementedError):
-        lm.init_params(encdec, torch.Generator(), torch.float32, "cpu")
-    from repro.configs import get_arch as jax_arch
-
-    with pytest.raises(NotImplementedError):  # vlm
-        lm.init_caches(jax_arch("pixtral-12b"), CFG, 1, 4, device="cpu")
+    unknown = dataclasses.replace(get_reduced("qwen3-8b"), family="retnet")
+    with pytest.raises(ValueError, match="unknown family 'retnet'"):
+        lm.init_params(unknown, torch.Generator(), torch.float32, "cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        lm.init_caches(unknown, CFG, 1, 4, device="cpu")
     _, arch, _, params, toks = _setup("qwen3-8b")
     caches = lm.init_caches(arch, CFG, 2, 4, device="cpu")
     with pytest.raises(ValueError, match="past the KV cache"):
