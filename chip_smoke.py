@@ -63,14 +63,24 @@ Phases, each reported on its own lines; any failure exits non-zero:
                forward + backward and optimizer ms, peak memory, ce_loss and
                aux_loss, launches), and its loss and grads through the
                kernels against the plain versions in f32 at 2 layers;
-  7. astra   - the train driver with --auto-strategy --emit-traces (the
+  7. ckpt    - the free disk and host RAM; qwen3-8b at full width and 2 of its
+               36 layers at phase 6's B, S: two steps, an async save of params
+               and AdamW state (19.6 GB), two more steps while it writes, the
+               restore into a fresh template on the card equal to the saved
+               state bit for bit, the resumed run's two steps against the
+               uninterrupted run's beside a control run (bytes written, the ms
+               save() blocked the loop, the write's s and GB/s, the restore's
+               s, step ms while writing and without, in a {"ckpt": ...} JSON
+               line); then the train driver on the reduced config: 6 steps
+               saving every 3, against 3 steps and --resume to 6;
+  8. astra   - the train driver with --auto-strategy --emit-traces (the
                searched strategy, its launches, the trace read back); then
                the port's Astra searches phase 6's step, and the five steps
                of phase 6, as one StepTrace, are scored by a CalibrationLoop
                under the analytic and the GBT eta model: predicted, measured
                and accuracy in an {"astra": ...} JSON line (a measurement:
                no check holds it to a bound);
-  8. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-6, with
+  9. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-7, with
                the launches its wrapper counted there at that shape, beside
                F.rms_norm at the same shape and the launch floor (a one-block
                elementwise op), at D = 128 also on k head views; then the
@@ -93,6 +103,7 @@ import math
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -492,7 +503,7 @@ def rmsnorm_phase(dev) -> dict:
 
 
 def rmsnorm_shape_times(dev, shapes: collections.Counter) -> list[dict]:
-    """RMSNorm (bf16) at each (rows, D) of the main paths (phases 4-6), with the launches
+    """RMSNorm (bf16) at each (rows, D) of the main paths (phases 4-7), with the launches
     its wrapper counted there at that shape, beside F.rms_norm and the launch
     floor (the device time of a one-block elementwise op on 8 bf16 values),
     each timed here. At D = 128 (the q/k norms) also on the same rows read in
@@ -1948,7 +1959,277 @@ def train_phase(dev, counters, card: str) -> tuple[list[tuple[str, dict, dict]],
 
 
 # ---------------------------------------------------------------------------
-# phase 7: Astra's cost model against the card
+# phase 7: checkpoints
+# ---------------------------------------------------------------------------
+
+# qwen3-8b at full width, cut to 2 of its 36 layers, at phase 6's B, S: its
+# 1.6306e9 f32 params with AdamW's mu and nu are 19.57 GB on disk, written and
+# read back whole. (At 8 layers they would be 33.5 GB, and the uninterrupted,
+# resumed and control runs would not fit the card side by side.)
+CKPT_LAYERS = 2
+CKPT_STEPS = 2  # steps before the save, and again while it writes
+# The resumed run's steps 3-4 against the uninterrupted run's, and the control
+# (a second uninterrupted run) against the first: the largest loss gap, and
+# each param leaf by max |diff| over the leaf's max |value|. The embedding's
+# backward (an accumulating index_put_) is nondeterministic on CUDA by
+# PyTorch's own account, so two uninterrupted runs need not agree to the bit.
+# An H100 (80GB HBM3, 700 W) read 0 and 0 for the control and 0 and 0 for the
+# resumed run, and the driver's two step-6 checkpoints agreed bit for bit in
+# all 33 arrays. A resume that got the data cursor wrong moves the loss by
+# ~0.1; one that lost mu and nu moves a param by ~lr = 3e-4, ~5e-3 of a
+# leaf's max.
+CKPT_LOSS_TOL = 1e-3
+CKPT_PARAM_REL = 1e-4
+# the train driver on the reduced config, as DRIVER_ARGV runs it
+CKPT_DRIVER_EVERY = 3
+CKPT_DRIVER_STEPS = 6
+
+
+def _host_ram_available() -> int:
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_AVPHYS_PAGES")
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def ckpt_full_width_phase(dev, counters, card: str) -> list[tuple[str, dict, dict]]:
+    """Two steps of qwen3-8b at full width and CKPT_LAYERS layers, an async
+    save of params and AdamW state, two more steps while it writes; the
+    checkpoint restored into a fresh template on the card equals the state it
+    saved, bit for bit; the resumed run's two steps against the uninterrupted
+    run's, beside a control run. Returns (label, launches, launches by shape)
+    of the three runs."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.train import OptState, TrainStepCfg, adamw_init, make_train_step
+
+    arch = dataclasses.replace(get_arch("qwen3-8b"), num_layers=CKPT_LAYERS)
+    B, S = TRAIN_BS
+    L = arch.num_layers
+    state_bytes = 3 * 4 * arch.total_params()  # f32 params, mu and nu
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    log("ckpt", f"free disk {free / 1e9:.1f} GB under {tmp}, host RAM available "
+        f"{_host_ram_available() / 1e9:.1f} GB")
+    log("ckpt", f"qwen3-8b at full width, {L} of its 36 layers, B={B} S={S}: "
+        f"{arch.total_params() / 1e9:.4f}e9 params by the arch's count, f32 params + mu + nu "
+        f"= {state_bytes / 1e9:.2f} GB")
+    check(free > 1.1 * state_bytes, f"{free / 1e9:.1f} GB free under {tmp}, the checkpoint "
+          f"takes {state_bytes / 1e9:.2f} GB")
+    step_fn = make_train_step(arch, lm.ModelCfg(dtype=torch.bfloat16),
+                              TrainStepCfg(num_microbatches=1, warmup_steps=2, total_steps=10))
+    per_step = {"rmsnorm_fwd": 4 * L + 1, "flash_attention_fwd": L, "ssd_scan_fwd": 0}
+
+    def fresh():
+        params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                                torch.float32, dev)
+        return params, adamw_init(params)
+
+    def steps(params, opt, n, label, runs):
+        """n steps, each on the batch of its own step number (so a resumed run
+        draws what an uninterrupted one would), counted as one main-path run."""
+        losses, ms = [], []
+        reset_counts(counters)
+        for _ in range(n):
+            g = torch.Generator(device=dev).manual_seed(100 + opt.step)
+            batch = {"tokens": torch.randint(0, arch.vocab, (B, S), device=dev, generator=g)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts, shapes = read_counts(counters)
+        check(counts == {k: n * v for k, v in per_step.items()},
+              f"{label}: launches {counts}, {n} x {per_step} expected")
+        check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss {losses}")
+        runs.append((label, counts, shapes))
+        return params, opt, losses, ms
+
+    _free()
+    runs: list[tuple[str, dict, dict]] = []
+    params, opt = fresh()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log("ckpt", f"init: {n_params} params (the arch's count leaves out the q/k norms' "
+        f"{n_params - int(arch.total_params())}), {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"on the card with mu and nu")
+    with tempfile.TemporaryDirectory(dir=tmp) as d:
+        mgr = CheckpointManager(d)
+        params, opt, loss_a, _ = steps(params, opt, CKPT_STEPS,
+                                       f"qwen3-8b ckpt x{CKPT_STEPS} before the save", runs)
+        snap = {"params": _clone_tree(params),
+                "opt": OptState(_clone_tree(opt.mu), _clone_tree(opt.nu), opt.step)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(opt.step, {"params": params, "opt": opt},
+                 metadata={"data_step": opt.step, "arch": arch.name})
+        t_saved = time.perf_counter()
+        blocked_ms = (t_saved - t0) * 1e3
+        params, opt, more, ms_during = steps(
+            params, opt, CKPT_STEPS, f"qwen3-8b ckpt x{CKPT_STEPS} while it writes", runs)
+        loss_a += more
+        in_flight = mgr.steps() == []
+        mgr.wait()
+        write_s = time.perf_counter() - t_saved
+        path = os.path.join(d, f"step_{CKPT_STEPS:08d}")
+        written = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        check(mgr.steps() == [CKPT_STEPS], f"checkpoints {mgr.steps()}, [{CKPT_STEPS}] expected")
+        log("ckpt", f"save: {written} bytes written ({written / 1e9:.2f} GB), save() blocked "
+            f"the loop {blocked_ms:.1f} ms (the copy to host memory), write {write_s:.2f} s "
+            f"({written / 1e9 / write_s:.2f} GB/s); still writing after step "
+            f"{2 * CKPT_STEPS}: {in_flight}; step ms while it wrote "
+            f"{', '.join(f'{x:.1f}' for x in ms_during)}")
+        params_a = params
+        del params, opt
+        _free()
+
+        template = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, meta = mgr.restore({"params": template[0], "opt": template[1]})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del template
+    got, want = _flatten(state), _flatten(snap)
+    check(list(got) == list(want), "the restored state's keys")
+    differ = [k for k, w in want.items() if not (
+        type(got[k]) is type(w) and (got[k] == w if isinstance(w, int) else (
+            got[k].dtype == w.dtype and got[k].device == w.device and torch.equal(got[k], w))))]
+    log("ckpt", f"restore: {restore_s:.2f} s ({written / 1e9 / restore_s:.2f} GB/s) into a "
+        f"fresh template on {dev}; {len(want)} leaves, {len(differ)} differ from the step-"
+        f"{CKPT_STEPS} state bit for bit; opt.step {state['opt'].step}, meta {meta['step']}, "
+        f"data_step {meta['data_step']}")
+    check(not differ, f"restored leaves differ from the saved state: {differ[:5]}")
+    check(state["opt"].step == CKPT_STEPS and meta["data_step"] == CKPT_STEPS,
+          "the restored step")
+    check(not torch.equal(state["params"]["embed"], params_a["embed"]),
+          f"the restore returned the state after step {2 * CKPT_STEPS}")
+    del snap, got, want
+    _free()
+
+    params, opt, loss_c, _ = steps(state["params"], state["opt"], CKPT_STEPS,
+                                   f"qwen3-8b resumed at {CKPT_STEPS} x{CKPT_STEPS}", runs)
+    params_c = params
+    del state, params, opt
+    _free()
+    params, opt = fresh()
+    params, opt, loss_b, ms_b = steps(params, opt, 2 * CKPT_STEPS,
+                                      f"qwen3-8b ckpt control x{2 * CKPT_STEPS}", runs)
+    params_b = params
+    del params, opt
+    names = list(_leaf_names(params_a))
+    ctrl_loss = max(abs(x - y) for x, y in zip(loss_b, loss_a))
+    ctrl_rel, i = _leaf_rel(list(_leaves(params_b)), list(_leaves(params_a)))
+    res_loss = max(abs(x - y) for x, y in zip(loss_c, loss_a[CKPT_STEPS:]))
+    res_rel, j = _leaf_rel(list(_leaves(params_c)), list(_leaves(params_a)))
+    log("ckpt", f"losses: uninterrupted {', '.join(f'{x:.6f}' for x in loss_a)}; resumed "
+        f"{', '.join(f'{x:.6f}' for x in loss_c)}; control "
+        f"{', '.join(f'{x:.6f}' for x in loss_b)}")
+    log("ckpt", f"resumed vs uninterrupted after step {2 * CKPT_STEPS}: loss gap "
+        f"{res_loss:.3e}, worst param leaf {names[j]} rel {res_rel:.3e}; control vs "
+        f"uninterrupted: loss gap {ctrl_loss:.3e}, worst param leaf {names[i]} rel "
+        f"{ctrl_rel:.3e} (bounds {CKPT_LOSS_TOL}, {CKPT_PARAM_REL})")
+    check(ctrl_loss <= CKPT_LOSS_TOL and ctrl_rel <= CKPT_PARAM_REL,
+          "two uninterrupted runs disagree beyond the bound")
+    check(res_loss <= CKPT_LOSS_TOL and res_rel <= CKPT_PARAM_REL,
+          "the resumed run disagrees with the uninterrupted one")
+    without = ms_b[CKPT_STEPS:]
+    log("ckpt", f"step ms while the checkpoint wrote {', '.join(f'{x:.1f}' for x in ms_during)}"
+        f", the same steps of the control without a write "
+        f"{', '.join(f'{x:.1f}' for x in without)}, on {card}")
+    print(json.dumps({"ckpt": {
+        "card": card, "arch": f"qwen3-8b, {L} layers", "params": n_params,
+        "bytes_written": written, "save_blocked_ms": blocked_ms, "write_s": write_s,
+        "write_gb_per_s": written / 1e9 / write_s, "restore_s": restore_s,
+        "step_ms_during_write": ms_during, "step_ms_without_write": without,
+        "resumed_loss_gap": res_loss, "resumed_param_rel": res_rel,
+        "control_loss_gap": ctrl_loss, "control_param_rel": ctrl_rel}}), flush=True)
+    del params_a, params_b, params_c
+    _free()
+    return runs
+
+
+def ckpt_driver_phase(counters) -> list[tuple[str, dict, dict]]:
+    """The train driver on the reduced config, as DRIVER_ARGV runs it: 6
+    steps saving every 3 into one directory; 3 steps into another, then
+    --resume to 6 there. The two step-6 checkpoints and the last losses agree
+    to the control's bounds. Returns (label, launches, launches by shape) of
+    the three runs."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as driver
+
+    i = DRIVER_ARGV.index("--steps")
+    argv = DRIVER_ARGV[:i] + DRIVER_ARGV[i + 2:] + ["--checkpoint-every",
+                                                     str(CKPT_DRIVER_EVERY)]
+    per_step = {k: v // 60 for k, v in DRIVER_LAUNCHES.items()}
+    runs, res = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        for label, n, extra in (
+                ("whole", CKPT_DRIVER_STEPS, ["--checkpoint-dir", a]),
+                ("first", CKPT_DRIVER_EVERY, ["--checkpoint-dir", b]),
+                ("resumed", CKPT_DRIVER_STEPS, ["--checkpoint-dir", b, "--resume"])):
+            steps = ["--steps", str(n)]
+            out = io.StringIO()
+            reset_counts(counters)
+            with contextlib.redirect_stdout(out):
+                res[label] = driver.main(argv + steps + extra)
+            counts, shapes = read_counts(counters)
+            ran = res[label]["steps"]
+            log("ckpt", f"driver {label}: {' '.join(argv + steps + extra[:1])} <tmp> "
+                f"{' '.join(extra[2:])}: {ran} steps, last loss {res[label]['last_loss']:.6f}, "
+                f"launches {counts}" + "".join(
+                    f"; {x}" for x in out.getvalue().splitlines() if x.startswith("[ckpt]")))
+            check(counts == {k: ran * v for k, v in per_step.items()},
+                  f"driver {label} launches {counts}")
+            runs.append((f"driver {label} reduced x{ran}", counts, shapes))
+        check("[ckpt] resumed from step 3" in out.getvalue(), "the driver did not resume")
+        check(res["resumed"]["steps"] == CKPT_DRIVER_STEPS - CKPT_DRIVER_EVERY,
+              f"the resumed driver ran {res['resumed']['steps']} steps")
+        want = [CKPT_DRIVER_EVERY, CKPT_DRIVER_STEPS]
+        check(CheckpointManager(a).steps() == CheckpointManager(b).steps() == want,
+              f"driver checkpoints {CheckpointManager(a).steps()}, "
+              f"{CheckpointManager(b).steps()}")
+        arrays = []
+        for d in (a, b):
+            path = os.path.join(d, f"step_{CKPT_DRIVER_STEPS:08d}")
+            with np.load(os.path.join(path, "arrays.npz")) as z:
+                arrays.append({k: z[k] for k in z.files})
+            with open(os.path.join(path, "meta.json")) as f:
+                meta = json.load(f)
+            check(meta["step"] == meta["data_step"] == CKPT_DRIVER_STEPS, f"meta {meta}")
+    got, want = arrays[1], arrays[0]
+    check(sorted(got) == sorted(want), "the two checkpoints' keys")
+    check(int(got["opt/step"]) == int(want["opt/step"]) == CKPT_DRIVER_STEPS, "opt/step")
+    rels = {k: float(np.abs(got[k] - want[k]).max() / max(np.abs(want[k]).max(), 1e-30))
+            for k in want if k != "opt/step"}
+    worst = max(rels, key=rels.get)
+    gap = abs(res["resumed"]["last_loss"] - res["whole"]["last_loss"])
+    log("ckpt", f"driver step {CKPT_DRIVER_STEPS}, resumed vs whole: last loss gap {gap:.3e}, "
+        f"worst of {len(rels)} arrays {worst} rel {rels[worst]:.3e}; "
+        f"{sum(v == 0 for v in rels.values())} arrays equal bit for bit (bounds "
+        f"{CKPT_LOSS_TOL}, {CKPT_PARAM_REL})")
+    check(gap <= CKPT_LOSS_TOL and rels[worst] <= CKPT_PARAM_REL,
+          "the driver's resumed run disagrees with the whole run")
+    return runs
+
+
+def ckpt_phase(dev, counters, card: str) -> list[tuple[str, dict, dict]]:
+    """Phase 7. Returns (label, launches, launches by shape) of its runs."""
+    t0 = time.perf_counter()
+    runs = ckpt_full_width_phase(dev, counters, card)
+    runs += ckpt_driver_phase(counters)
+    log("ckpt", f"done in {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 8: Astra's cost model against the card
 # ---------------------------------------------------------------------------
 
 def astra_driver_phase(counters):
@@ -2057,7 +2338,7 @@ def astra_cost_phase(rows: list[dict], driver_trace, card: str) -> dict:
 
 
 def astra_phase(counters, rows: list[dict], card: str) -> None:
-    """Phase 7."""
+    """Phase 8."""
     t0 = time.perf_counter()
     driver_trace = astra_driver_phase(counters)
     _free()
@@ -2161,6 +2442,7 @@ def main() -> int:
     runs.append(("serve driver qwen3-8b reduced", *serve_driver_phase(counters)))
     train_runs, train_rows = train_phase(dev, counters, smi)
     runs += train_runs
+    runs += ckpt_phase(dev, counters, smi)
     astra_phase(counters, train_rows, smi)
 
     for e in entries:

@@ -7,10 +7,12 @@ Same CLI as the JAX driver, plus ``--device`` (default ``cuda``; ``cpu`` runs
 the kernels' plain versions). ``--auto-strategy`` runs the paper's mode-1
 search for one H100 through the port's copy of the search half and applies
 the winner's microbatching and recompute granularity; ``--emit-traces PATH``
-appends one measured :class:`StepTrace` for a calibration loop. Not ported
-yet, and refused with the ROADMAP item they wait for: ``--checkpoint-dir``,
-``--checkpoint-every`` and ``--resume`` (checkpoints). Each is refused
-whenever it is given, at any value.
+appends one measured :class:`StepTrace` for a calibration loop.
+``--checkpoint-dir DIR`` saves params and AdamW state every
+``--checkpoint-every`` steps (default 25) through the port's
+:class:`CheckpointManager`, in the JAX package's file layout, with the data
+pipeline's cursor; ``--resume`` restores the latest one and goes on from its
+step, drawing the batches an uninterrupted run would draw.
 
 Attention and the norms take the port's default impls, the CUDA kernels. The
 JAX driver trains through ``attn_impl="xla"`` because interpret-mode Pallas
@@ -34,6 +36,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.calibration.fit import AnalyticEtaModel, load_or_train
 from repro_torch.calibration.traces import StepTrace, append_trace
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import PAPER_MODELS, get_arch, get_reduced
 from repro_torch.core import Astra, FixedPool, SearchSpec, Workload
 from repro_torch.core.params import ParallelStrategy
@@ -42,13 +45,6 @@ from repro_torch.models.lm import ModelCfg, init_params
 from repro_torch.serve.search_service import SearchService
 from repro_torch.train.optimizer import adamw_init
 from repro_torch.train.train_step import TrainStepCfg, make_train_step
-
-# flag -> what it waits for
-_NOT_PORTED = {
-    "checkpoint_dir": "checkpoints (ROADMAP Queue 1 item 8)",
-    "checkpoint_every": "checkpoints (ROADMAP Queue 1 item 8)",
-    "resume": "checkpoints (ROADMAP Queue 1 item 8)",
-}
 
 # the one card the driver runs on; sharding is not ported (ROADMAP Queue 1)
 DEVICE = "H100"
@@ -87,7 +83,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--remat", default="none", choices=("none", "selective", "full"))
     ap.add_argument("--auto-strategy", action="store_true")
     ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--checkpoint-every", type=int, default=None)  # JAX's default: 25
+    ap.add_argument("--checkpoint-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--dtype", default="float32")
@@ -98,11 +94,6 @@ def main(argv=None) -> dict:
                          "traces' or CalibrationLoop.ingest")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    for flag, needs in _NOT_PORTED.items():
-        given = getattr(args, flag)
-        if given is not None and given is not False:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet: it needs {needs}")
 
     arch = get_reduced(args.arch) if args.reduced and args.arch not in PAPER_MODELS \
         else get_arch(args.arch)
@@ -131,10 +122,19 @@ def main(argv=None) -> dict:
     corpus = MarkovCorpus(arch.vocab, seed=0)
     pipe = SyntheticPipeline(corpus=corpus, global_batch=args.batch, seq_len=args.seq)
 
+    ckpt = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir else None
+    start_step = 0
+    if ckpt and args.resume and ckpt.latest_step() is not None:
+        state, meta = ckpt.restore({"params": params, "opt": opt})
+        params, opt = state["params"], state["opt"]
+        pipe.load_state_dict({"step": meta["data_step"]})
+        start_step = meta["step"]
+        print(f"[ckpt] resumed from step {start_step}")
+
     losses: list[float] = []
     step_times: list[float] = []
     t0 = time.time()
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
         t_step = time.perf_counter()
         batch = {k: torch.as_tensor(v, device=device).long()
                  for k, v in pipe.next_batch().items()}
@@ -159,6 +159,11 @@ def main(argv=None) -> dict:
             print(f"step {step:5d} loss {loss:.4f} "
                   f"gnorm {float(metrics.get('grad_norm', 0)):.3f} "
                   f"({(time.time() - t0):.1f}s)")
+        if ckpt and (step + 1) % args.checkpoint_every == 0:
+            ckpt.save(step + 1, {"params": params, "opt": opt},
+                      metadata={"data_step": pipe.step, "arch": arch.name})
+    if ckpt:
+        ckpt.wait()
     if args.emit_traces and step_times:
         # attribute the measurement to the searched strategy when there is
         # one; otherwise describe what this run used: one card, no sharding

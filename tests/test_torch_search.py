@@ -20,6 +20,9 @@ import re
 import pytest
 
 pytest.importorskip("torch")
+from torch_threads import pin_threads  # noqa: E402
+
+pin_threads()
 
 import repro.calibration as jcal  # noqa: E402
 import repro.core as jcore  # noqa: E402

@@ -11,6 +11,9 @@ import sys
 import pytest
 
 pytest.importorskip("torch")
+from torch_threads import pin_threads  # noqa: E402
+
+pin_threads()
 
 from repro.calibration.traces import read_traces  # noqa: E402
 from repro.configs import get_reduced as jax_reduced  # noqa: E402

@@ -10,11 +10,16 @@ sequential SSD scan); 1e-6 for one AdamW update, whose arithmetic runs in the
 same order on both sides.
 """
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import pin_threads  # noqa: E402
+
+pin_threads()
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
@@ -25,6 +30,7 @@ from repro.data import SyntheticPipeline as JaxPipeline  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
 from repro.train import train_step as jstep  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.data import MarkovCorpus, SyntheticPipeline  # noqa: E402
 from repro_torch.data.pipeline import MAX_VOCAB  # noqa: E402
@@ -511,12 +517,40 @@ def test_driver_emits_a_trace_the_jax_package_reads(auto, small_eta, tmp_path):
         assert s.micro_batch_size == 8  # 16 rows in 2 microbatches
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--checkpoint-dir", "ck"], "Queue 1 item 8"),
-    (["--checkpoint-every", "25"], "Queue 1 item 8"),
-    (["--checkpoint-every", "0"], "Queue 1 item 8"),
-    (["--resume"], "Queue 1 item 8"),
-])
-def test_driver_refuses_unported_flags(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        driver.main(["--reduced", "--steps", "1", "--device", "cpu"] + flag)
+_CKPT = ["--arch", "qwen3-8b", "--reduced", "--batch", "4", "--seq", "16", "--device", "cpu",
+         "--log-every", "100"]
+
+
+def test_driver_checkpoint_every_defaults_to_25(tmp_path):
+    """25 steps under --checkpoint-dir save once, at 25: any other period
+    would save at another multiple (and keep-3 leaves the last ones)."""
+    res = driver.main(_CKPT + ["--steps", "25", "--checkpoint-dir", str(tmp_path)])
+    assert res["steps"] == 25
+    assert CheckpointManager(str(tmp_path)).steps() == [25]
+
+
+def test_driver_resume_without_a_checkpoint_starts_at_step_0(tmp_path, capsys):
+    res = driver.main(_CKPT + ["--steps", "2", "--checkpoint-dir", str(tmp_path / "ck"),
+                               "--resume", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert res["steps"] == 2 and "[ckpt] resumed" not in out
+    assert out.startswith("step     0 loss")
+    assert CheckpointManager(str(tmp_path / "ck")).steps() == []  # 2 steps < 25
+
+
+def test_driver_keeps_the_last_3_checkpoints(tmp_path):
+    driver.main(_CKPT + ["--steps", "4", "--checkpoint-every", "1",
+                         "--checkpoint-dir", str(tmp_path)])
+    assert CheckpointManager(str(tmp_path)).steps() == [2, 3, 4]
+    assert sorted(os.listdir(tmp_path)) == ["step_00000002", "step_00000003", "step_00000004"]
+
+
+def test_driver_checkpoint_meta_holds_the_data_cursor_and_arch(tmp_path):
+    driver.main(_CKPT + ["--steps", "4", "--checkpoint-every", "2",
+                         "--checkpoint-dir", str(tmp_path)])
+    for step in (2, 4):
+        with open(tmp_path / f"step_{step:08d}" / "meta.json") as f:
+            meta = json.load(f)
+        assert meta["step"] == meta["data_step"] == step
+        assert meta["arch"] == "qwen3-8b-reduced"
+        assert "opt/step" in meta["keys"] and "params/embed" in meta["keys"]

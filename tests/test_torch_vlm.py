@@ -15,6 +15,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import pin_threads  # noqa: E402
+
+pin_threads()
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
