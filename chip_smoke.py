@@ -80,7 +80,20 @@ Phases, each reported on its own lines; any failure exits non-zero:
                under the analytic and the GBT eta model: predicted, measured
                and accuracy in an {"astra": ...} JSON line (a measurement:
                no check holds it to a bound);
-  9. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-7, with
+  9. shard   - sharding on the card, on a one-rank NCCL group: qwen3-8b at full
+               width and 2 of its 36 layers at phase 6's B, S, eight
+               make_train_step steps with params, AdamW state and batch as
+               DTensors on a (1, 1) ("data", "model") mesh with FSDP (K1 and
+               K2 on each rank's shards) against the same eight steps on
+               plain tensors: the losses and every leaf, the launches, the
+               first step's ms and the median and range of the other seven,
+               and the peak memory of each run, in a {"shard": ...} JSON
+               line;
+               pipeline_apply at one stage against the sequential stack; a
+               save at (1, 1) restored through restore(shardings=) with
+               placements; the train driver under torchrun --nproc-per-node 1
+               against the same driver alone. No collective across cards;
+ 10. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-9, with
                the launches its wrapper counted there at that shape, beside
                F.rms_norm at the same shape and the launch floor (a one-block
                elementwise op), at D = 128 also on k head views; then the
@@ -503,7 +516,7 @@ def rmsnorm_phase(dev) -> dict:
 
 
 def rmsnorm_shape_times(dev, shapes: collections.Counter) -> list[dict]:
-    """RMSNorm (bf16) at each (rows, D) of the main paths (phases 4-7), with the launches
+    """RMSNorm (bf16) at each (rows, D) of the main paths (phases 4-9), with the launches
     its wrapper counted there at that shape, beside F.rms_norm and the launch
     floor (the device time of a one-block elementwise op on 8 bf16 values),
     each timed here. At D = 128 (the q/k norms) also on the same rows read in
@@ -2346,6 +2359,271 @@ def astra_phase(counters, rows: list[dict], card: str) -> None:
     log("astra", f"done in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: sharding on one card
+# ---------------------------------------------------------------------------
+
+# qwen3-8b at full width, cut to 2 of its 36 layers, at phase 6's B, S, with
+# bf16 compute and f32 AdamW state, as phase 7 runs it: the plain-tensor run's
+# final state (19.6 GB) stays on the card while the DTensor run takes its own.
+SHARD_LAYERS = 2
+# the first step pays DTensor's sharding propagation; the median and range of
+# the seven after it give a step's cost of DTensor's host dispatch
+SHARD_STEPS = 8
+# The DTensor run against the plain-tensor run on one rank: DTensor's
+# propagation runs the same aten ops on the same whole tensors, and the
+# kernels take the same inputs, so the two should agree bit for bit. The
+# bound is phase 6's f32 kernel-parity bound (TRAIN_F32_REL), over the loss
+# and each leaf of params, mu and nu (max |diff| over the leaf's max |value|);
+# the reading itself is logged.
+SHARD_REL = TRAIN_F32_REL
+# the one-stage pipeline: tests/test_distributed.py's GPipe case (L=8, d=32, 6
+# microbatches of 3); one stage runs the same layers in the same order as the
+# sequential stack, with the rotation a copy
+PIPE_L, PIPE_D, PIPE_K, PIPE_MBS = 8, 32, 6, 3
+TORCHRUN_TIMEOUT_S = 300
+# the train driver as DRIVER_ARGV runs it, but 20 steps: under torchrun each
+# step also pays DTensor's dispatch on the host
+SHARD_DRIVER_STEPS = 20
+
+
+def _one_rank_group(dev):
+    """A one-rank NCCL process group on the card (a HashStore, no address)
+    and a (1, 1) ("data", "model") mesh on it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    return make_mesh((1, 1), ("data", "model"), "cuda")
+
+
+def shard_steps_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, dict]]:
+    """SHARD_STEPS make_train_step steps of qwen3-8b (full width,
+    SHARD_LAYERS layers) with params, AdamW state and batch as DTensors on the
+    (1, 1) mesh with FSDP, against the same steps on plain tensors from the
+    same params: the losses and every leaf, K1 and K2 launches of each run,
+    the wall ms of each step and the peak memory. Returns (label, launches,
+    launches by shape) of both runs."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import batch_spec, distribute, make_plan, named, param_specs
+    from repro_torch.train import TrainStepCfg, adamw_init, make_train_step
+
+    arch = dataclasses.replace(get_arch("qwen3-8b"), num_layers=SHARD_LAYERS)
+    B, S = TRAIN_BS
+    L = arch.num_layers
+    plan = make_plan(mesh, fsdp=True)
+    step_fn = make_train_step(arch, lm.ModelCfg(dtype=torch.bfloat16),
+                              TrainStepCfg(warmup_steps=2, total_steps=10,
+                                           batch_axes=plan.batch_axes))
+    per_step = {"rmsnorm_fwd": 4 * L + 1, "flash_attention_fwd": L, "ssd_scan_fwd": 0}
+    runs, rows = [], {}
+
+    def run(label, sharded, kept_bytes):
+        _free()
+        params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                                torch.float32, dev)
+        if sharded:
+            params = distribute(params, named(plan, param_specs(arch, plan, params)))
+        opt = adamw_init(params)
+        losses, ms = [], []
+        reset_counts(counters)
+        for i in range(SHARD_STEPS):
+            g = torch.Generator(device=dev).manual_seed(200 + i)
+            batch = {"tokens": torch.randint(0, arch.vocab, (B, S), device=dev, generator=g)}
+            if sharded:
+                batch = distribute(batch, named(plan, batch_spec(plan, batch)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts, shapes = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated() - kept_bytes
+        check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss {losses}")
+        check(counts == {k: SHARD_STEPS * v for k, v in per_step.items()},
+              f"{label}: launches {counts}, {SHARD_STEPS} x {per_step} expected")
+        if sharded:
+            check(all(isinstance(t, DTensor) for t in _leaves(params))
+                  and all(isinstance(t, DTensor) for t in _leaves(opt.mu)),
+                  f"{label}: a leaf of the state is no DTensor")
+        runs.append((label, counts, shapes))
+        rows[label] = {"losses": losses, "step_ms": ms, "peak_gb": peak / 1e9,
+                       "launches": counts}
+        log("shard", f"{label}: losses {', '.join(f'{x:.6f}' for x in losses)}; step ms "
+            f"{', '.join(f'{x:.1f}' for x in ms)}; peak {peak / 1e9:.2f} GB above what the "
+            f"other run kept; launches {counts}")
+        trees = {"params": params, "mu": opt.mu, "nu": opt.nu}
+        state = [t.to_local() if sharded else t for tree in trees.values() for t in _leaves(tree)]
+        names = [f"{k}.{n}" for k, tree in trees.items() for n in _leaf_names(tree)]
+        return state, losses, names
+
+    plain_label = f"qwen3-8b shard plain x{SHARD_STEPS}"
+    dt_label = f"qwen3-8b shard DTensor (1,1) x{SHARD_STEPS}"
+    want, want_loss, names = run(plain_label, False, 0)
+    kept = sum(t.numel() * t.element_size() for t in want)
+    got, got_loss, _ = run(dt_label, True, kept)
+    rels = _leaf_rels(got, want)
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    equal = sum(torch.equal(a, b) for a, b in zip(got, want))
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(got_loss, want_loss))
+    log("shard", f"DTensor vs plain after {SHARD_STEPS} steps: loss rel gap {loss_gap:.3e}; "
+        f"{equal} of {len(want)} leaves (params, mu, nu) equal bit for bit, worst leaf "
+        f"{names[worst]} rel {rels[worst]:.3e} (bound {SHARD_REL})")
+    check(loss_gap <= SHARD_REL and rels[worst] <= SHARD_REL,
+          "the DTensor step disagrees with the plain-tensor step")
+    del got, want
+    _free()
+    plain, dt = rows[plain_label], rows[dt_label]
+    warm = {k: sorted(r["step_ms"][1:]) for k, r in (("plain", plain), ("dtensor", dt))}
+    med = {k: statistics.median(v) for k, v in warm.items()}
+    log("shard", f"steps 2-{SHARD_STEPS}: plain median {med['plain']:.1f} ms "
+        f"({warm['plain'][0]:.1f}-{warm['plain'][-1]:.1f}), DTensor median "
+        f"{med['dtensor']:.1f} ms ({warm['dtensor'][0]:.1f}-{warm['dtensor'][-1]:.1f}), "
+        f"ratio of the medians {med['dtensor'] / med['plain']:.4f}")
+    print(json.dumps({"shard": {
+        "card": card, "arch": f"qwen3-8b, {L} layers", "batch": B, "seq": S, "mesh": [1, 1],
+        "plain_step_ms": plain["step_ms"], "dtensor_step_ms": dt["step_ms"],
+        "plain_warm_median_ms": med["plain"], "dtensor_warm_median_ms": med["dtensor"],
+        "plain_peak_gb": plain["peak_gb"], "dtensor_peak_gb": dt["peak_gb"],
+        "loss_rel_gap": loss_gap, "worst_leaf": names[worst], "worst_leaf_rel": rels[worst],
+        "leaves_equal": equal, "leaves": len(rels),
+        "dtensor_launches": dt["launches"]}}), flush=True)
+    return runs
+
+
+def shard_pipeline_phase(dev) -> None:
+    """pipeline_apply on a one-stage "stage" mesh of the NCCL group against
+    the sequential stack, forward and the grad of sum(y ** 2)."""
+    import torch.nn.functional as F
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply, stack_for_stages
+
+    mesh = make_mesh((1,), ("stage",), "cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    w = (torch.randn(PIPE_L, PIPE_D, PIPE_D, device=dev, generator=g) * 0.1).requires_grad_()
+    x = torch.randn(PIPE_K, PIPE_MBS, PIPE_D, device=dev, generator=g)
+
+    def apply_stage(stage_w, h):
+        for wl in stage_w:
+            h = h + F.silu(h @ wl)
+        return h
+
+    y = pipeline_apply(mesh, apply_stage, stack_for_stages(w, 1), x)
+    (gp,) = torch.autograd.grad((y ** 2).sum(), w)
+    ref = apply_stage(w, x.reshape(-1, PIPE_D)).reshape(x.shape)
+    (gr,) = torch.autograd.grad((ref ** 2).sum(), w)
+    fwd = float((y - ref).detach().abs().max())
+    grad = float((gp - gr).abs().max() / gr.abs().max())
+    log("shard", f"pipeline_apply, one stage on {dev}: L={PIPE_L} d={PIPE_D} K={PIPE_K} "
+        f"mbs={PIPE_MBS}: forward max |diff| {fwd:.3e}, grad rel {grad:.3e} against the "
+        f"sequential stack (bound 1e-5, tests/test_distributed.py's)")
+    check(fwd <= 1e-5 and grad <= 1e-5, "the one-stage pipeline disagrees with the stack")
+
+
+def shard_restore_phase(dev, mesh) -> None:
+    """Reduced qwen3-8b params as DTensors on the (1, 1) mesh, saved, and
+    restored through restore(shardings=) with placements: each leaf a
+    DTensor in its placements, equal to the saved one bit for bit."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import distribute, make_plan, named, param_specs
+
+    arch = get_reduced("qwen3-8b")
+    plan = make_plan(mesh, fsdp=True)
+    params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(5), torch.float32, dev)
+    sh = named(plan, param_specs(arch, plan, params))
+    placed = distribute(params, sh)
+    template = lm.init_params(arch, torch.Generator(device=dev).manual_seed(6), torch.float32,
+                              dev)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save(1, {"params": placed}, blocking=True)
+        state, _ = mgr.restore({"params": template}, shardings={"params": sh})
+    got, want = list(_leaves(state["params"])), list(_leaves(placed))
+    same = [isinstance(a, DTensor) and a.placements == b.placements
+            and torch.equal(a.to_local(), b.to_local()) for a, b in zip(got, want)]
+    log("shard", f"save at (1, 1) and restore(shardings=) with placements: {sum(same)} of "
+        f"{len(same)} leaves DTensors in their placements, equal bit for bit")
+    check(all(same), "the restore with placements differs from the saved state")
+
+
+def shard_driver_phase(counters) -> list[tuple[str, dict, dict]]:
+    """The train driver as DRIVER_ARGV runs it, for SHARD_DRIVER_STEPS steps,
+    under torchrun on one card (a one-rank NCCL group, a (1, 1) mesh, FSDP)
+    and in this process; the losses of the two agree to SHARD_REL. Returns
+    the in-process run's (label, launches, launches by shape)."""
+    from repro_torch.launch import train as driver
+
+    i = DRIVER_ARGV.index("--steps")
+    argv = (DRIVER_ARGV[:i] + ["--steps", str(SHARD_DRIVER_STEPS)] + DRIVER_ARGV[i + 2:]
+            + ["--log-every", "1"])
+    root = pathlib.Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", "repro_torch.launch.train", *argv]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=root,
+                         timeout=TORCHRUN_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stderr[-4000:], file=sys.stderr)
+    check(res.returncode == 0, f"torchrun exited {res.returncode}")
+    out = res.stdout.splitlines()
+    result = [json.loads(x) for x in out if x.startswith('{"first_loss"')]
+    check(len(result) == 1, f"{len(result)} result lines from torchrun, 1 expected")
+    ranked = [float(x.split()[3]) for x in out if x.startswith("step ")]
+
+    buf = io.StringIO()
+    reset_counts(counters)
+    with contextlib.redirect_stdout(buf):
+        alone = driver.main(argv)
+    counts, shapes = read_counts(counters)
+    # each printed step loss against the one of the run alone, to its 4 decimals
+    gap = max(abs(a - b) for a, b in zip(ranked, alone["losses"]))
+    log("shard", f"torchrun --standalone --nproc-per-node 1 -m repro_torch.launch.train "
+        f"{' '.join(argv)}: {seconds:.1f} s (process start, NCCL and the kernels' "
+        f"load included), loss {result[0]['first_loss']:.6f} -> {result[0]['last_loss']:.6f}; "
+        f"without torchrun {alone['first_loss']:.6f} -> {alone['last_loss']:.6f}; largest "
+        f"step loss gap {gap:.3e} over {len(ranked)} steps (printed to 4 decimals); launches "
+        f"without torchrun {counts}")
+    last_gap = abs(result[0]["last_loss"] - alone["last_loss"]) / abs(alone["last_loss"])
+    check(len(ranked) == len(alone["losses"]) and last_gap <= SHARD_REL
+          and abs(result[0]["first_loss"] - alone["first_loss"]) <= SHARD_REL * alone["first_loss"]
+          and gap <= 1e-4, "the driver under torchrun disagrees with the driver alone")
+    check(counts == {k: v // 60 * SHARD_DRIVER_STEPS for k, v in DRIVER_LAUNCHES.items()},
+          "driver launches")
+    return [(f"driver reduced alone (beside torchrun) x{SHARD_DRIVER_STEPS}", counts, shapes)]
+
+
+def shard_phase(dev, counters, card: str) -> list[tuple[str, dict, dict]]:
+    """Phase 9. Returns (label, launches, launches by shape) of its runs."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    mesh = _one_rank_group(dev)
+    try:
+        runs = shard_steps_phase(dev, mesh, counters, card)
+        shard_pipeline_phase(dev)
+        shard_restore_phase(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    _free()
+    runs += shard_driver_phase(counters)
+    log("shard", f"done in {time.perf_counter() - t0:.1f} s; no collective across cards was "
+        f"run: one card, one rank")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2444,6 +2722,7 @@ def main() -> int:
     runs += train_runs
     runs += ckpt_phase(dev, counters, smi)
     astra_phase(counters, train_rows, smi)
+    runs += shard_phase(dev, counters, smi)
 
     for e in entries:
         e["launches"] = sum(counts[e["name"]] for _, counts, _ in runs)

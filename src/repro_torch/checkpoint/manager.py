@@ -1,5 +1,5 @@
 """Checkpoint manager: the counterpart of ``repro/checkpoint/manager.py``, for
-torch state on one card.
+torch state on one card or sharded over a mesh (DTensors).
 
 The same behaviour and the same files as the JAX manager, so a checkpoint
 written by either package restores in the other:
@@ -15,6 +15,13 @@ written by either package restores in the other:
   its ``_flatten`` path (``params/...``, ``opt/mu/...``, ``opt/nu/...``,
   ``opt/step``); ``meta.json`` holds ``step``, ``keys`` and the caller's
   metadata (the data pipeline's cursor rides there).
+* **sharded**: ``save()`` gathers each DTensor leaf whole (a collective: every
+  rank calls ``save()``), and only rank 0 of the default process group
+  copies it to the host and writes; the others drop what they gathered and
+  do not wait for the write. ``restore()`` places each
+  leaf on a ``(DeviceMesh, placements)`` where ``shardings`` or a DTensor
+  template leaf gives one, as ``jax.device_put`` onto a NamedSharding does,
+  so a run can resume on a mesh of another shape.
 
 Where the two layouts differ, this copy bridges them:
 
@@ -41,6 +48,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
+
+from repro_torch.parallel.sharding import distribute
 
 # the .npy descr of the JAX package's bf16 leaves (ml_dtypes' bfloat16.str)
 BF16_DESCR = "<V2"
@@ -48,9 +60,16 @@ BF16_DESCR = "<V2"
 _CHUNK = 16 * 2 ** 20
 
 
+def _is_placement(x) -> bool:
+    """A ``(DeviceMesh, placements)`` pair: one leaf of ``shardings``."""
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], DeviceMesh)
+
+
 def _flatten(tree, prefix=""):
     out = {}
-    if isinstance(tree, dict):
+    if _is_placement(tree):
+        out[prefix[:-1]] = tree
+    elif isinstance(tree, dict):
         for k, v in tree.items():
             out.update(_flatten(v, f"{prefix}{k}/"))
     elif isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
@@ -83,7 +102,9 @@ def _unflatten_into(template, flat, prefix=""):
 
 def _to_host(leaf) -> np.ndarray:
     """A numpy copy of one leaf that owns its memory: a bf16 tensor as ``V2``
-    raw values, a Python int as int32 0-dim."""
+    raw values, a Python int as int32 0-dim; a DTensor gathered whole."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True, memory_format=torch.contiguous_format)
         if t.dtype == torch.bfloat16:
@@ -114,9 +135,11 @@ def _write_npz(path: str, arrays: dict) -> None:
                     fid.write(data[i:i + _CHUNK])
 
 
-def _to_leaf(arr: np.ndarray, like, device) -> Any:
+def _to_leaf(arr: np.ndarray, like, place) -> Any:
     """One array of the file as the template leaf ``like``: a tensor of its
-    dtype on ``device`` (raw 2-byte values into bf16 by a view), or an int."""
+    dtype (raw 2-byte values into bf16 by a view) on ``place``, a device or a
+    ``(DeviceMesh, placements)`` (then a DTensor of this rank's shard), or an
+    int."""
     if isinstance(like, torch.Tensor):
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"checkpoint shape {arr.shape} != template {tuple(like.shape)}")
@@ -125,20 +148,30 @@ def _to_leaf(arr: np.ndarray, like, device) -> Any:
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        return t.to(device=device, dtype=like.dtype)
+        if _is_placement(place):
+            return distribute(t.to(dtype=like.dtype), place)
+        return t.to(device=place, dtype=like.dtype)
     if isinstance(like, int) and not isinstance(like, bool):
         return int(arr)
     return arr
 
 
-def _device_of(key: str, flat_sh: dict, default):
-    """The device that the longest prefix of ``key`` in ``flat_sh`` names."""
+def _place_of(key: str, flat_sh: dict, default):
+    """The place (a device, or a ``(DeviceMesh, placements)``) that the
+    longest prefix of ``key`` in ``flat_sh`` names."""
     best = None
     for p in flat_sh:
         if (p == "" or key == p or key.startswith(p + "/")) and (
                 best is None or len(p) > len(best)):
             best = p
-    return default if best is None else torch.device(flat_sh[best])
+    if best is None:
+        return default
+    place = flat_sh[best]
+    return place if _is_placement(place) else torch.device(place)
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 class CheckpointManager:
@@ -153,9 +186,16 @@ class CheckpointManager:
     def save(self, step: int, state: dict, *, metadata: Optional[dict] = None,
              blocking: bool = False) -> None:
         """Copy every leaf to host memory now, write in the background
-        (unless blocking=True)."""
+        (unless blocking=True). Sharded, every rank calls it (the gather of a
+        DTensor leaf is a collective) and rank 0 alone copies to the host and
+        writes: another rank drops each gathered leaf at once."""
         self.wait()  # at most one in-flight write
         flat = _flatten(state)
+        if _rank() != 0:
+            for v in flat.values():
+                if isinstance(v, DTensor):
+                    v.full_tensor()
+            return
         snapshot = {k: _to_host(v) for k, v in flat.items()}
         meta = dict(metadata or {})
         meta["step"] = step
@@ -215,11 +255,13 @@ class CheckpointManager:
         shardings: Any = None,
     ) -> tuple[Any, dict]:
         """Returns (state, metadata), state in ``template``'s structure: each
-        leaf a new tensor of the template leaf's dtype and device (an int
-        where the template holds an int). ``shardings`` (optional) is a
-        pytree of devices matching ``template`` or a prefix of it, e.g.
-        ``{"params": torch.device("cuda")}``; a leaf under one of its paths
-        goes to that device instead."""
+        leaf a new tensor of the template leaf's dtype and device, or its mesh
+        and placements where it is a DTensor (an int where the template holds
+        an int). ``shardings`` (optional) is a pytree matching ``template`` or
+        a prefix of it whose leaves are devices or ``(DeviceMesh,
+        placements)`` pairs (``sharding.named``'s output), e.g. ``{"params":
+        torch.device("cuda")}``; a leaf under one of its paths goes there
+        instead."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -231,8 +273,11 @@ class CheckpointManager:
         with np.load(os.path.join(path, "arrays.npz")) as z:
             # leaf by leaf, so host memory holds one leaf's array at a time
             for k, like in _flatten(template).items():
-                device = like.device if isinstance(like, torch.Tensor) else None
-                flat[k] = _to_leaf(z[k], like, _device_of(k, flat_sh, device))
+                if isinstance(like, DTensor):
+                    place = (like.device_mesh, like.placements)
+                else:
+                    place = like.device if isinstance(like, torch.Tensor) else None
+                flat[k] = _to_leaf(z[k], like, _place_of(k, flat_sh, place))
         return _unflatten_into(template, flat), meta
 
     # ------------------------------------------------------------------

@@ -6,7 +6,8 @@ modality tokens arrive pre-embedded like every frontend stub).
 In the port for its reduced config, the only one with a shared expert (the
 CPU tests hold ``moe.shared_wi`` / ``moe.shared_wo`` against the JAX package
 with it). The full config, 107.8e9 parameters (216 GB in bf16), does not fit
-one 80 GB card: it waits for sharding (ROADMAP Queue 1 item 9)."""
+one 80 GB card: its params need at least three cards, and the port does not
+shard the moe family yet (ROADMAP)."""
 from repro_torch.core.arch import ModelArch
 
 ARCH = ModelArch(

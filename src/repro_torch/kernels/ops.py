@@ -16,18 +16,31 @@ The kernel path is a ``torch.autograd.Function``. Its backward is the JAX
 package's: the VJP of the plain version, recomputed from the saved inputs
 (``repro/kernels/ops.py`` ``_fa_bwd``, ``_rn_bwd``, ``_ssd_bwd``). The JAX
 package has no backward kernel, so neither has the port.
+
+A DTensor operand (a sharded model, ``repro_torch.parallel``) reaches
+``flash_attention`` and ``fused_rmsnorm`` through ``sharding.local_apply``,
+the counterpart of ``shard_map``: its input is first laid out as the op needs it,
+then the chosen ``impl`` runs on each rank's local shard, the kernel on a card.
+RMSNorm takes rows sharded any way and the normalised last dim whole;
+attention takes B over the batch axes ("pod", "data") and heads over "model",
+with k/v kept whole over "model" when their heads do not split (GQA with
+``kv_heads < tp``). The SSD scan takes no DTensor: the ssm and hybrid
+families are not sharded in the port.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch.kernels.ssd import ssd_scan_fwd
 from repro_torch.kernels.xla_flash import flash_xla_train
+from repro_torch.parallel.sharding import BATCH_AXES, MODEL_AXIS, local_apply
 
 IMPLS = ("cuda", "torch", "xla")
 
@@ -95,6 +108,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     sm_scale: Optional[float] = None, impl: str = "cuda"):
     """GQA flash attention. q ``(B, Hq, S, D)``, k/v ``(B, Hkv, T, D)``."""
     _check_impl(impl)
+    if isinstance(q, DTensor):
+        return _sharded_attention(q, k, v, causal, sm_scale, impl)
+    return _attention(q, k, v, causal, sm_scale, impl)
+
+
+def _attention(q, k, v, causal, sm_scale, impl):
     if impl == "cuda":
         return _FlashAttention.apply(q, k, v, causal, sm_scale)
     if impl == "xla":
@@ -102,11 +121,77 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale)
 
 
+def _kv_heads_of(k, v, first: int, n: int, group: int):
+    """k/v reduced to the kv heads that q heads ``first .. first + n - 1``
+    read (q head h reads kv head h // group), as a view where those q heads
+    cover whole groups or lie in one, else one kv head per q head."""
+    lo, hi = first // group, (first + n - 1) // group + 1
+    if (first % group == 0 and n % group == 0) or hi - lo == 1:
+        return k[:, lo:hi], v[:, lo:hi]
+    idx = torch.arange(first, first + n, device=k.device) // group
+    return k.index_select(1, idx), v.index_select(1, idx)
+
+
+def _sharded_attention(q, k, v, causal, sm_scale, impl):
+    """Attention on DTensors: each rank runs ``impl`` on its batch rows and
+    q heads. Where the kv heads do not split over "model" (Hkv % tp != 0),
+    k/v stay whole there and each rank reads only the kv heads of its q
+    heads; their grads are then partial sums over "model"."""
+    mesh = q.device_mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    B, Hq, Hkv = q.shape[0], q.shape[1], k.shape[1]
+    batch = [a for a in BATCH_AXES if a in sizes]
+    split_b = bool(batch) and B % math.prod(sizes[a] for a in batch) == 0
+    tp = sizes.get(MODEL_AXIS, 1)
+    split_q = tp > 1 and Hq % tp == 0
+    split_kv = split_q and Hkv % tp == 0
+    pq, pkv, gkv = [], [], []  # q's (and out's), k/v's, and k/v's grads'
+    for name in mesh.mesh_dim_names:
+        if name in batch and split_b:
+            places = (Shard(0), Shard(0), Shard(0))
+        elif name == MODEL_AXIS and split_kv:
+            places = (Shard(1), Shard(1), Shard(1))
+        elif name == MODEL_AXIS and split_q:
+            places = (Shard(1), Replicate(), Partial())
+        else:
+            places = (Replicate(), Replicate(), Replicate())
+        for out, place in zip((pq, pkv, gkv), places):
+            out.append(place)
+    n_local = Hq // tp if split_q else Hq
+    first = mesh.get_local_rank(MODEL_AXIS) * n_local if split_q else 0
+
+    def local(q, k, v):
+        if split_q and not split_kv:
+            k, v = _kv_heads_of(k, v, first, n_local, Hq // Hkv)
+        return _attention(q, k, v, causal, sm_scale, impl)
+
+    return local_apply(local, (q, k, v), (pq, pkv, pkv), pq, (pq, gkv, gkv))
+
+
 def fused_rmsnorm(x, weight, *, eps: float = 1e-6, impl: str = "cuda"):
     _check_impl(impl)
+    if isinstance(x, DTensor):
+        return _sharded_rmsnorm(x, weight, eps, impl)
+    return _rmsnorm(x, weight, eps, impl)
+
+
+def _rmsnorm(x, weight, eps, impl):
     if impl == "cuda":
         return _RMSNorm.apply(x, weight, eps)
     return ref.rmsnorm(x, weight, eps=eps)
+
+
+def _sharded_rmsnorm(x, weight, eps, impl):
+    """RMSNorm on DTensors: x keeps any sharding of its rows and is whole
+    over the normalised last dim; the weight is whole everywhere, its grad a
+    partial sum over the mesh dims that split the rows."""
+    mesh = x.device_mesh
+    px = tuple(p if isinstance(p, Shard) and p.dim < x.dim() - 1 else Replicate()
+               for p in x.placements)
+    pw = (Replicate(),) * mesh.ndim
+    gw = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in px)
+    return local_apply(lambda x, w: _rmsnorm(x, w, eps, impl), (x, weight), (px, pw), px,
+                       (px, gw))
 
 
 def _zeros_d(x, D):
@@ -118,6 +203,9 @@ def ssd(x, dt, A, Bm, C, D=None, *, impl: str = "cuda"):
     x ``(B, S, H, P)``, dt ``(B, S, H)``, A ``(H,)``, Bm/C ``(B, S, N)``;
     D None means f32 zeros."""
     _check_impl(impl)
+    if isinstance(x, DTensor):
+        raise NotImplementedError("the SSD scan takes no DTensor: the ssm and hybrid "
+                                  "families are not sharded in the port")
     D = _zeros_d(x, D)
     if impl == "cuda":
         return _SSD.apply(x, dt, A, Bm, C, D)

@@ -1,13 +1,22 @@
-"""Training driver: the counterpart of ``repro/launch/train.py``, on one card.
+"""Training driver: the counterpart of ``repro/launch/train.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b --reduced \\
         --steps 60 --batch 16 --seq 64
+    PYTHONPATH=src torchrun --standalone --nproc-per-node N \\
+        -m repro_torch.launch.train --arch qwen3-8b --reduced ...
 
 Same CLI as the JAX driver, plus ``--device`` (default ``cuda``; ``cpu`` runs
-the kernels' plain versions). ``--auto-strategy`` runs the paper's mode-1
-search for one H100 through the port's copy of the search half and applies
-the winner's microbatching and recompute granularity; ``--emit-traces PATH``
-appends one measured :class:`StepTrace` for a calibration loop.
+the kernels' plain versions). Started by ``torchrun`` (``WORLD_SIZE`` set), it
+trains as the JAX driver does on its devices: a ``(world, 1)`` data x model
+mesh with FSDP, params and AdamW state placed by ``param_specs`` and each
+batch by ``batch_spec`` (every rank draws the same global batch from the
+seed); the process group is ``nccl`` on cards, each rank on
+``cuda:LOCAL_RANK`` and never two on one card, ``gloo`` with ``--device cpu``.
+Rank 0 alone prints and writes traces and checkpoints. ``--auto-strategy``
+runs the paper's mode-1 search for the world's H100s through the port's copy
+of the search half and applies the winner's microbatching and recompute
+granularity; ``--emit-traces PATH`` appends one measured :class:`StepTrace`
+for a calibration loop.
 ``--checkpoint-dir DIR`` saves params and AdamW state every
 ``--checkpoint-every`` steps (default 25) through the port's
 :class:`CheckpointManager`, in the JAX package's file layout, with the data
@@ -29,9 +38,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.calibration.fit import AnalyticEtaModel, load_or_train
@@ -41,13 +52,14 @@ from repro_torch.configs import PAPER_MODELS, get_arch, get_reduced
 from repro_torch.core import Astra, FixedPool, SearchSpec, Workload
 from repro_torch.core.params import ParallelStrategy
 from repro_torch.data import MarkovCorpus, SyntheticPipeline
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.lm import ModelCfg, init_params
+from repro_torch.parallel.sharding import batch_spec, distribute, make_plan, named, param_specs
 from repro_torch.serve.search_service import SearchService
 from repro_torch.train.optimizer import adamw_init
 from repro_torch.train.train_step import TrainStepCfg, make_train_step
 
-# the one card the driver runs on; sharding is not ported (ROADMAP Queue 1)
-DEVICE = "H100"
+DEVICE = "H100"  # the card each rank runs on
 
 
 def pick_strategy(arch, num_devices: int, global_batch: int, seq: int):
@@ -97,27 +109,50 @@ def main(argv=None) -> dict:
 
     arch = get_reduced(args.arch) if args.reduced and args.arch not in PAPER_MODELS \
         else get_arch(args.arch)
+    # started by torchrun (or with its environment set by hand)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
 
     remat, micro = args.remat, args.microbatches
     searched = None  # the auto-strategy winner, reused for trace attribution
     if args.auto_strategy:  # before the first CUDA call (see pick_strategy)
-        s = searched = pick_strategy(arch, 1, args.batch, args.seq)
+        s = searched = pick_strategy(arch, world, args.batch, args.seq)
         if s is not None:
             remat = s.recompute_granularity
             # num_microbatches is per-DP-rank (GB / (dp * mbs)); the train
             # step splits the *global* batch K ways, so K is exactly it
             micro = max(s.num_microbatches(args.batch), 1)
-            print(f"[astra] strategy: tp={s.tensor_parallel} pp={s.pipeline_parallel} "
-                  f"dp={s.data_parallel} mbs={s.micro_batch_size} remat={remat} "
-                  f"dist_opt={s.use_distributed_optimizer}")
     device = resolve_device(args.device)
+    plan, owns_group = None, False
+    if "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":
+            local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+            cards = torch.cuda.device_count()
+            per_host = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+            if per_host > cards:
+                raise RuntimeError(f"{per_host} ranks on a machine with {cards} card(s): "
+                                   f"each rank takes a card of its own")
+            torch.cuda.set_device(local_rank)
+            device = torch.device("cuda", local_rank)
+        owns_group = not dist.is_initialized()
+        plan = make_plan(make_mesh((world, 1), ("data", "model"), device.type), fsdp=True)
+    rank0 = plan is None or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    if searched is not None:
+        s = searched
+        say(f"[astra] strategy: tp={s.tensor_parallel} pp={s.pipeline_parallel} "
+            f"dp={s.data_parallel} mbs={s.micro_batch_size} remat={remat} "
+            f"dist_opt={s.use_distributed_optimizer}")
 
     cfg = ModelCfg(dtype=getattr(torch, args.dtype), remat=remat)
     step_cfg = TrainStepCfg(num_microbatches=micro, base_lr=args.lr,
-                            warmup_steps=10, total_steps=args.steps)
+                            warmup_steps=10, total_steps=args.steps,
+                            batch_axes=plan.batch_axes if plan else ())
     train_step = make_train_step(arch, cfg, step_cfg)
 
+    # every rank draws the same params from the seed and keeps its shards
     params = init_params(arch, torch.Generator(device).manual_seed(0), torch.float32, device)
+    if plan is not None:
+        params = distribute(params, named(plan, param_specs(arch, plan, params)))
     opt = adamw_init(params)
     corpus = MarkovCorpus(arch.vocab, seed=0)
     pipe = SyntheticPipeline(corpus=corpus, global_batch=args.batch, seq_len=args.seq)
@@ -129,7 +164,7 @@ def main(argv=None) -> dict:
         params, opt = state["params"], state["opt"]
         pipe.load_state_dict({"step": meta["data_step"]})
         start_step = meta["step"]
-        print(f"[ckpt] resumed from step {start_step}")
+        say(f"[ckpt] resumed from step {start_step}")
 
     losses: list[float] = []
     step_times: list[float] = []
@@ -149,6 +184,8 @@ def main(argv=None) -> dict:
             batch[stub[0]] = torch.randn(
                 (args.batch, stub[1], arch.hidden), dtype=cfg.dtype, device=device,
                 generator=torch.Generator(device).manual_seed(step))
+        if plan is not None:
+            batch = distribute(batch, named(plan, batch_spec(plan, batch)))
         params, opt, metrics = train_step(params, opt, batch)
         loss = float(metrics["loss"])  # waits for the step's loss
         if device.type == "cuda":
@@ -156,19 +193,21 @@ def main(argv=None) -> dict:
         step_times.append(time.perf_counter() - t_step)
         losses.append(loss)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {loss:.4f} "
-                  f"gnorm {float(metrics.get('grad_norm', 0)):.3f} "
-                  f"({(time.time() - t0):.1f}s)")
+            say(f"step {step:5d} loss {loss:.4f} "
+                f"gnorm {float(metrics.get('grad_norm', 0)):.3f} "
+                f"({(time.time() - t0):.1f}s)")
         if ckpt and (step + 1) % args.checkpoint_every == 0:
             ckpt.save(step + 1, {"params": params, "opt": opt},
                       metadata={"data_step": pipe.step, "arch": arch.name})
     if ckpt:
         ckpt.wait()
-    if args.emit_traces and step_times:
+    if args.emit_traces and step_times and rank0:
         # attribute the measurement to the searched strategy when there is
-        # one; otherwise describe what this run used: one card, no sharding
+        # one; otherwise describe the mesh this run used (data parallel over
+        # its world of cards)
         strategy = searched if searched is not None else ParallelStrategy(
-            device=DEVICE, num_devices=1, micro_batch_size=max(args.batch // micro, 1),
+            device=DEVICE, num_devices=world,
+            micro_batch_size=max(args.batch // (world * micro), 1),
         )
         trace = StepTrace(
             arch=arch, strategy=strategy,
@@ -182,8 +221,10 @@ def main(argv=None) -> dict:
         "first_loss": losses[0], "last_loss": losses[-1],
         "entropy_floor": corpus.entropy_rate(), "steps": len(losses),
     }
-    print(json.dumps(result))
-    return dict(result, step_times=step_times)
+    say(json.dumps(result))
+    if owns_group:
+        dist.destroy_process_group()
+    return dict(result, step_times=step_times, losses=losses)
 
 
 if __name__ == "__main__":

@@ -4,13 +4,26 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.sharding import local_apply
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding. x: (B, H, S, D), positions: (B, S) or (S,). Angles in
-    f32, the result cast back to x's dtype."""
+    f32, the result cast back to x's dtype.
+
+    A DTensor x (positions a plain tensor, the same on every rank) is roped
+    shard by shard: the rotation is elementwise over its (b, h) rows, so B
+    and H keep their sharding and S and D are made whole. DTensor's own
+    propagation through the strided halves of a transposed x labels some
+    grads with strides their local tensors do not have, and a later view of
+    them fails."""
+    if isinstance(x, DTensor):
+        px = tuple(p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+                   for p in x.placements)
+        return local_apply(lambda t: rope(t, positions, theta), (x,), (px,), px)
     half = x.shape[-1] // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
     if positions.dim() == 1:
@@ -26,7 +39,16 @@ def norm(x: torch.Tensor, w: torch.Tensor, impl: str = "cuda") -> torch.Tensor:
     return ops.fused_rmsnorm(x, w, impl=impl)
 
 
-def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Gated MLP: wi packs [gate; up] on the output dim."""
-    gate, up = (x @ p["wi"]).chunk(2, dim=-1)
-    return (F.silu(gate) * up) @ p["wo"]
+def swiglu(p: dict, x: torch.Tensor, constrain=None) -> torch.Tensor:
+    """Gated MLP: wi packs [gate; up] on the output dim.
+
+    ``constrain(x, dims)`` (optional, ModelCfg.constrain) pins the FFN
+    intermediate's sharding, as the JAX package pins it."""
+    gate_up = x @ p["wi"]  # (B, S, 2F)
+    if constrain is not None:
+        gate_up = constrain(gate_up, ("b", None, "m"))
+    gate, up = gate_up.chunk(2, dim=-1)
+    hidden = F.silu(gate) * up
+    if constrain is not None:
+        hidden = constrain(hidden, ("b", None, "m"))
+    return hidden @ p["wo"]

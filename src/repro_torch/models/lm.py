@@ -16,6 +16,14 @@ names (an encdec model's encoder under ``params["encoder"]``); q/k/v are
 place of ``jax.checkpoint`` around the scan body. The caches (KV, with
 int8 scales under ``kv_cache_quant``; conv and SSM state) are updated in
 place instead of being returned as new arrays.
+
+Sharded (``repro_torch.parallel``): the full-sequence forward and its loss
+take params and a batch of DTensors, placed by ``param_specs`` and
+``batch_spec``, for the dense family. DTensor's propagation inserts the
+collectives; the layer carry is pinned by ``constrain_batch_sharding`` where
+the JAX package pins it, ``ModelCfg.act_shard`` pins the activations it pins,
+and the logits are made whole over "model" before the loss. The other
+families and the cached path refuse DTensors.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -33,6 +42,8 @@ from repro_torch.kernels.xla_flash import banded_flash_xla, flash_xla
 from repro_torch.models import layers as L
 from repro_torch.models.moe import aux_load_balance_loss, moe_block
 from repro_torch.models.ssm import CONV_K, ssm_block, ssm_dims
+from repro_torch.parallel.sharding import (P, constrain_batch_sharding, local_apply,
+                                           placements)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +55,8 @@ class ModelCfg:
     (the JAX package's "xla" path, ``ops.IMPLS``). ``remat``: the paper's
     recompute granularity, as the JAX package's (``REMATS``). The MoE
     options and the serve path's KV-cache options take the JAX package's
-    names and defaults. Its activation shardings (``act_shard``) belong to
-    sharding, which is not ported; passing it is a ``TypeError``."""
+    names and defaults. ``act_shard``: explicit activation shardings,
+    ``{"batch": axes, "model": axis}`` or None (see ``constrain``)."""
 
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "cuda"
@@ -64,6 +75,8 @@ class ModelCfg:
     kv_scatter_write: bool = False
     # int8 KV cache with a bf16 scale per (token, head)
     kv_cache_quant: bool = False
+    # explicit activation shardings: {"batch": axes, "model": axis} or None
+    act_shard: Any = None
 
     def __post_init__(self):
         for field in ("attn_impl", "norm_impl", "ssm_impl"):
@@ -72,6 +85,17 @@ class ModelCfg:
                                  f"got {getattr(self, field)!r}")
         if self.remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got {self.remat!r}")
+
+    def constrain(self, x, dims: tuple):
+        """Redistribute ``x`` by logical dim tags per position: 'b' -> the
+        batch axes, 'm' -> the model axis, None -> unsharded (and whole over
+        every mesh dim not named). The identity without ``act_shard`` or on a
+        plain tensor, which lies on no mesh."""
+        if self.act_shard is None or not isinstance(x, DTensor):
+            return x
+        tags = {"b": self.act_shard.get("batch"), "m": self.act_shard.get("model")}
+        spec = P(*(tags.get(d) for d in dims))
+        return x.redistribute(x.device_mesh, placements(x.device_mesh, spec))
 
 
 # "full": each layer keeps only its input and runs its forward again in the
@@ -83,6 +107,9 @@ REMATS = ("none", "selective", "full")
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+# the families whose full-sequence forward takes DTensors (ROADMAP lists what
+# the others need)
+SHARDED_FAMILIES = ("dense",)
 
 
 def _check_family(arch: ModelArch) -> None:
@@ -296,9 +323,9 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
         # norm kernel reads the q and k views of the fused product in place
         q = L.norm(q, p["q_norm"], impl=cfg.norm_impl)
         k = L.norm(k, p["k_norm"], impl=cfg.norm_impl)
-    q = L.rope(q.transpose(1, 2), positions)
-    k = L.rope(k.transpose(1, 2), positions)
-    v = v.transpose(1, 2)
+    q = cfg.constrain(L.rope(q.transpose(1, 2), positions), ("b", "m", None, None))
+    k = cfg.constrain(L.rope(k.transpose(1, 2), positions), ("b", None, None, None))
+    v = cfg.constrain(v.transpose(1, 2), ("b", None, None, None))
     if cache is None:
         if causal and window and window < S:
             out = banded_flash_xla(q, k, v, window=window)
@@ -391,7 +418,8 @@ def _layer_fn(arch: ModelArch, cfg: ModelCfg, lp: dict, h: torch.Tensor,
         return h + moe_block(lp["moe"], L.norm(h, lp["ln2"], impl=cfg.norm_impl),
                              top_k=arch.top_k, capacity_factor=cfg.capacity_factor)
     if arch.ffn > 0:
-        h = h + L.swiglu(lp["mlp"], L.norm(h, lp["ln2"], impl=cfg.norm_impl))
+        h = h + L.swiglu(lp["mlp"], L.norm(h, lp["ln2"], impl=cfg.norm_impl),
+                         constrain=cfg.constrain if cfg.act_shard else None)
     return h
 
 
@@ -426,11 +454,26 @@ def _train_layer(arch: ModelArch, cfg: ModelCfg, lp: dict, h: torch.Tensor,
                       use_reentrant=False, **extra)
 
 
+def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``. Sharded, each rank looks its own tokens up in the
+    whole table (gathered over the vocab and d), and the table's grad is a
+    partial sum over the mesh dims that split the tokens: DTensor's own
+    propagation of the lookup's backward (``index_put``) fails in torch 2.11
+    (2.13 propagates it)."""
+    if not isinstance(embed, DTensor):
+        return embed[tokens]
+    pt = tuple(tokens.placements)
+    whole = (Replicate(),) * embed.device_mesh.ndim
+    grad = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in pt)
+    return local_apply(lambda e, t: e[t], (embed, tokens), (whole, pt), pt, (grad, pt),
+                       out_shape=(*tokens.shape, embed.shape[1]))
+
+
 def _embed_inputs(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict):
     """The token embeddings in ``cfg.dtype``, behind ``batch["frontend"]``
     (B, F, d), the stub's embeddings, where the model has a frontend stub and
     the batch holds them; and the positions 0 .. F + S - 1."""
-    h = params["embed"][batch["tokens"]].to(cfg.dtype)
+    h = _lookup(params["embed"], batch["tokens"]).to(cfg.dtype)
     if arch.frontend_stub and "frontend" in batch:
         h = torch.cat([batch["frontend"].to(cfg.dtype), h], dim=1)
     return h, torch.arange(h.shape[1], device=h.device)
@@ -441,13 +484,14 @@ def _encode(params: dict, arch: ModelArch, cfg: ModelCfg,
     """encdec: the bidirectional encoder over stub frame embeddings (B, T, d):
     dense layers without q/k norms, non-causal attention through the
     flash-attention kernel, under ``cfg.remat`` as the decoder's, then the
-    encoder's final norm. The JAX package constrains the carry's batch
-    sharding before each layer, the identity on one device."""
+    encoder's final norm; the carry's batch sharding pinned before each
+    layer, as the JAX package pins it."""
     enc = params["encoder"]
     enc_arch = _encoder_arch(arch)
     h = features.to(cfg.dtype)
     positions = torch.arange(h.shape[1], device=h.device)
     for i in range(arch.encoder_layers):
+        h = constrain_batch_sharding(h)
         h = _train_layer(enc_arch, cfg, _layer(enc["layers"], i), h, positions, causal=False)
     return L.norm(h, enc["final_norm"], impl=cfg.norm_impl)
 
@@ -473,8 +517,12 @@ def forward_logits(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict) ->
     F + S, V) logits. Attention goes through the flash-attention kernel
     (through ``banded_flash_xla`` when a sliding window is shorter than S;
     cross-attention through the blockwise "xla" attention), the ssm mixer
-    through the SSD kernel."""
+    through the SSD kernel. Params and batch may be DTensors for the dense
+    family (see the module docstring)."""
     _check_family(arch)
+    if isinstance(params["embed"], DTensor) and arch.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(f"{arch.name}: the {arch.family} family takes no DTensor; "
+                                  f"the port shards {', '.join(SHARDED_FAMILIES)}")
     if cfg.cast_params_in_forward:
         params = cast_params(params, cfg.dtype)
     h, positions = _embed_inputs(params, arch, cfg, batch)
@@ -482,6 +530,7 @@ def forward_logits(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict) ->
     if arch.family == "encdec":
         enc_k, enc_v = _cross_kv(params, arch, _encode(params, arch, cfg, batch["enc_features"]))
     for i in range(arch.num_layers):
+        h = constrain_batch_sharding(h)
         h = _train_layer(arch, cfg, _layer(params["layers"], i), h, positions,
                          None if enc_k is None else (enc_k[i], enc_v[i]))
     return _head(params, arch, cfg, h)
@@ -494,8 +543,14 @@ def forward_train(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict):
     Returns ``(loss, {"ce_loss", "loss"})``; the moe family adds
     ``moe_aux_weight`` times the load-balancing loss, reported as
     ``"aux_loss"``. As in the JAX package, that loss is layer 0's router
-    applied to the embedded inputs."""
+    applied to the embedded inputs. Sharded, the logits are made whole over
+    every mesh dim but the batch's before the loss, and the loss and metrics
+    come back as plain tensors, the same on every rank."""
     logits = forward_logits(params, arch, cfg, batch)
+    if isinstance(logits, DTensor):
+        # a vocab-sharded or partial-sum operand breaks the gather below
+        logits = logits.redistribute(logits.device_mesh, tuple(
+            p if p == Shard(0) else Replicate() for p in logits.placements))
     S_txt = batch["tokens"].shape[1]
     targets = batch["tokens"][:, 1:].long()
     lg = logits[:, -S_txt:-1, :].float()
@@ -515,6 +570,9 @@ def forward_train(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict):
         metrics["aux_loss"] = aux
         loss = loss + cfg.moe_aux_weight * aux
     metrics["loss"] = loss
+    if isinstance(loss, DTensor):
+        metrics = {k: v.full_tensor() for k, v in metrics.items()}
+        loss = metrics["loss"]
     return loss, metrics
 
 
@@ -580,6 +638,9 @@ def forward_cached(params: dict, arch: ModelArch, cfg: ModelCfg, caches: dict,
     Positions must lie in the KV cache, except in a ring that holds the whole
     window, which serves any position."""
     _check_family(arch)
+    if isinstance(params["embed"], DTensor):
+        raise NotImplementedError("the cached path takes no DTensor: serving is not "
+                                  "sharded in the port")
     if cfg.cast_params_in_forward:
         params = cast_params(params, cfg.dtype)
     h = params["embed"][tokens].to(cfg.dtype)

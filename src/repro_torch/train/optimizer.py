@@ -6,6 +6,11 @@ width a stacked leaf is gigabytes (qwen3-8b's ``mlp.wi`` over 8 layers is
 3.2 GB in f32), and every temporary of the functional form would cost that
 again. ``adamw_update`` overwrites the params, mu and nu it is given (and
 returns them); it leaves the grads as they are.
+
+Sharded params (DTensors) keep mu and nu in their placements, and take grads
+in them too (``make_train_step`` redistributes the grads first): the update is
+elementwise, so it runs on each rank's local shards. The global norm counts
+every element once, a replicated leaf's too.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import math
 from typing import Callable, NamedTuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 class OptState(NamedTuple):
@@ -34,6 +40,8 @@ def _zip_leaves(*trees):
 def _zeros_like_f32(tree):
     if isinstance(tree, dict):
         return {k: _zeros_like_f32(v) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        return torch.zeros_like(tree, dtype=torch.float32)
     return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
 
 
@@ -43,8 +51,23 @@ def adamw_init(params: dict) -> OptState:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (a 0-dim tensor on
-    the leaves' device)."""
-    return torch.sqrt(sum(torch.sum(g.float() ** 2) for (g,) in _zip_leaves(tree)))
+    the leaves' device; a plain one, the same on every rank, for DTensors).
+
+    A DTensor leaf's sum is partial over the mesh dims that shard it. The
+    leaves whose sums have the same placements are reduced together, in one
+    collective, and every leaf's whole sum is then added in the leaves'
+    order, as for plain tensors."""
+    sums = [torch.sum(g.float() ** 2) for (g,) in _zip_leaves(tree)]
+    groups: dict = {}
+    for i, s in enumerate(sums):
+        if isinstance(s, DTensor):
+            groups.setdefault((s.device_mesh, s.placements), []).append(i)
+    for (mesh, places), idx in groups.items():
+        local = torch.stack([sums[i].to_local() for i in idx])
+        whole = DTensor.from_local(local, mesh, places, run_check=False).full_tensor()
+        for i, v in zip(idx, whole):
+            sums[i] = v
+    return torch.sqrt(sum(sums))
 
 
 def _f32(x: float) -> torch.Tensor:
@@ -85,6 +108,12 @@ def adamw_update(params: dict, grads: dict, state: OptState, *,
     bc2 = float(1 - b2 ** _f32(step))
 
     for p, g, m, v in _zip_leaves(params, grads, state.mu, state.nu):
+        if isinstance(p, DTensor):
+            if not all(isinstance(t, DTensor) and t.placements == p.placements
+                       for t in (g, m, v)):
+                raise ValueError(f"adamw_update: a DTensor param in {p.placements} needs its "
+                                 f"grad, mu and nu in the same placements")
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         g = g.float() * scale
         m.mul_(b1).add_(g, alpha=1 - b1)
         v.mul_(b2).addcmul_(g, g, value=1 - b2)

@@ -3,9 +3,14 @@ counterpart of ``repro/train/train_step.py``.
 
 One Astra strategy maps to one ``TrainStepCfg``: micro_batch_size /
 num_microbatches -> the accumulation loop, recompute_granularity ->
-``ModelCfg.remat``, bf16 grad accumulation -> ``accum_dtype``. The JAX
-package's ``batch_axes`` (the batch dim's mesh axes) belongs to sharding,
-which is not ported; passing it is a ``TypeError``.
+``ModelCfg.remat``, use_distributed_optimizer -> ``ShardingPlan.fsdp``, bf16
+grad accumulation -> ``accum_dtype``.
+
+Params, optimizer state and batch may be DTensors (``repro_torch.parallel``):
+the grads, which come back as DTensor's propagation leaves them (partial sums
+over "data" and "model"), are redistributed to their params' placements (the
+reduce-scatter GSPMD inserts) before they are accumulated and handed to
+AdamW.
 """
 from __future__ import annotations
 
@@ -13,9 +18,11 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.arch import ModelArch
 from repro_torch.models.lm import ModelCfg, cast_params, forward_train
+from repro_torch.parallel.sharding import P, placements
 from repro_torch.train.optimizer import OptState, adamw_update, cosine_schedule
 
 
@@ -28,6 +35,9 @@ class TrainStepCfg:
     weight_decay: float = 0.1
     clip_norm: float = 1.0
     accum_dtype: torch.dtype = torch.float32  # bf16 => compressed accumulation
+    # mesh axes sharding the batch dim: with grad accumulation the reshape
+    # (GB, ...) -> (K, GB/K, ...) keeps dim 1 (not K) sharded over them
+    batch_axes: tuple = ()
     # cast the f32 master weights to the compute dtype once per step instead
     # of in every microbatch's forward; grads are taken with respect to the
     # cast weights and widened back to f32
@@ -63,8 +73,22 @@ def make_train_step(arch: ModelArch, model_cfg: ModelCfg, cfg: TrainStepCfg) -> 
         inputs = [t.detach().requires_grad_() for t in _leaves(fwd_params)]
         loss, metrics = forward_train(_unflatten(fwd_params, iter(inputs)), arch, fwd_cfg,
                                       batch)
-        grads = torch.autograd.grad(loss, inputs)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
+        grads = [g.redistribute(t.device_mesh, t.placements) if isinstance(g, DTensor) else g
+                 for g, t in zip(torch.autograd.grad(loss, inputs), inputs)]
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    def split(x, K: int):
+        """The K microbatches of a batch leaf: consecutive row slices. A
+        DTensor is reshaped to (K, GB/K, ...) with dim 1 over ``batch_axes``,
+        as the JAX step pins it, and its microbatches are the slices of dim 0."""
+        n = x.shape[0] // K
+        if not isinstance(x, DTensor):
+            return [x[i * n:(i + 1) * n] for i in range(K)]
+        y = x.reshape((K, n) + tuple(x.shape[1:]))
+        if cfg.batch_axes:
+            y = y.redistribute(y.device_mesh, placements(
+                y.device_mesh, P(None, cfg.batch_axes, *([None] * (y.dim() - 2)))))
+        return [y[i] for i in range(K)]
 
     def train_step(params: dict, opt_state: OptState, batch: dict):
         K = cfg.num_microbatches
@@ -78,11 +102,10 @@ def make_train_step(arch: ModelArch, model_cfg: ModelCfg, cfg: TrainStepCfg) -> 
             if cfg.pre_cast:
                 grads = [g.float() for g in grads]
         else:
-            n = next(iter(batch.values())).shape[0] // K
+            micro = {k: split(x, K) for k, x in batch.items()}
             g_sum, l_sum = None, 0.0
             for i in range(K):
-                l, _, g = value_and_grad(fwd_params, {k: x[i * n:(i + 1) * n]
-                                                      for k, x in batch.items()})
+                l, _, g = value_and_grad(fwd_params, {k: x[i] for k, x in micro.items()})
                 if g_sum is None:
                     g_sum = [gi.to(cfg.accum_dtype) for gi in g]
                 else:

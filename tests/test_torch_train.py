@@ -308,8 +308,11 @@ def test_model_cfg_takes_the_new_values_and_refuses_others():
     with pytest.raises(ValueError, match="remat"):
         lm.ModelCfg(remat="some")
     lm.ModelCfg(capacity_factor=8.0, moe_aux_weight=0.0)
-    with pytest.raises(TypeError):  # activation shardings: the sharding slice
-        lm.ModelCfg(act_shard={"batch": ("data",), "model": "model"})
+    # activation shardings, taken since the sharding slice; the identity on a
+    # plain tensor (tests/test_torch_sharding.py runs them on a mesh)
+    cfg = lm.ModelCfg(act_shard={"batch": ("data",), "model": "model"})
+    x = torch.ones(2, 3)
+    assert cfg.constrain(x, ("b", "m")) is x
 
 
 # ---------------------------------------------------------------------------
@@ -424,9 +427,37 @@ def test_train_step_leaves_no_tensor_to_the_garbage_collector(remat, K, pre_cast
     assert not cyclic, [tuple(t.shape) for t in cyclic]
 
 
-def test_train_step_refuses_sharding_knobs():
-    with pytest.raises(TypeError):
-        TrainStepCfg(batch_axes=("data",))
+@pytest.fixture
+def one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh on a one-rank gloo group, taken down
+    after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_train_step_refuses_sharding_knobs(one_rank_mesh):
+    """``batch_axes`` is taken, as the JAX package's; a batch axis the mesh
+    lacks, and a family that the port does not shard, are refused."""
+    from repro_torch.parallel.sharding import batch_spec, distribute, make_plan, named, param_specs
+
+    assert TrainStepCfg(batch_axes=("data",)).batch_axes == ("data",)
+    plan = make_plan(one_rank_mesh)
+    for name, cfg, err in (("qwen3-8b", TrainStepCfg(num_microbatches=2, batch_axes=("pod",)),
+                            ValueError),
+                           ("mamba2-370m", TrainStepCfg(), NotImplementedError)):
+        _, arch, _, params, toks = _setup(name, B=2, S=8)
+        params = distribute(params, named(plan, param_specs(arch, plan, params)))
+        batch = {"tokens": torch.from_numpy(toks).long()}
+        batch = distribute(batch, named(plan, batch_spec(plan, batch)))
+        with pytest.raises(err):
+            make_train_step(arch, CFG, cfg)(params, adamw_init(params), batch)
 
 
 # ---------------------------------------------------------------------------

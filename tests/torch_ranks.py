@@ -1,0 +1,272 @@
+"""Runs a function on several gloo ranks of one machine, for the port's
+sharding tests.
+
+Each rank is a process started with ``spawn``, joins its process group through
+a ``FileStore`` under the test's ``tmp_path`` (never a fixed TCP port: xdist
+runs test files side by side), runs on one intra-op thread, and has a time
+limit, as the whole spawn has: a hang fails the test instead of running into
+the suite's limit. A rank's exception fails the test with its traceback.
+"""
+import datetime
+import os
+import time
+
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+RANK_TIMEOUT_S = 60  # each collective of a rank
+SPAWN_TIMEOUT_S = 120  # the whole run
+
+
+def _main(rank, fn, world, store, args):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, tmp_path, *args, timeout: float = SPAWN_TIMEOUT_S):
+    """``fn(rank, world, *args)`` on ``world`` gloo ranks; ``fn`` and ``args``
+    must pickle (a module-level function)."""
+    store = os.path.join(str(tmp_path), f"store-{time.monotonic_ns()}")
+    ctx = mp.start_processes(_main, args=(fn, world, store, args), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            pytest.fail(f"{fn.__name__} on {world} ranks ran past {timeout} s")
+
+
+# ---------------------------------------------------------------------------
+# rank programs (module-level so that spawn can pickle them; they import
+# the port only, never jax)
+# ---------------------------------------------------------------------------
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _placed(arch, plan, params_np, tokens):
+    """The params (from numpy) and a token batch as DTensors on ``plan``."""
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.parallel.sharding import batch_spec, distribute, named, param_specs
+
+    params = params_from_numpy(params_np, device="cpu")
+    params = distribute(params, named(plan, param_specs(arch, plan, params)))
+    batch = {"tokens": torch.from_numpy(tokens).long()}
+    return params, distribute(batch, named(plan, batch_spec(plan, batch)))
+
+
+def _full(tree) -> dict:
+    return {k: v.full_tensor().numpy() for k, v in _flat(tree).items()}
+
+
+def train_step_program(rank, world, out, cases, order_cases):
+    """On a (2, 2) data x model mesh with FSDP: per case (arch name, params,
+    tokens), one make_train_step step, then one of K = 2 microbatches with
+    batch_axes; the inputs K1 was handed, each with what K1's ``_plan`` made
+    of it. Then the shards the ranks hold of an arange under each (mesh
+    shape, axes, spec) of ``order_cases``, by rank. Rank 0 saves the results."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops, rmsnorm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import ModelCfg
+    from repro_torch.parallel.sharding import distribute, make_plan, placements
+    from repro_torch.train import TrainStepCfg, adamw_init, make_train_step
+
+    seen = []
+    kernel = ops.rmsnorm_fwd
+
+    def recording(x, weight, eps=1e-6):
+        try:
+            kind = rmsnorm._plan(x, weight)[0]
+        except ValueError:
+            kind = "refused"
+        seen.append((tuple(x.shape), tuple(x.stride()), x.is_contiguous(), kind))
+        return kernel(x, weight, eps=eps)
+
+    ops.rmsnorm_fwd = recording
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    plan = make_plan(mesh, fsdp=True)
+    cfg = ModelCfg(dtype=torch.float32)  # impl "cuda": the plain versions on the CPU
+    results = {}
+    for name, params_np, tokens in cases:
+        arch = get_reduced(name)
+        for K in (1, 2):
+            seen.clear()
+            step = make_train_step(arch, cfg, TrainStepCfg(num_microbatches=K,
+                                                           batch_axes=plan.batch_axes))
+            params, batch = _placed(arch, plan, params_np, tokens)
+            opt = adamw_init(params)
+            placed = {k: v.placements for k, v in _flat(params).items()}
+            params, opt, m = step(params, opt, batch)
+            results[(name, K)] = {
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "params": _full(params), "norm_inputs": list(seen),
+                "kept_placements": all(
+                    v.placements == placed[k] == _flat(opt.mu)[k].placements
+                    == _flat(opt.nu)[k].placements for k, v in _flat(params).items()),
+            }
+    shards = []
+    for shape, axes, spec in order_cases:
+        order_mesh = make_mesh(shape, axes, "cpu")
+        x = torch.arange(8 * 8, dtype=torch.float32).reshape(8, 8)
+        local = distribute(x, (order_mesh, placements(order_mesh, spec))).to_local()
+        every = [None] * world
+        dist.all_gather_object(every, local.numpy().copy())
+        shards.append(every)
+    results["shards"] = shards
+    if rank == 0:
+        torch.save(results, out)
+
+
+def elastic_program(rank, world, out, ckpt_dir, params_np, token_batches):
+    """Reduced yi-6b: two steps on a (4, 1) mesh, a save, a restore onto
+    (2, 2) with placements, two more steps. Rank 0 saves the losses and the
+    leaves each rank copied to the host in the save."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import manager as manager_mod
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.lm import ModelCfg
+    from repro_torch.parallel.sharding import batch_spec, distribute, make_plan, named, param_specs
+    from repro_torch.train import TrainStepCfg, adamw_init, make_train_step
+
+    arch = get_reduced("yi-6b")
+    step = make_train_step(arch, ModelCfg(dtype=torch.float32), TrainStepCfg(base_lr=1e-3))
+    losses = []
+
+    def run(plan, params, opt, tokens_list):
+        for tokens in tokens_list:
+            batch = {"tokens": torch.from_numpy(tokens).long()}
+            batch = distribute(batch, named(plan, batch_spec(plan, batch)))
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+        return params, opt
+
+    whole = params_from_numpy(params_np, device="cpu")
+    plan_a = make_plan(make_mesh((4, 1), ("data", "model"), "cpu"), fsdp=True)
+    params = distribute(whole, named(plan_a, param_specs(arch, plan_a, whole)))
+    params, opt = run(plan_a, params, adamw_init(params), token_batches[:2])
+    mgr = CheckpointManager(ckpt_dir)
+    copied = []
+    to_host = manager_mod._to_host
+    manager_mod._to_host = lambda leaf: copied.append(1) or to_host(leaf)
+    mgr.save(2, {"params": params, "opt": opt}, blocking=True)
+    manager_mod._to_host = to_host
+    host_copies = [None] * world
+    dist.all_gather_object(host_copies, len(copied))
+    dist.barrier()  # rank 0's write is done
+    plan_b = make_plan(make_mesh((2, 2), ("data", "model"), "cpu"), fsdp=True)
+    sh = named(plan_b, param_specs(arch, plan_b, whole))
+    state, meta = mgr.restore({"params": whole, "opt": adamw_init(whole)},
+                              shardings={"params": sh, "opt": {"mu": sh, "nu": sh}})
+    params, opt = state["params"], state["opt"]
+    on_b = all(v.placements == sh_k[1] for v, sh_k in zip(_flat(params).values(),
+                                                          _flat_named(sh)))
+    run(plan_b, params, opt, token_batches[2:])
+    if rank == 0:
+        torch.save({"losses": losses, "restored_on_b": on_b, "step": meta["step"],
+                    "host_copies": host_copies}, out)
+
+
+def _flat_named(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _flat_named(v)
+    else:
+        yield tree
+
+
+def act_shard_program(rank, world, out, cases):
+    """On a (1, 2) data x model mesh: per case, the forward's logits without
+    and with ``act_shard``, the loss under it, and the loss that DTensor's
+    ``loss_parallel`` gives on the logits sharded over the vocab. Rank 0
+    saves them."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.parallel import loss_parallel
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import make_plan
+
+    plan = make_plan(make_mesh((1, 2), ("data", "model"), "cpu"), fsdp=True)
+    cfg = lm.ModelCfg(dtype=torch.float32)
+    shard_cfg = dataclasses.replace(cfg, act_shard={"batch": plan.batch_axes,
+                                                    "model": plan.model_axis})
+    results = {}
+    for name, params_np, tokens in cases:
+        arch = get_reduced(name)
+        params, batch = _placed(arch, plan, params_np, tokens)
+        logits = lm.forward_logits(params, arch, cfg, batch)
+        mesh = logits.device_mesh
+        lg = logits[:, :-1, :].float().redistribute(mesh, (Replicate(), Shard(2)))
+        targets = batch["tokens"][:, 1:].redistribute(mesh, (Replicate(), Replicate()))
+        with loss_parallel():  # reduction="mean" takes a one-dim mesh only
+            vocab_sharded = F.cross_entropy(lg.reshape(-1, arch.vocab), targets.reshape(-1),
+                                            reduction="sum") / targets.numel()
+        results[name] = {
+            "plain": logits.full_tensor().numpy(),
+            "act_shard": lm.forward_logits(params, arch, shard_cfg, batch).full_tensor().numpy(),
+            "loss": float(lm.forward_train(params, arch, shard_cfg, batch)[0]),
+            "loss_parallel": float(vocab_sharded.full_tensor()),
+        }
+    if rank == 0:
+        torch.save(results, out)
+
+
+def pipeline_program(rank, world, out, w_np, x_np):
+    """tests/test_distributed.py's GPipe case: L layers of ``h + silu(h @ w)``
+    over the ranks as stages, forward and the grad of sum(y ** 2) (each rank
+    holds its own stage's rows of it: summed over the ranks); then the same on
+    a mesh whose "stage" dim has size 1 (every rank its own one-stage
+    pipeline). Rank 0 saves both."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply, stack_for_stages
+
+    def apply_stage(stage_w, h):
+        for wl in stage_w:
+            h = h + F.silu(h @ wl)
+        return h
+
+    results = {}
+    for shape, axes in (((world,), ("stage",)), ((world, 1), ("data", "stage"))):
+        mesh = make_mesh(shape, axes, "cpu")
+        n = mesh.size(axes.index("stage"))
+        w = torch.from_numpy(w_np).requires_grad_()
+        y = pipeline_apply(mesh, apply_stage, stack_for_stages(w, n), torch.from_numpy(x_np))
+        (g,) = torch.autograd.grad((y ** 2).sum(), w)
+        if n > 1:
+            dist.all_reduce(g)
+        ys = [torch.empty_like(y) for _ in range(world)]
+        dist.all_gather(ys, y.detach())
+        results[n] = {"y": y.detach().numpy(), "grad": g.numpy(),
+                      "same_on_every_rank": all(torch.equal(t, ys[0]) for t in ys)}
+    if rank == 0:
+        torch.save(results, out)
