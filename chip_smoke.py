@@ -93,7 +93,25 @@ Phases, each reported on its own lines; any failure exits non-zero:
                save at (1, 1) restored through restore(shardings=) with
                placements; the train driver under torchrun --nproc-per-node 1
                against the same driver alone. No collective across cards;
- 10. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-9, with
+ 10. dryrun  - the port's dry-run (repro_torch.launch.dryrun) against the card:
+               (a) qwen3-8b at full width and depth served (4 prompts x 128
+               + 32 greedy tokens) with params, caches and tokens as DTensors
+               on a (1, 1) mesh over the one-rank NCCL group, against plain
+               tensors: tokens equal, prefill logits bit for bit, K1 launched
+               on the DTensor path; (b) lower_cell of phase 9's cell on fake
+               CUDA tensors against the same step on the card under the same
+               op accountant: FLOPs equal, the predicted per-device memory
+               within DRYRUN_MEM_RATIO of max_memory_allocated, the roofline
+               bound beside the measured step, the step through the kernels
+               beside it; one decode step at full depth against a cache of
+               1024, its memory term beside the measured step and the busy
+               share; (c) the production cells (qwen3-8b at train_4k,
+               prefill_32k and decode_32k on 16x16 and train_4k on 2x16x16,
+               the other dense archs' serve cells on 16x16), each a `python -m
+               repro_torch.launch.dryrun` process at the lowest priority (the
+               train cells start with the script) on fake CUDA tensors and a fake process group of 256 or 512
+               ranks, all `ok`; a {"dryrun": ...} JSON line;
+ 11. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-10, with
                the launches its wrapper counted there at that shape, beside
                F.rms_norm at the same shape and the launch floor (a one-block
                elementwise op), at D = 128 also on k head views; then the
@@ -516,7 +534,7 @@ def rmsnorm_phase(dev) -> dict:
 
 
 def rmsnorm_shape_times(dev, shapes: collections.Counter) -> list[dict]:
-    """RMSNorm (bf16) at each (rows, D) of the main paths (phases 4-9), with the launches
+    """RMSNorm (bf16) at each (rows, D) of the main paths (phases 4-10), with the launches
     its wrapper counted there at that shape, beside F.rms_norm and the launch
     floor (the device time of a one-block elementwise op on 8 bf16 values),
     each timed here. At D = 128 (the q/k norms) also on the same rows read in
@@ -2624,20 +2642,419 @@ def shard_phase(dev, counters, card: str) -> list[tuple[str, dict, dict]]:
     return runs
 
 
+# --- phase 10: the dry-run --------------------------------------------------
+
+# (a) the sharded serve path: phase 5's qwen3-8b run, 4 prompts x 128 + 32 new
+DRYRUN_SERVE = dict(B=4, P=128, N=32, max_len=160)
+# (b) phase 9's cell: qwen3-8b at full width, 2 layers, B=4 S=1024, K=1, remat
+# "full", FSDP, on a (1, 1) mesh; and one decode step at full depth, B=4,
+# against a cache of 1024
+DRYRUN_TRAIN_LAYERS = 2
+DRYRUN_DECODE = (4, 1024)
+DRYRUN_STEPS = 5  # steps timed after the counted one
+# the dry-run's FLOPs against the same step's on the card: the same ops are
+# counted, so only float rounding of the sums may differ
+DRYRUN_FLOP_REL = 1e-9
+# the dry-run's predicted per-device memory over max_memory_allocated
+DRYRUN_MEM_RATIO = (0.8, 1.25)
+# (c) the production cells, each `python -m repro_torch.launch.dryrun` in a
+# process of its own at the lowest priority, joined at the end of the phase:
+# qwen3-8b's two train cells trace for minutes and start with the script; its
+# serve cells and the other dense archs' (seconds each) start with the phase.
+# The other archs' train cells trace for minutes each: PERF.md has them from
+# a run of the CLI.
+DRYRUN_EARLY_CELLS = (("qwen3-8b", "train_4k", "single"), ("qwen3-8b", "train_4k", "multi"))
+DRYRUN_LATE_CELLS = tuple((a, s, "single") for a in ("qwen3-8b", "yi-6b", "qwen3-32b",
+                                                    "command-r-35b")
+                          for s in ("prefill_32k", "decode_32k"))
+DRYRUN_CELL_TIMEOUT_S = 1000
+DRYRUN_OUT = pathlib.Path(__file__).resolve().parent / "build" / "dryrun_smoke"
+
+
+def start_dryrun_cells(cells, procs: list) -> None:
+    """Starts each production cell of ``cells`` as the user would run it,
+    `python -m repro_torch.launch.dryrun`, on fake CUDA tensors and a fake
+    process group of 256 or 512 ranks, each in its own process at the
+    lowest priority (the traces are host work on one core each). Appends
+    (cell, process, log path, t0) to ``procs``."""
+    root = pathlib.Path(__file__).resolve().parent
+    if not procs:
+        shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+        DRYRUN_OUT.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    for arch, shape, pods in cells:
+        logf = DRYRUN_OUT / f"{arch}__{shape}__{pods}.log"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--pods", pods, "--out", str(DRYRUN_OUT)]
+        with open(logf, "w") as f:
+            procs.append(((arch, shape, pods), subprocess.Popen(
+                cmd, cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT,
+                preexec_fn=lambda: os.nice(19)), logf, time.perf_counter()))
+
+
+def stop_dryrun_cells(procs) -> None:
+    for _, proc, _, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _greedy(params, arch, cfg, caches, prompts, N: int, place=None):
+    """Prefill and N greedy decode steps through lm.prefill / decode_step;
+    place(tokens) lays a token batch out as the params are (DTensors).
+    Returns the prefill logits (whole), the (B, P + N) tokens and the decode
+    steps' wall ms."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import lm
+
+    def whole(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    place = place or (lambda t: t)
+    P = prompts.shape[1]
+    logits, _ = lm.prefill(params, arch, cfg, caches, place(prompts))
+    first = whole(logits).clone()
+    seq, ms = [prompts], []
+    nxt = first[:, -1].argmax(-1, keepdim=True)
+    for i in range(N):
+        seq.append(nxt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = lm.decode_step(params, arch, cfg, caches, place(nxt), P + i)
+        nxt = whole(logits)[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return first, torch.cat(seq, dim=1), ms
+
+
+def dryrun_serve_phase(dev, mesh, counters) -> tuple[list, dict]:
+    """(a) qwen3-8b at full width and depth, bf16: prefill + 32 greedy steps
+    of 4 prompts x 128 with params, caches and tokens as DTensors on the
+    (1, 1) mesh (the cached path on DTensors, K1 through local_apply)
+    against the same run on plain tensors: tokens equal, prefill logits bit
+    for bit. Returns the DTensor run's (label, launches, by shape) and a row
+    for the JSON line."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import (batch_spec, cache_specs, distribute, make_plan,
+                                               named, param_specs)
+
+    arch = get_arch("qwen3-8b")
+    B, P, N, T = (DRYRUN_SERVE[k] for k in ("B", "P", "N", "max_len"))
+    cfg = lm.ModelCfg(dtype=torch.bfloat16)
+    plan = make_plan(mesh, fsdp=True)
+    params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(11), torch.bfloat16,
+                            dev)
+    prompts = torch.as_tensor(np.random.default_rng(6).integers(0, arch.vocab, size=(B, P)),
+                              device=dev)
+    per_forward = {"rmsnorm_fwd": 4 * arch.num_layers + 1, "flash_attention_fwd": 0,
+                   "ssd_scan_fwd": 0}
+    expect = {k: (N + 1) * v for k, v in per_forward.items()}
+
+    reset_counts(counters)
+    want_logits, want, plain_ms = _greedy(params, arch, cfg,
+                                          lm.init_caches(arch, cfg, B, T, device=dev), prompts, N)
+    plain_counts, _ = read_counts(counters)
+    dparams = distribute(params, named(plan, param_specs(arch, plan, params)))
+    del params
+    caches = lm.init_caches(arch, cfg, B, T, device=dev)
+    dcaches = distribute(caches, named(plan, cache_specs(arch, plan, caches)))
+    del caches
+
+    def place(tokens):
+        return distribute({"tokens": tokens}, named(plan, batch_spec(plan, {"tokens": tokens})))[
+            "tokens"]
+
+    reset_counts(counters)
+    got_logits, got, dt_ms = _greedy(dparams, arch, cfg, dcaches, prompts, N, place)
+    counts, shapes = read_counts(counters)
+    same_logits = torch.equal(got_logits, want_logits)
+    same_tokens = torch.equal(got, want)
+    med = {"plain": statistics.median(plain_ms), "dtensor": statistics.median(dt_ms)}
+    log("dryrun", f"(a) qwen3-8b serve B={B} prompt={P} new={N} max_len={T}, bf16: DTensor "
+        f"params, caches and tokens on the (1, 1) mesh against plain tensors: tokens equal "
+        f"{same_tokens}, prefill logits equal bit for bit {same_logits}; median decode step "
+        f"plain {med['plain']:.2f} ms, DTensor {med['dtensor']:.2f} ms; launches plain "
+        f"{plain_counts}, DTensor {counts} (expect {expect})")
+    check(same_tokens and same_logits, "the sharded cached path disagrees with the plain one")
+    check(counts == expect and plain_counts == expect, "sharded serve launch counts")
+    del dparams, dcaches
+    _free()
+    return ([(f"qwen3-8b serve DTensor (1,1) {B}x{P}+{N}", counts, shapes)],
+            {"tokens_equal": same_tokens, "prefill_logits_equal": same_logits,
+             "plain_decode_median_ms": med["plain"], "dtensor_decode_median_ms": med["dtensor"],
+             "dtensor_launches": counts})
+
+
+def _dryrun_cell(arch, shape, **kw) -> dict:
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.sharding import MeshShape
+
+    rep = dryrun.lower_cell(arch, shape, MeshShape((1, 1), ("data", "model")),
+                            device="cuda", **kw)
+    log("dryrun", f"lower_cell {arch.name} {shape.name} (1, 1) on fake CUDA tensors:"
+        + dryrun.summary_line(rep)[1:])
+    return rep
+
+
+def _train_cell():
+    from repro_torch.configs import get_arch
+    from repro_torch.core.arch import InputShape
+
+    B, S = TRAIN_BS
+    return (dataclasses.replace(get_arch("qwen3-8b"), num_layers=DRYRUN_TRAIN_LAYERS),
+            InputShape("phase9_cell", S, B, "train"))
+
+
+def _decode_cell():
+    from repro_torch.configs import get_arch
+    from repro_torch.core.arch import InputShape
+
+    B, T = DRYRUN_DECODE
+    return get_arch("qwen3-8b"), InputShape("decode_1k", T, B, "decode")
+
+
+def dryrun_train_phase(dev, mesh, counters, rep: dict) -> tuple[list, dict]:
+    """(b) phase 9's cell through lower_cell (``rep``), then the same step on the card
+    ("xla" impls, as the dry-run runs it) under the same accountant: FLOPs
+    equal, the predicted per-device memory against max_memory_allocated, the
+    roofline bound against the measured median step; then the same step
+    through the kernels (its time, peak and K1/K2 launches)."""
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.op_account import OpAccountant
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import batch_spec, distribute, make_plan, named, param_specs
+    from repro_torch.train import TrainStepCfg, adamw_init, make_train_step
+
+    arch, shape = _train_cell()
+    B, S = shape.global_batch, shape.seq_len
+    plan = make_plan(mesh, fsdp=True)
+    xla = lm.ModelCfg(dtype=torch.bfloat16, attn_impl="xla", ssm_impl="xla", norm_impl="xla",
+                      remat="full")
+    rows, runs = {}, []
+    for label, cfg in (("xla", xla), ("cuda", dataclasses.replace(
+            xla, attn_impl="cuda", norm_impl="cuda", ssm_impl="cuda"))):
+        _free()
+        base = torch.cuda.memory_allocated()
+        params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                                torch.float32, dev)
+        params = distribute(params, named(plan, param_specs(arch, plan, params)))
+        opt = adamw_init(params)
+        step = make_train_step(arch, cfg, TrainStepCfg(num_microbatches=1,
+                                                       batch_axes=plan.batch_axes))
+        tokens = torch.randint(0, arch.vocab, (B, S), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(200))
+        batch = distribute({"tokens": tokens.int()}, named(plan, batch_spec(plan, {
+            "tokens": tokens})))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        acc = OpAccountant()
+        acc.add_arguments((params, opt, batch))
+        with acc:
+            params, opt, _ = step(params, opt, batch)
+        counts, shapes = read_counts(counters)
+        ms = []
+        for _ in range(DRYRUN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, _ = step(params, opt, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - base
+        rows[label] = {"flops": acc.totals.flops, "hbm_bytes": acc.totals.bytes,
+                       "step_ms": ms, "median_ms": statistics.median(ms), "peak_bytes": peak,
+                       "accountant_peak_bytes": acc.memory()["per_device_total"],
+                       "launches_counted_step": counts}
+        if label == "cuda":
+            runs.append((f"qwen3-8b dry-run cell through the kernels x1", counts, shapes))
+        del params, opt, batch, acc
+    _free()
+    r, x, k = rep["roofline"], rows["xla"], rows["cuda"]
+    flop_rel = abs(r["flops_per_chip"] - x["flops"]) / x["flops"]
+    predicted = rep["memory"]["per_device_total"]
+    ratio = predicted / x["peak_bytes"]
+    bound_ms = max(r["compute_s"], r["memory_s"], r["collective_s"]) * 1e3
+    useful = r["model_flops_total"] / r["chips"]
+    log("dryrun", f"(b) {arch.name}, {arch.num_layers} layers, B={B} S={S}, K=1, remat full, "
+        f"FSDP, (1, 1): FLOPs dry-run {r['flops_per_chip']:.6e} vs the card's step under the "
+        f"accountant {x['flops']:.6e} (rel {flop_rel:.2e}, bound {DRYRUN_FLOP_REL}); "
+        f"per_device_total {predicted / 1e9:.3f} GB vs max_memory_allocated "
+        f"{x['peak_bytes'] / 1e9:.3f} GB, ratio {ratio:.4f} (bound {DRYRUN_MEM_RATIO}); "
+        f"the accountant on the card {x['accountant_peak_bytes'] / 1e9:.3f} GB")
+    log("dryrun", f"(b) roofline bound {bound_ms:.2f} ms ({r['dominant']}; compute "
+        f"{r['compute_s'] * 1e3:.2f} / memory {r['memory_s'] * 1e3:.2f} / collective "
+        f"{r['collective_s'] * 1e3:.2f} ms) vs measured median step \"xla\" {x['median_ms']:.2f} ms "
+        f"(bound / measured {bound_ms / x['median_ms']:.4f}, useful-FLOPs MFU "
+        f"{useful / (x['median_ms'] / 1e3 * rl.PEAK_FLOPS):.4f}); through the kernels "
+        f"{k['median_ms']:.2f} ms (MFU {useful / (k['median_ms'] / 1e3 * rl.PEAK_FLOPS):.4f}), "
+        f"peak {k['peak_bytes'] / 1e9:.3f} GB, launches {k['launches_counted_step']}")
+    check(flop_rel <= DRYRUN_FLOP_REL, "the dry-run's FLOPs differ from the card's step")
+    check(DRYRUN_MEM_RATIO[0] <= ratio <= DRYRUN_MEM_RATIO[1],
+          "the dry-run's memory is far from the card's")
+    # remat "full" runs each layer's forward twice
+    check(k["launches_counted_step"] == {"rmsnorm_fwd": 8 * arch.num_layers + 1,
+                                         "flash_attention_fwd": 2 * arch.num_layers,
+                                         "ssd_scan_fwd": 0}, "kernel-step launches")
+    return runs, {"cell": f"{arch.name} {arch.num_layers} layers B={B} S={S} K=1 (1,1)",
+                  "dryrun": {"flops": r["flops_per_chip"], "hbm_bytes": r["hbm_bytes_per_chip"],
+                             "per_device_total": predicted, "bound_ms": bound_ms,
+                             "dominant": r["dominant"], "lower_s": rep["lower_s"]},
+                  "card_xla": x, "card_cuda": k, "flop_rel": flop_rel, "mem_ratio": ratio}
+
+
+def dryrun_decode_phase(dev, mesh, rep: dict) -> dict:
+    """(b) one decode step of qwen3-8b at full depth, B=4, cache of 1024:
+    lower_cell's (``rep``) memory term beside the measured step on the card (DTensors
+    on the (1, 1) mesh, "xla" impls, at the dry-run's position) and the
+    device's busy share while it runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.op_account import OpAccountant
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import (batch_spec, cache_specs, distribute, make_plan,
+                                               named, param_specs)
+
+    arch, shape = _decode_cell()
+    B, T = shape.global_batch, shape.seq_len
+    plan = make_plan(mesh, fsdp=True)
+    cfg = lm.ModelCfg(dtype=torch.bfloat16, attn_impl="xla", ssm_impl="xla", norm_impl="xla",
+                      remat="full")
+    _free()
+    base = torch.cuda.memory_allocated()
+    params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(12), torch.bfloat16,
+                            dev)
+    params = distribute(params, named(plan, param_specs(arch, plan, params)))
+    caches = lm.init_caches(arch, cfg, B, T, device=dev)
+    caches = distribute(caches, named(plan, cache_specs(arch, plan, caches)))
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    tok = distribute({"tokens": tok}, named(plan, batch_spec(plan, {"tokens": tok})))["tokens"]
+    pos = rep["position"]
+    torch.cuda.reset_peak_memory_stats()
+    acc = OpAccountant()
+    with acc:
+        lm.decode_step(params, arch, cfg, caches, tok, pos)
+    ms = []
+    for _ in range(DRYRUN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.decode_step(params, arch, cfg, caches, tok, pos)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - base
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.decode_step(params, arch, cfg, caches, tok, pos)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = device_us(prof) / 1e3
+    del params, caches
+    _free()
+    r = rep["roofline"]
+    med = statistics.median(ms)
+    flop_rel = abs(r["flops_per_chip"] - acc.totals.flops) / acc.totals.flops
+    log("dryrun", f"(b) decode {arch.name} B={B} cache {T} at position {pos}, (1, 1): memory "
+        f"term {r['memory_s'] * 1e3:.3f} ms ({r['hbm_bytes_per_chip'] / 1e9:.3f} GB / "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), compute {r['compute_s'] * 1e3:.4f} ms, dominant "
+        f"{r['dominant']}; measured median step {med:.2f} ms (bound / measured "
+        f"{r['memory_s'] * 1e3 / med:.4f}); profiled step wall {wall:.2f} ms, device kernels "
+        f"{busy:.2f} ms, busy share {busy / wall:.3f}; FLOPs rel {flop_rel:.2e}; "
+        f"per_device_total {rep['memory']['per_device_total'] / 1e9:.3f} GB vs "
+        f"max_memory_allocated {peak / 1e9:.3f} GB")
+    check(flop_rel <= DRYRUN_FLOP_REL, "the dry-run's decode FLOPs differ from the card's step")
+    return {"memory_ms": r["memory_s"] * 1e3, "hbm_bytes": r["hbm_bytes_per_chip"],
+            "median_ms": med, "step_ms": ms, "busy_share": busy / wall, "flop_rel": flop_rel,
+            "per_device_total": rep["memory"]["per_device_total"], "peak_bytes": peak}
+
+
+def dryrun_cells_phase(procs) -> list[dict]:
+    """(c) joins the production cells: each must exit 0 with an `ok`
+    artifact; prints the JAX dry-run's summary line of each and its trace's
+    wall seconds."""
+    cells = []
+    for (arch, shape, pods), proc, logf, t0 in procs:
+        try:
+            rc = proc.wait(timeout=max(DRYRUN_CELL_TIMEOUT_S - (time.perf_counter() - t0), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = None
+        wall = time.perf_counter() - t0
+        text = logf.read_text()
+        mesh = "2x16x16" if pods == "multi" else "16x16"
+        tag = re.search(r"^=== (\S+) ===$", text, re.M)
+        art = DRYRUN_OUT / f"{tag.group(1) if tag else 'none'}.json"
+        rep = json.loads(art.read_text()) if art.exists() else {}
+        if not rep.get("ok"):
+            print(text[-4000:], file=sys.stderr)
+        summary = [x for x in text.splitlines() if x.startswith("  ok ")]
+        log("dryrun", f"(c) {arch} {shape} {mesh}: exit {rc}, {wall:.1f} s since it started "
+            f"(process start and import included); " + (summary[0].strip() if summary
+                                                        else "no summary line"))
+        check(rc == 0 and rep.get("ok"), f"the dry-run cell {arch} {shape} {mesh} failed")
+        r, m = rep["roofline"], rep["memory"]
+        cells.append({"arch": arch, "shape": shape, "mesh": mesh, "lower_s": rep["lower_s"],
+                      "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+                      "collective_s": r["collective_s"], "dominant": r["dominant"],
+                      "roofline_fraction": r["roofline_fraction"],
+                      "per_device_total": m["per_device_total"],
+                      "fits_h100_80g": m["fits_h100_80g"],
+                      "collectives": rep["collectives"]["counts"]})
+    return cells
+
+
+def dryrun_phase(dev, counters, card: str, procs: list) -> list[tuple[str, dict, dict]]:
+    """Phase 10; ``procs`` holds the cells started with the script. Returns
+    (label, launches, launches by shape) of its runs."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    start_dryrun_cells(DRYRUN_LATE_CELLS, procs)
+    # lower_cell starts its own fake process group: before the NCCL one
+    train_rep = _dryrun_cell(*_train_cell(), microbatch_rows=TRAIN_BS[0])
+    decode_rep = _dryrun_cell(*_decode_cell())
+    mesh = _one_rank_group(dev)
+    try:
+        runs, serve = dryrun_serve_phase(dev, mesh, counters)
+        more, train = dryrun_train_phase(dev, mesh, counters, train_rep)
+        runs += more
+        decode = dryrun_decode_phase(dev, mesh, decode_rep)
+    finally:
+        dist.destroy_process_group()
+    _free()
+    cells = dryrun_cells_phase(procs)
+    print(json.dumps({"dryrun": {"card": card, "serve": serve, "train": train,
+                                 "decode": decode, "cells": cells}}), flush=True)
+    log("dryrun", f"done in {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
-    from repro_torch.kernels.ssd import ssd_scan_fwd
+    import repro_torch.launch.dryrun  # noqa: F401  (the sources are there before any process starts)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    procs: list = []
+    start_dryrun_cells(DRYRUN_EARLY_CELLS, procs)
+    try:
+        return _main(dev, t_start, procs)
+    finally:
+        stop_dryrun_cells(procs)
+
+
+def _main(dev, t_start: float, procs) -> int:
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.ssd import ssd_scan_fwd
+
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2723,6 +3140,8 @@ def main() -> int:
     runs += ckpt_phase(dev, counters, smi)
     astra_phase(counters, train_rows, smi)
     runs += shard_phase(dev, counters, smi)
+    runs += dryrun_phase(dev, counters, smi, procs)
+    log("dryrun", f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
 
     for e in entries:
         e["launches"] = sum(counts[e["name"]] for _, counts, _ in runs)

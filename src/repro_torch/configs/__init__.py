@@ -11,6 +11,11 @@ import importlib
 
 from repro_torch.core.arch import ModelArch
 
+# the JAX package's assigned models, in its order
+ASSIGNED = ("granite-moe-3b-a800m", "llama4-scout-17b-a16e", "qwen3-32b", "yi-6b",
+            "command-r-35b", "qwen3-8b", "hymba-1.5b", "whisper-tiny", "mamba2-370m",
+            "pixtral-12b")
+
 _MODULES = {"qwen3-8b": "qwen3_8b", "yi-6b": "yi_6b", "mamba2-370m": "mamba2_370m",
             "qwen3-32b": "qwen3_32b", "command-r-35b": "command_r_35b",
             "hymba-1.5b": "hymba_1_5b", "granite-moe-3b-a800m": "granite_moe_3b_a800m",

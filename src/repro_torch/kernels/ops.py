@@ -141,7 +141,10 @@ def _sharded_attention(q, k, v, causal, sm_scale, impl):
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     B, Hq, Hkv = q.shape[0], q.shape[1], k.shape[1]
     batch = [a for a in BATCH_AXES if a in sizes]
-    split_b = bool(batch) and B % math.prod(sizes[a] for a in batch) == 0
+    # over batch axes of size 1 B stays whole: a one-row B sharded there is a
+    # size-1 sharded dim, which the next product's view cannot merge
+    dp = math.prod(sizes[a] for a in batch)
+    split_b = dp > 1 and B % dp == 0
     tp = sizes.get(MODEL_AXIS, 1)
     split_q = tp > 1 and Hq % tp == 0
     split_kv = split_q and Hkv % tp == 0

@@ -9,7 +9,8 @@ reader finds them):
   * ``flash_xla``       - the serving path's attention against a (partially
     filled) KV cache: ``q_start`` places the queries, ``kv_valid_len`` hides
     the cache slots not written yet, ``ring`` marks a sliding-window cache
-    that wraps around;
+    that wraps around; ``flash_xla_lse`` gives its output over one part of
+    the keys with its log-sum-exp, for a cache split over its sequence;
   * ``banded_flash_xla`` - causal sliding-window attention over Q blocks,
     each against the ``window + block_q`` keys it can see, with a
     blockwise-recompute backward.
@@ -120,16 +121,10 @@ def flash_xla_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     return _FlashXlaTrain.apply(q, k, v, causal, sm_scale, block)
 
 
-def flash_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              q_start: Optional[int] = None, kv_valid_len: Optional[int] = None,
-              ring: bool = False, causal: bool = True,
-              sm_scale: Optional[float] = None, block: int = 512) -> torch.Tensor:
-    """q ``(B, Hq, S, D)`` at absolute positions ``q_start + i`` (default
-    ``T - S``); k/v ``(B, Hkv, T, D)`` of which slots ``< kv_valid_len`` are
-    live (default all). ``ring``: k/v is a ring buffer of the last T
-    positions; once it has wrapped (``q_start + S - 1 >= T``) every slot is
-    live and no causal mask applies. Returns ``(B, Hq, S, D)`` in q's
-    dtype."""
+def _flash_xla_parts(q, k, v, q_start, kv_valid_len, ring, causal, sm_scale, block):
+    """``flash_xla``'s online softmax: the normalised f32 output ``(B, Hkv,
+    g, S, D)``, the running max m and the sum l ``(B, Hkv, g, S)``, l = 1
+    where no key was live."""
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -162,7 +157,34 @@ def flash_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * alpha[..., None] + torch.einsum("bhgst,bhtd->bhgsd", p, vblk)
         m = m_new
     l = torch.where(l == 0.0, 1.0, l)
-    return (acc / l[..., None]).reshape(B, Hq, S, D).to(q.dtype)
+    return acc / l[..., None], m, l
+
+
+def flash_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              q_start: Optional[int] = None, kv_valid_len: Optional[int] = None,
+              ring: bool = False, causal: bool = True,
+              sm_scale: Optional[float] = None, block: int = 512) -> torch.Tensor:
+    """q ``(B, Hq, S, D)`` at absolute positions ``q_start + i`` (default
+    ``T - S``); k/v ``(B, Hkv, T, D)`` of which slots ``< kv_valid_len`` are
+    live (default all). ``ring``: k/v is a ring buffer of the last T
+    positions; once it has wrapped (``q_start + S - 1 >= T``) every slot is
+    live and no causal mask applies. Returns ``(B, Hq, S, D)`` in q's
+    dtype."""
+    out, _, _ = _flash_xla_parts(q, k, v, q_start, kv_valid_len, ring, causal, sm_scale, block)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def flash_xla_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_start: int,
+                  kv_valid_len: int, sm_scale: Optional[float] = None,
+                  block: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_xla`` (causal, no ring) over one part of the keys, for a merge
+    with the other parts: the f32 output ``(B, Hq, S, D)`` normalised over
+    this part and its log-sum-exp ``(B, Hq, S)``. ``q_start`` is relative to
+    the part's first key and may be negative; a query that sees no key of
+    the part gets a log-sum-exp near -1e30, which weighs nothing in a merge."""
+    out, m, l = _flash_xla_parts(q, k, v, q_start, kv_valid_len, False, True, sm_scale, block)
+    B, Hq, S, D = q.shape
+    return out.reshape(B, Hq, S, D), (m + torch.log(l)).reshape(B, Hq, S)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.sharding import local_apply
+from repro_torch.parallel.sharding import (gather_fsdp, local_apply, split_over_model,
+                                           whole_over_model)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
@@ -43,12 +44,16 @@ def swiglu(p: dict, x: torch.Tensor, constrain=None) -> torch.Tensor:
     """Gated MLP: wi packs [gate; up] on the output dim.
 
     ``constrain(x, dims)`` (optional, ModelCfg.constrain) pins the FFN
-    intermediate's sharding, as the JAX package pins it."""
-    gate_up = x @ p["wi"]  # (B, S, 2F)
+    intermediate's sharding, as the JAX package pins it. Sharded weights are
+    gathered over the batch axes first (``gather_fsdp``), and the product is
+    made whole over "model" before its halves are taken
+    (``whole_over_model``) and the hidden split over it again before the down
+    projection (``split_over_model``)."""
+    gate_up = x @ gather_fsdp(p["wi"])  # (B, S, 2F)
     if constrain is not None:
         gate_up = constrain(gate_up, ("b", None, "m"))
-    gate, up = gate_up.chunk(2, dim=-1)
+    gate, up = whole_over_model(gate_up).chunk(2, dim=-1)
     hidden = F.silu(gate) * up
     if constrain is not None:
         hidden = constrain(hidden, ("b", None, "m"))
-    return hidden @ p["wo"]
+    return split_over_model(hidden, -1) @ gather_fsdp(p["wo"])

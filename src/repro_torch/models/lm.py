@@ -22,8 +22,10 @@ take params and a batch of DTensors, placed by ``param_specs`` and
 ``batch_spec``, for the dense family. DTensor's propagation inserts the
 collectives; the layer carry is pinned by ``constrain_batch_sharding`` where
 the JAX package pins it, ``ModelCfg.act_shard`` pins the activations it pins,
-and the logits are made whole over "model" before the loss. The other
-families and the cached path refuse DTensors.
+and the logits are made whole over "model" before the loss. The cached path
+(prefill and decode) takes params, caches and tokens as DTensors too, placed
+by ``param_specs``, ``cache_specs`` and ``batch_spec``, for the dense family
+(see ``_sharded_cached_attention``). The other families refuse DTensors.
 """
 from __future__ import annotations
 
@@ -38,12 +40,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch import resolve_device
 from repro_torch.core.arch import ModelArch
 from repro_torch.kernels import ops
-from repro_torch.kernels.xla_flash import banded_flash_xla, flash_xla
+from repro_torch.kernels.xla_flash import banded_flash_xla, flash_xla, flash_xla_lse
 from repro_torch.models import layers as L
 from repro_torch.models.moe import aux_load_balance_loss, moe_block
 from repro_torch.models.ssm import CONV_K, ssm_block, ssm_dims
-from repro_torch.parallel.sharding import (P, constrain_batch_sharding, local_apply,
-                                           placements)
+from repro_torch.parallel.sharding import (MODEL_AXIS, P, constrain_batch_sharding,
+                                           gather_fsdp, local_apply, placements,
+                                           whole_over_model)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,8 +110,8 @@ REMATS = ("none", "selective", "full")
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-# the families whose full-sequence forward takes DTensors (ROADMAP lists what
-# the others need)
+# the families whose full-sequence forward and cached path take DTensors
+# (ROADMAP lists what the others need)
 SHARDED_FAMILIES = ("dense",)
 
 
@@ -116,6 +119,12 @@ def _check_family(arch: ModelArch) -> None:
     if arch.family not in FAMILIES:
         raise ValueError(f"{arch.name}: unknown family {arch.family!r}; the families are "
                          f"{', '.join(FAMILIES)}")
+
+
+def _check_sharded(arch: ModelArch, params: dict) -> None:
+    if isinstance(params["embed"], DTensor) and arch.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(f"{arch.name}: the {arch.family} family takes no DTensor; "
+                                  f"the port shards {', '.join(SHARDED_FAMILIES)}")
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +323,8 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
     B, S, _ = h.shape
     H, Hkv, D = arch.heads, arch.kv_heads, arch.head_dim
     window = arch.sliding_window or 0
-    q, k, v = torch.split(h @ p["wqkv"], [H * D, Hkv * D, Hkv * D], dim=-1)
+    qkv = whole_over_model(h @ gather_fsdp(p["wqkv"]))
+    q, k, v = torch.split(qkv, [H * D, Hkv * D, Hkv * D], dim=-1)
     q = q.reshape(B, S, H, D)
     k = k.reshape(B, S, Hkv, D)
     v = v.reshape(B, S, Hkv, D)
@@ -331,6 +341,8 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
             out = banded_flash_xla(q, k, v, window=window)
         else:
             out = ops.flash_attention(q, k, v, causal=causal, impl=cfg.attn_impl)
+    elif isinstance(q, DTensor):
+        out = _sharded_cached_attention(cfg, cache, q, k, v)
     else:
         if cfg.kv_cache_repeat > 1:
             k = k.repeat_interleave(cfg.kv_cache_repeat, dim=1)
@@ -362,7 +374,108 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
                 out = flash_xla(q, k_read, v_read, q_start=start, kv_valid_len=start + S,
                                 ring=bool(window), causal=True)
     out = out.transpose(1, 2).reshape(B, S, H * D)
-    return out @ p["wo"]
+    return out @ gather_fsdp(p["wo"])
+
+
+def _cache_layout(cache_k) -> tuple[str, int, int]:
+    """How a layer's KV cache DTensor ``(B, Hkv', T, D)`` lies over "model":
+    ``("heads" | "seq" | "whole", tp, this rank's index on "model")``."""
+    mesh = cache_k.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    if MODEL_AXIS not in names:
+        return "whole", 1, 0
+    i = names.index(MODEL_AXIS)
+    tp, rank = mesh.shape[i], mesh.get_local_rank(MODEL_AXIS)
+    place = cache_k.placements[i]
+    if place == Shard(1):
+        return "heads", tp, rank
+    if place == Shard(2):
+        return "seq", tp, rank
+    return "whole", tp, rank
+
+
+def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v):
+    """The cached attention on DTensors: q ``(B, H, S, D)`` and the new k/v
+    ``(B, Hkv, S, D)`` against the layer's cache DTensors, placed by
+    ``cache_specs``: B over the batch axes where they divide it, and over
+    "model" the kv heads where "model" divides them, else the sequence T
+    where it divides that, else nothing. Each rank runs on its own shards
+    through ``local_apply``, with q and the new k/v over the batch axes as
+    the cache is:
+
+      * heads: q's heads over "model"; each rank writes and reads its kv heads;
+      * seq: q whole over "model"; each rank writes the new slots that fall in
+        its part of T (none, or a part of the chunk, or all of it) and runs
+        ``flash_xla_lse`` over its part at its own positions; the parts merge
+        across "model" as an exact rescale, the max of their log-sum-exps
+        first (one all-reduce), then the weighted sums of outputs and weights
+        (a second);
+      * whole: every rank writes the whole cache and reads the kv heads of
+        its q heads (q's heads over "model" where it divides them).
+
+    The KV-cache options run on each rank's shards as on a plain cache, but
+    for ``decode_dense_attn`` with the cache split over T, which is refused."""
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch.kernels.ops import _kv_heads_of
+
+    kc = cache["k"]
+    mesh = kc.device_mesh
+    start, T, Hc = cache["start"], kc.shape[2], kc.shape[1]
+    B, H, S, D = q.shape
+    layout, tp, rank = _cache_layout(kc)
+    dense = cfg.decode_dense_attn and S <= 16
+    if layout == "seq" and dense:
+        raise NotImplementedError("decode_dense_attn: the KV cache is split over its "
+                                  "sequence on \"model\"; the dense product over it is not "
+                                  "ported")
+    split_q = layout == "heads" or (layout == "whole" and tp > 1 and H % tp == 0)
+    q_pl, kv_pl = [], []
+    for name, place in zip(mesh.mesh_dim_names, kc.placements):
+        if name == MODEL_AXIS:
+            q_pl.append(Shard(1) if split_q else Replicate())
+            kv_pl.append(Replicate())
+        else:
+            q_pl.append(place)
+            kv_pl.append(place)
+    names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
+    local_cache = {n: cache[n].to_local() for n in names}
+    T_l = T // tp if layout == "seq" else T
+    t0 = rank * T_l if layout == "seq" else 0
+    Hc_l = Hc // tp if layout == "heads" else Hc
+    n_q = H // tp if split_q else H
+
+    def local(q, k, v):
+        if cfg.kv_cache_repeat > 1:
+            k = k.repeat_interleave(cfg.kv_cache_repeat, dim=1)
+            v = v.repeat_interleave(cfg.kv_cache_repeat, dim=1)
+        if layout == "heads":
+            k, v = k[:, rank * Hc_l:(rank + 1) * Hc_l], v[:, rank * Hc_l:(rank + 1) * Hc_l]
+        lo, hi = max(start, t0), min(start + S, t0 + T_l)
+        if lo < hi:
+            _write_cache(cfg, local_cache, k[:, :, lo - start:hi - start],
+                         v[:, :, lo - start:hi - start], lo - t0)
+        if cfg.kv_cache_quant:
+            k_read = _kv_dequantize(local_cache["k"], local_cache["k_scale"], cfg.dtype)
+            v_read = _kv_dequantize(local_cache["v"], local_cache["v_scale"], cfg.dtype)
+        else:
+            k_read, v_read = local_cache["k"], local_cache["v"]
+        if layout == "whole" and split_q:
+            k_read, v_read = _kv_heads_of(k_read, v_read, rank * n_q, n_q, H // Hc)
+        if layout != "seq":
+            if dense:
+                return _dense_cached_attention(q, k_read, v_read, start)
+            return flash_xla(q, k_read, v_read, q_start=start, kv_valid_len=start + S,
+                             causal=True)
+        out, lse = flash_xla_lse(q, k_read, v_read, q_start=start - t0,
+                                 kv_valid_len=min(max(start + S - t0, 0), T_l))
+        group = mesh.get_group(MODEL_AXIS)
+        w = torch.exp(lse - funcol.all_reduce(lse, "max", group))
+        both = funcol.all_reduce(torch.cat([out * w[..., None], w[..., None]], dim=-1),
+                                 "sum", group)
+        return (both[..., :D] / both[..., D:]).to(q.dtype)
+
+    return local_apply(local, (q, k, v), (tuple(q_pl), tuple(kv_pl), tuple(kv_pl)), q_pl)
 
 
 def _cross_sublayer(p: dict, h: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
@@ -424,9 +537,12 @@ def _layer_fn(arch: ModelArch, cfg: ModelCfg, lp: dict, h: torch.Tensor,
 
 
 def _head(params: dict, arch: ModelArch, cfg: ModelCfg, h: torch.Tensor) -> torch.Tensor:
+    """The final norm and the (d, V) head, gathered over the batch axes first
+    (``gather_fsdp``): else every data rank would hold the logits of every
+    row, at a vocab of 150k the largest tensor of a step."""
     h = L.norm(h, params["final_norm"], impl=cfg.norm_impl)
     head = params["embed"].T if arch.tie_embeddings else params["lm_head"]
-    return h @ head.to(h.dtype)
+    return h @ gather_fsdp(head).to(h.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -520,9 +636,7 @@ def forward_logits(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict) ->
     through the SSD kernel. Params and batch may be DTensors for the dense
     family (see the module docstring)."""
     _check_family(arch)
-    if isinstance(params["embed"], DTensor) and arch.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(f"{arch.name}: the {arch.family} family takes no DTensor; "
-                                  f"the port shards {', '.join(SHARDED_FAMILIES)}")
+    _check_sharded(arch, params)
     if cfg.cast_params_in_forward:
         params = cast_params(params, cfg.dtype)
     h, positions = _embed_inputs(params, arch, cfg, batch)
@@ -544,18 +658,27 @@ def forward_train(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict):
     ``moe_aux_weight`` times the load-balancing loss, reported as
     ``"aux_loss"``. As in the JAX package, that loss is layer 0's router
     applied to the embedded inputs. Sharded, the logits are made whole over
-    every mesh dim but the batch's before the loss, and the loss and metrics
-    come back as plain tensors, the same on every rank."""
+    every mesh dim but the batch's before the loss, each rank takes the
+    losses of its own rows (``local_apply``: DTensor's backward of the
+    gather would allocate zeros of the *global* logits on every rank, 40 GB
+    at train_4k), and the loss and metrics come back as plain tensors, the
+    same on every rank."""
     logits = forward_logits(params, arch, cfg, batch)
-    if isinstance(logits, DTensor):
-        # a vocab-sharded or partial-sum operand breaks the gather below
-        logits = logits.redistribute(logits.device_mesh, tuple(
-            p if p == Shard(0) else Replicate() for p in logits.placements))
     S_txt = batch["tokens"].shape[1]
     targets = batch["tokens"][:, 1:].long()
-    lg = logits[:, -S_txt:-1, :].float()
+
+    def token_nll(logits, targets):
+        lg = logits[:, -S_txt:-1, :].float()
+        return torch.logsumexp(lg, dim=-1) - lg.gather(-1, targets[..., None])[..., 0]
+
+    if isinstance(logits, DTensor):
+        # a vocab-sharded or partial-sum operand breaks the gather
+        rows = tuple(p if p == Shard(0) else Replicate() for p in logits.placements)
+        nll = local_apply(token_nll, (logits, targets), (rows, rows), rows,
+                          out_shape=targets.shape)
+    else:
+        nll = token_nll(logits, targets)
     del logits
-    nll = torch.logsumexp(lg, dim=-1) - lg.gather(-1, targets[..., None])[..., 0]
     mask = batch.get("loss_mask")
     if mask is not None:
         m = mask[:, 1:].float()
@@ -636,14 +759,22 @@ def forward_cached(params: dict, arch: ModelArch, cfg: ModelCfg, caches: dict,
     conv history and SSM state; encdec's cross K/V are only read) and returns
     ``(logits, caches)`` (the same dict), mirroring the JAX signature.
     Positions must lie in the KV cache, except in a ring that holds the whole
-    window, which serves any position."""
+    window, which serves any position.
+
+    Sharded (the dense family): params, caches and tokens as DTensors, the
+    logits come back as one. The caches are written in place on each rank's
+    shards (``_sharded_cached_attention``); a ring cache is not sharded."""
     _check_family(arch)
-    if isinstance(params["embed"], DTensor):
-        raise NotImplementedError("the cached path takes no DTensor: serving is not "
-                                  "sharded in the port")
+    _check_sharded(arch, params)
+    sharded = isinstance(params["embed"], DTensor)
+    if sharded and arch.sliding_window:
+        raise NotImplementedError(f"{arch.name}: the ring KV cache of a sliding window "
+                                  f"takes no DTensor")
+    if sharded and not isinstance(tokens, DTensor):
+        raise TypeError("sharded params take the tokens as a DTensor (batch_spec)")
     if cfg.cast_params_in_forward:
         params = cast_params(params, cfg.dtype)
-    h = params["embed"][tokens].to(cfg.dtype)
+    h = _lookup(params["embed"], tokens).to(cfg.dtype)
     if frontend is not None:
         h = torch.cat([frontend.to(cfg.dtype), h], dim=1)
     S = h.shape[1]

@@ -140,6 +140,58 @@ def constrain_batch_sharding(x, batch_axes: tuple[str, ...] = BATCH_AXES):
     return x.redistribute(mesh, placements(mesh, P(axes, *([None] * (x.dim() - 1)))))
 
 
+def gather_fsdp(w):
+    """A weight DTensor made whole over the batch axes ("pod", "data") with its
+    sharding over "model" kept: FSDP's gather before a product. Left sharded
+    there, DTensor's propagation of ``x @ w`` gathers the rows of x instead
+    and leaves a partial sum over "data", and the nonlinear ops and products
+    after it then run on every data rank's rows on each data rank. The
+    identity on a plain tensor, and over mesh dims of size 1 (a shard there
+    is the whole tensor; a redistribute would only cost DTensor's dispatch)."""
+    if not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    places = tuple(Replicate() if name in BATCH_AXES and n > 1 else p
+                   for name, n, p in zip(mesh.mesh_dim_names, mesh.shape, w.placements))
+    return w if places == tuple(w.placements) else w.redistribute(mesh, places)
+
+
+def whole_over_model(x):
+    """``x`` made whole over "model" before it is split along a dim that
+    "model" shards (the packed [q; k; v] and [gate; up] products). DTensor
+    does the same gather inside the split, but then its backward hands the
+    product a grad replicated over "model", and each rank computes the whole
+    weight grad; through this redistribute the grad comes back sharded as
+    the product was. The identity on a plain tensor and for "model" of size
+    1."""
+    if not isinstance(x, DTensor) or MODEL_AXIS not in x.device_mesh.mesh_dim_names:
+        return x
+    i = x.device_mesh.mesh_dim_names.index(MODEL_AXIS)
+    if isinstance(x.placements[i], Replicate) or x.device_mesh.shape[i] == 1:
+        return x
+    places = list(x.placements)
+    places[i] = Replicate()
+    return x.redistribute(x.device_mesh, tuple(places))
+
+
+def split_over_model(x, dim: int):
+    """``x`` sharded over "model" along ``dim`` where "model" divides it: the
+    input of a product with a weight sharded so on its contracted dim (the
+    FFN's down projection). From a replicated x the forward is a local
+    slice, and the weight grad comes out sharded instead of whole on every
+    rank. The identity on a plain tensor and for "model" of size 1."""
+    if not isinstance(x, DTensor) or MODEL_AXIS not in x.device_mesh.mesh_dim_names:
+        return x
+    i = x.device_mesh.mesh_dim_names.index(MODEL_AXIS)
+    dim = dim % x.dim()
+    tp = x.device_mesh.shape[i]
+    if tp == 1 or x.placements[i] == Shard(dim) or x.shape[dim] % tp:
+        return x
+    places = list(x.placements)
+    places[i] = Shard(dim)
+    return x.redistribute(x.device_mesh, tuple(places))
+
+
 def make_plan(mesh: Mesh, *, fsdp: bool = True) -> ShardingPlan:
     axes = tuple(axis_sizes(mesh))
     batch_axes = tuple(a for a in BATCH_AXES if a in axes)

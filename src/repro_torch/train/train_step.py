@@ -80,14 +80,20 @@ def make_train_step(arch: ModelArch, model_cfg: ModelCfg, cfg: TrainStepCfg) -> 
     def split(x, K: int):
         """The K microbatches of a batch leaf: consecutive row slices. A
         DTensor is reshaped to (K, GB/K, ...) with dim 1 over ``batch_axes``,
-        as the JAX step pins it, and its microbatches are the slices of dim 0."""
+        as the JAX step pins it, and its microbatches are the slices of dim 0.
+        A one-row microbatch (one data replica) stays whole: a sharded dim of
+        size 1 is one DTensor's views cannot merge into the next."""
         n = x.shape[0] // K
         if not isinstance(x, DTensor):
             return [x[i * n:(i + 1) * n] for i in range(K)]
         y = x.reshape((K, n) + tuple(x.shape[1:]))
-        if cfg.batch_axes:
-            y = y.redistribute(y.device_mesh, placements(
-                y.device_mesh, P(None, cfg.batch_axes, *([None] * (y.dim() - 2)))))
+        mesh = y.device_mesh
+        if cfg.batch_axes:  # a batch axis the mesh lacks is refused here
+            pinned = placements(mesh, P(None, cfg.batch_axes, *([None] * (y.dim() - 2))))
+        if n == 1:
+            y = y.redistribute(mesh, placements(mesh, P()))
+        elif cfg.batch_axes:
+            y = y.redistribute(mesh, pinned)
         return [y[i] for i in range(K)]
 
     def train_step(params: dict, opt_state: OptState, batch: dict):

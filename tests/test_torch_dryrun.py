@@ -1,0 +1,315 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``, ``specs``, ``roofline``,
+``op_account``, ``report``) against the JAX package's, on the CPU.
+
+(a) ``model_flops`` equals the JAX one for every assigned arch x shape.
+(b) ``_wire_bytes`` equals the JAX one per collective at group sizes 1-16.
+(c) The specs have the JAX shapes and dtypes for every arch x shape.
+(d) The accountant counts a tanh(x @ w) chain's products exactly, forward
+    and backward.
+(e) A DTensor product on a fake (2, 2) mesh counts the rank's local product
+    once, on a first trace and on a second: the global product DTensor's
+    sharding propagation runs for its metadata is left out.
+(f) An all-gather over a group of 2 gives the JAX ring model's wire bytes.
+(g) ``lower_cell`` on a (1, 1) mesh for reduced qwen3-8b at a train shape and
+    at prefill and decode shapes, against the JAX ``lower_cell`` on one
+    device: argument bytes equal but for the JAX program's int32 scalar (the
+    optimizer step in train, the position in decode; the port keeps both as
+    Python ints); FLOPs within 2%. The one gap is in the train cell: with
+    remat, the port's count holds one attention block product per layer and
+    microbatch more than the JAX count, 2 B Hq S T D (8388608 FLOPs, 1.2% of
+    the cell). The port's recomputed forward runs flash_xla_train's q k^T and
+    p v products again, as written; the optimised HLO the JAX accountant
+    reads holds one fewer. Without remat the two counts are equal.
+    ``per_device_total`` is printed, not compared: XLA's buffer assignment
+    against the port's eager live bytes.
+(h) The same cells on a fake (2, 2) mesh: FLOPs per chip x 4 within 1% of the
+    (1, 1) cell's, argument bytes per chip the local shards that
+    ``param_specs``/``cache_specs``/``batch_spec`` give, collectives counted
+    and their wire bytes by the JAX formula.
+(i) ``python -m repro_torch.launch.dryrun --device cpu`` writes an artifact
+    that ``report`` renders, and prints a cell of an unsharded family as
+    SKIP.
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+from torch_threads import pin_threads  # noqa: E402
+
+pin_threads()
+jax = pytest.importorskip("jax")
+
+from repro.configs import ASSIGNED  # noqa: E402
+from repro.configs import get_arch as jax_arch  # noqa: E402
+from repro.configs import get_reduced as jax_reduced  # noqa: E402
+from repro.core.arch import ASSIGNED_SHAPES as JAX_SHAPES  # noqa: E402
+from repro.core.arch import InputShape as JaxShape  # noqa: E402
+from repro.launch import roofline as jrl  # noqa: E402
+from repro_torch.configs import get_arch, get_reduced  # noqa: E402
+from repro_torch.core.arch import ASSIGNED_SHAPES, InputShape  # noqa: E402
+from repro_torch.launch import dryrun, report, specs  # noqa: E402
+from repro_torch.launch import roofline as rl  # noqa: E402
+from repro_torch.launch.op_account import OpAccountant, account  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.parallel.sharding import (MeshShape, batch_spec, cache_specs,  # noqa: E402
+                                           make_plan, param_specs)
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+CELLS = {"train": (64, 4), "prefill": (64, 2), "decode": (64, 2)}  # kind -> (S, B)
+MESH_1, MESH_4 = ((1, 1), ("data", "model")), ((2, 2), ("data", "model"))
+FLOP_TOL_JAX, FLOP_TOL_MESH = 0.02, 0.01
+
+
+# --- (a), (b) --------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ASSIGNED)
+def test_model_flops_equal_the_jax_ones(name):
+    for jshape, shape in zip(JAX_SHAPES, ASSIGNED_SHAPES):
+        want = jrl.model_flops(jax_arch(name), jshape)
+        assert rl.model_flops(get_arch(name), shape) == pytest.approx(want, rel=1e-12, abs=0)
+
+
+@pytest.mark.parametrize("op", ["all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                                "collective-permute"])
+def test_wire_bytes_equal_the_jax_ring_model(op):
+    for g in (1, 2, 4, 16):
+        assert rl._wire_bytes(op, 3.0e6, g) == jrl._wire_bytes(op, 3.0e6, g)
+
+
+def test_the_slowest_link_sets_a_collectives_rate():
+    assert rl.PEAK_FLOPS == 989e12 and rl.HBM_BW == 3.35e12 and rl.MEM_BYTES == 80e9
+    assert rl.link_bw(range(8)) == 900e9
+    assert rl.link_bw(range(16)) == rl.link_bw(range(0, 256, 16)) == 50e9
+
+
+# --- (c) -------------------------------------------------------------------
+
+def _same_structs(got: dict, want: dict):
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        if isinstance(w, dict):
+            _same_structs(got[k], w)
+        else:
+            assert tuple(got[k].shape) == tuple(w.shape), k
+            assert str(got[k].dtype).replace("torch.", "") == str(w.dtype), k
+            assert got[k].device.type == "meta"
+
+
+@pytest.mark.parametrize("name", ASSIGNED)
+def test_specs_have_the_jax_shapes_and_dtypes(name):
+    import jax.numpy as jnp
+
+    from repro.launch import specs as jspecs
+    from repro.models import lm as jlm
+
+    jcfg = jlm.ModelCfg(dtype=jnp.bfloat16)
+    cfg = lm.ModelCfg(dtype=torch.bfloat16)
+    jarch, arch = jax_arch(name), get_arch(name)
+    for jshape, shape in zip(JAX_SHAPES, ASSIGNED_SHAPES):
+        assert specs.text_len(arch, shape.seq_len) == jspecs.text_len(jarch, jshape.seq_len)
+        _same_structs(specs.train_batch_specs(arch, shape, cfg),
+                      jax.eval_shape(lambda: jspecs.train_batch_specs(jarch, jshape, jcfg)))
+        _same_structs(specs.prefill_specs(arch, shape, cfg),
+                      jax.eval_shape(lambda: jspecs.prefill_specs(jarch, jshape, jcfg)))
+        want = jspecs.decode_specs(jarch, jshape, jcfg)
+        got = specs.decode_specs(arch, shape, cfg)
+        assert want.pop("position").shape == () and got.pop("position") == shape.seq_len - 1
+        _same_structs(got, want)
+
+
+# --- (d), (e), (f) ---------------------------------------------------------
+
+def test_the_accountant_counts_a_product_chain_forward_and_backward():
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(128, 256, generator=g, requires_grad=True)
+    w = torch.randn(256, 256, generator=g, requires_grad=True)
+
+    def chain(x, w):
+        h = x
+        for _ in range(8):
+            h = torch.tanh(h @ w)
+        return h
+
+    fwd = 2 * 8 * 128 * 256 * 256
+    _, acc = account(chain, x, w)
+    assert acc.totals.flops == fwd
+    _, acc = account(lambda x, w: chain(x, w).sum().backward(), x, w)
+    assert acc.totals.flops == 3 * fwd
+    assert acc.memory()["argument_bytes"] == (128 + 256) * 256 * 4
+
+
+def _local(mesh, shape, places, local_shape):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(torch.empty(local_shape), mesh, places, run_check=False,
+                              shape=shape, stride=(shape[1], 1))
+
+
+def test_a_dtensor_product_counts_the_ranks_local_product_once_per_trace():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+
+    with dryrun.fake_mesh(MeshShape(*MESH_4), "cpu") as mesh, FakeTensorMode():
+        x = _local(mesh, (64, 256), (Shard(0), Replicate()), (32, 256))
+        w = _local(mesh, (512, 256), (Replicate(), Shard(0)), (256, 256))
+        muted = []
+        for _ in range(2):
+            acc = OpAccountant()
+            with acc:
+                y = x @ w.T
+            assert acc.totals.flops == 2 * 32 * 256 * 256
+            assert y.to_local().shape == (32, 256)
+            muted.append(acc.muted_ops)
+    # the first trace ran DTensor's metadata product (left out), the second
+    # found it cached
+    assert muted[0] > 0 and muted[1] == 0
+
+
+def test_an_all_gather_over_two_ranks_has_the_jax_wire_bytes():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+
+    with dryrun.fake_mesh(MeshShape(*MESH_4), "cpu") as mesh, FakeTensorMode():
+        x = _local(mesh, (64, 256), (Replicate(), Shard(0)), (32, 256))
+        acc = OpAccountant()
+        with acc:
+            x.redistribute(mesh, (Replicate(), Replicate())).to_local()
+    result = 64 * 256 * 4
+    assert [c[:3] for c in acc.collectives] == [("all-gather", result, 2)]
+    assert acc.collectives[0][3] == (0, 1)  # rank 0's "model" group, one node
+    assert acc.totals.wire_bytes == jrl._wire_bytes("all-gather", result, 2)
+    assert acc.totals.collective_s == acc.totals.wire_bytes / rl.INTRA_NODE_BW
+
+
+# --- (g), (h) --------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_cells():
+    """The JAX lower_cell reports on one device. Importing repro.launch.dryrun
+    sets XLA_FLAGS for 512 host devices: the backend is started first, and
+    the variable is put back after the import."""
+    from repro.launch.mesh import make_mesh
+
+    jax.devices()
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun as jdryrun
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+    mesh = make_mesh(*MESH_1)
+    return {kind: jdryrun.lower_cell(jax_reduced("qwen3-8b"), JaxShape(kind, S, B, kind), mesh)
+            for kind, (S, B) in CELLS.items()}
+
+
+@pytest.fixture(scope="module")
+def port_cells():
+    arch = get_reduced("qwen3-8b")
+    return {(mesh, kind): dryrun.lower_cell(arch, InputShape(kind, S, B, kind),
+                                            MeshShape(*mesh), device="cpu")
+            for mesh in (MESH_1, MESH_4) for kind, (S, B) in CELLS.items()}
+
+
+# the JAX program's int32 scalar argument the port keeps as a Python int
+JAX_ONLY_ARG_BYTES = {"train": 4, "prefill": 0, "decode": 4}
+
+
+@pytest.mark.parametrize("kind", list(CELLS))
+def test_a_one_rank_cell_against_the_jax_dry_run(kind, jax_cells, port_cells):
+    want, got = jax_cells[kind], port_cells[(MESH_1, kind)]
+    assert got["ok"] and got["mesh"] == "1x1"
+    assert (got["memory"]["argument_bytes"] + JAX_ONLY_ARG_BYTES[kind]
+            == want["memory"]["argument_bytes"])
+    jf, tf = want["roofline"]["flops_per_chip"], got["roofline"]["flops_per_chip"]
+    assert abs(tf - jf) <= FLOP_TOL_JAX * jf, (tf, jf)
+    assert got["roofline"]["model_flops_total"] == want["roofline"]["model_flops_total"]
+    print(f"{kind}: per_device_total port {got['memory']['per_device_total']} bytes, "
+          f"JAX {want['memory']['per_device_total']} bytes")
+
+
+def _local_bytes(plan, spec_tree, struct_tree) -> int:
+    if isinstance(struct_tree, dict):
+        return sum(_local_bytes(plan, spec_tree[k], v) for k, v in struct_tree.items())
+    n = struct_tree.numel() * struct_tree.element_size()
+    for entry in spec_tree:
+        for axis in (entry,) if isinstance(entry, str) else tuple(entry or ()):
+            n //= plan.axis_size(axis)
+    return n
+
+
+@pytest.mark.parametrize("kind", list(CELLS))
+def test_a_four_rank_cell_splits_the_one_rank_cell(kind, port_cells):
+    one, four = port_cells[(MESH_1, kind)], port_cells[(MESH_4, kind)]
+    f1, f4 = one["roofline"]["flops_per_chip"], four["roofline"]["flops_per_chip"]
+    assert abs(4 * f4 - f1) <= FLOP_TOL_MESH * f1, (4 * f4, f1)
+    arch, (S, B) = get_reduced("qwen3-8b"), CELLS[kind]
+    plan = make_plan(MeshShape(*MESH_4), fsdp=True)
+    cfg = lm.ModelCfg(dtype=torch.bfloat16)
+    shape = InputShape(kind, S, B, kind)
+    if kind == "train":
+        p = lm.init_params(arch, torch.Generator(), torch.float32, device="meta")
+        b = specs.train_batch_specs(arch, shape, cfg)
+        want = 3 * _local_bytes(plan, param_specs(arch, plan, p), p)  # params, mu, nu
+        want += _local_bytes(plan, batch_spec(plan, b), b)
+    else:
+        p = lm.init_params(arch, torch.Generator(), torch.bfloat16, device="meta")
+        s = (specs.prefill_specs if kind == "prefill" else specs.decode_specs)(arch, shape, cfg)
+        want = (_local_bytes(plan, param_specs(arch, plan, p), p)
+                + _local_bytes(plan, cache_specs(arch, plan, s["caches"]), s["caches"])
+                + _local_bytes(plan, batch_spec(plan, {"t": s["tokens"]}), {"t": s["tokens"]}))
+    assert four["memory"]["argument_bytes"] == want
+    coll = four["collectives"]
+    assert sum(coll["counts"].values()) > 0
+    wire = sum(jrl._wire_bytes(r["op"], r["result_bytes"], r["group_size"])
+               for r in coll["by_group_size"])
+    assert coll["wire_bytes"] == pytest.approx(wire, rel=1e-12)
+    assert four["roofline"]["chips"] == 4 and four["memory"]["fits_h100_80g"]
+
+
+def test_lower_cell_refuses_what_it_cannot_trace():
+    from repro_torch.core.arch import ASSIGNED_SHAPES
+
+    decode = {s.name: s for s in ASSIGNED_SHAPES}["decode_32k"]
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        dryrun.lower_cell(get_reduced("mamba2-370m"), decode, MeshShape(*MESH_4), device="cpu")
+    with pytest.raises(ValueError, match="unknown --opt"):
+        dryrun.lower_cell(get_reduced("qwen3-8b"), decode, MeshShape(*MESH_4), device="cpu",
+                          opts=frozenset({"no_such_opt"}))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            dryrun.lower_cell(get_reduced("qwen3-8b"), decode, MeshShape(*MESH_4))
+
+
+# --- (i) -------------------------------------------------------------------
+
+def _cli(*argv, out):
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--device", "cpu", "--reduced",
+         "--shape", "decode_32k", "--mesh", "2x2", "--out", str(out), *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+
+
+def test_the_cli_writes_an_artifact_that_report_renders(tmp_path):
+    res = _cli("--arch", "qwen3-8b", out=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "  ok lower=" in res.stdout
+    cells = report.load_cells(str(tmp_path))
+    assert [c["arch"] for c in cells] == ["qwen3-8b-reduced"] and cells[0]["ok"]
+    assert json.loads((tmp_path / "qwen3-8b-reduced__decode_32k__2x2.json").read_text())["ok"]
+    table = report.markdown_table(cells, single_pod_only=False)  # "2x..." reads as two pods
+    assert "| qwen3-8b-reduced | decode_32k | 2x2 |" in table
+    assert report.summary(cells)["cells_ok"] == 1
+
+    res = _cli("--arch", "mamba2-370m", out=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "SKIP mamba2-370m x decode_32k: the port shards dense only" in res.stdout
+    assert len(report.load_cells(str(tmp_path))) == 1
+    assert math.isfinite(report.summary(cells)["worst_fraction"][0])

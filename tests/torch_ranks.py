@@ -270,3 +270,82 @@ def pipeline_program(rank, world, out, w_np, x_np):
                       "same_on_every_rank": all(torch.equal(t, ys[0]) for t in ys)}
     if rank == 0:
         torch.save(results, out)
+
+
+def cached_program(rank, world, out, cases, chunk_case):
+    """On a (2, 2) data x model mesh with FSDP, params, caches and tokens as
+    DTensors placed by param_specs, cache_specs and batch_spec. Per case
+    (label, arch name, params, prompts, new tokens N, max_len, ModelCfg
+    options): the prefill and N greedy decode steps, each step's logits made
+    whole, the tokens, and the caches' placements; or the error the cached
+    path raised. Then chunk_case (params, P0, C, max_len, tokens) for reduced
+    yi-6b: a prefill of P0 tokens and a chunk of C more from position P0,
+    each rank's local k shard after each. Rank 0 saves the results."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.parallel.sharding import (batch_spec, cache_specs, distribute, make_plan,
+                                               named, param_specs)
+
+    plan = make_plan(make_mesh((2, 2), ("data", "model"), "cpu"), fsdp=True)
+
+    def placed(arch, cfg, params_np, B, T):
+        params = params_from_numpy(params_np, device="cpu")
+        params = distribute(params, named(plan, param_specs(arch, plan, params)))
+        caches = lm.init_caches(arch, cfg, B, T, device="cpu")
+        return params, distribute(caches, named(plan, cache_specs(arch, plan, caches)))
+
+    def tokens(t):
+        t = torch.as_tensor(t).long()
+        return distribute({"tokens": t}, named(plan, batch_spec(plan, {"tokens": t})))["tokens"]
+
+    results = {}
+    for label, name, params_np, prompts, N, T, opts in cases:
+        arch = get_reduced(name)
+        cfg = lm.ModelCfg(dtype=torch.float32, **opts)
+        params, caches = placed(arch, cfg, params_np, prompts.shape[0], T)
+        try:
+            logits, _ = lm.prefill(params, arch, cfg, caches, tokens(prompts))
+            steps = [logits.full_tensor().numpy()]
+            nxt = logits.full_tensor()[:, -1].argmax(-1, keepdim=True)
+            seq = [torch.as_tensor(prompts).long(), nxt]
+            for i in range(N):
+                logits, _ = lm.decode_step(params, arch, cfg, caches, tokens(nxt),
+                                           prompts.shape[1] + i)
+                steps.append(logits.full_tensor().numpy())
+                nxt = logits.full_tensor()[:, -1].argmax(-1, keepdim=True)
+                seq.append(nxt)
+            results[label] = {"logits": steps, "tokens": torch.cat(seq[:-1], 1).numpy(),
+                              "placements": {k: tuple(v.placements) for k, v in caches.items()}}
+        except NotImplementedError as e:
+            results[label] = {"error": str(e)}
+
+    params_np, P0, C, T, toks = chunk_case
+    arch = get_reduced("yi-6b")
+    cfg = lm.ModelCfg(dtype=torch.float32)
+    params, caches = placed(arch, cfg, params_np, toks.shape[0], T)
+    shards = []
+    lm.prefill(params, arch, cfg, caches, tokens(toks[:, :P0]))
+    for start, chunk in ((None, None), (P0, toks[:, P0:P0 + C])):
+        if start is not None:
+            lm.forward_cached(params, arch, cfg, caches, tokens(chunk), start)
+        every = [None] * world
+        dist.all_gather_object(every, (plan.mesh.get_coordinate(),
+                                       caches["k"].to_local().numpy().copy()))
+        shards.append(every)
+    results["chunk"] = {"shards": shards, "placements": tuple(caches["k"].placements)}
+
+    ssm = get_reduced("mamba2-370m")
+    ssm_params = lm.init_params(ssm, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    ssm_params = distribute(ssm_params, named(plan, param_specs(ssm, plan, ssm_params)))
+    try:
+        lm.prefill(ssm_params, ssm, cfg, lm.init_caches(ssm, cfg, 2, 16, device="cpu"),
+                   tokens(torch.zeros((2, 4), dtype=torch.long)))
+        results["ssm"] = None
+    except NotImplementedError as e:
+        results["ssm"] = str(e)
+    if rank == 0:
+        torch.save(results, out)
