@@ -88,7 +88,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
                plain tensors: the losses and every leaf, the launches, the
                first step's ms and the median and range of the other seven,
                and the peak memory of each run, in a {"shard": ...} JSON
-               line;
+               line; the same for mamba2-370m (2 of 48 layers, B=1 S=256)
+               and hymba-1.5b (2 of 32 layers, B=1 S=2048, past its window:
+               the banded attention), four steps each, K1 and K3 on each
+               rank's shards through local_apply, in a {"shard_ssm": ...}
+               JSON line;
                pipeline_apply at one stage against the sequential stack; a
                save at (1, 1) restored through restore(shardings=) with
                placements; the train driver under torchrun --nproc-per-node 1
@@ -98,19 +102,26 @@ Phases, each reported on its own lines; any failure exits non-zero:
                + 32 greedy tokens) with params, caches and tokens as DTensors
                on a (1, 1) mesh over the one-rank NCCL group, against plain
                tensors: tokens equal, prefill logits bit for bit, K1 launched
-               on the DTensor path; (b) lower_cell of phase 9's cell on fake
-               CUDA tensors against the same step on the card under the same
-               op accountant: FLOPs equal, the predicted per-device memory
-               within DRYRUN_MEM_RATIO of max_memory_allocated, the roofline
-               bound beside the measured step, the step through the kernels
+               on the DTensor path; the same for mamba2-370m and hymba-1.5b
+               at full depth (4 x 128 + 32, and hymba 2 x 1024 + 8, whose
+               prompt fills its ring of 1024 and whose decode steps wrap
+               it); (b) lower_cell of phase 9's cells (qwen3-8b's and
+               mamba2-370m's) on fake CUDA tensors against the same step on
+               the card under the same op accountant (mamba2's scan there
+               the real loop of 256 steps, which the dry-run counts in
+               three): FLOPs equal, the predicted per-device memory within
+               DRYRUN_MEM_RATIO of max_memory_allocated, the roofline bound
+               beside the measured step, the step through the kernels
                beside it; one decode step at full depth against a cache of
                1024, its memory term beside the measured step and the busy
                share; (c) the production cells (qwen3-8b at train_4k,
                prefill_32k and decode_32k on 16x16 and train_4k on 2x16x16,
-               the other dense archs' serve cells on 16x16), each a `python -m
-               repro_torch.launch.dryrun` process at the lowest priority (the
-               train cells start with the script) on fake CUDA tensors and a fake process group of 256 or 512
-               ranks, all `ok`; a {"dryrun": ...} JSON line;
+               the other dense archs' serve cells on 16x16, mamba2-370m's
+               and hymba-1.5b's 16 cells at all four shapes on both
+               meshes), each a `python -m repro_torch.launch.dryrun` process
+               at the lowest priority (the train cells start with the
+               script) on fake CUDA tensors and a fake process group of 256
+               or 512 ranks, all `ok`; a {"dryrun": ...} JSON line;
  11. order   - RMSNorm timed at each (rows, D) it ran at in phases 4-10, with
                the launches its wrapper counted there at that shape, beside
                F.rms_norm at the same shape and the launch floor (a one-block
@@ -2403,6 +2414,10 @@ TORCHRUN_TIMEOUT_S = 300
 # the train driver as DRIVER_ARGV runs it, but 20 steps: under torchrun each
 # step also pays DTensor's dispatch on the host
 SHARD_DRIVER_STEPS = 20
+# the ssm and hybrid families on DTensors: name -> (layers, (B, S)); mamba2
+# as phase 6's mamba2 step, hymba past its window of 1024 (the banded path)
+SHARD_SSM_CELLS = {"mamba2-370m": (2, (1, 256)), "hymba-1.5b": (2, (1, 2048))}
+SHARD_SSM_STEPS = 4
 
 
 def _one_rank_group(dev):
@@ -2417,28 +2432,25 @@ def _one_rank_group(dev):
     return make_mesh((1, 1), ("data", "model"), "cuda")
 
 
-def shard_steps_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, dict]]:
-    """SHARD_STEPS make_train_step steps of qwen3-8b (full width,
-    SHARD_LAYERS layers) with params, AdamW state and batch as DTensors on the
-    (1, 1) mesh with FSDP, against the same steps on plain tensors from the
-    same params: the losses and every leaf, K1 and K2 launches of each run,
-    the wall ms of each step and the peak memory. Returns (label, launches,
-    launches by shape) of both runs."""
+def _shard_vs_plain(dev, mesh, counters, arch, B: int, S: int, steps: int,
+                    per_step: dict) -> dict:
+    """``steps`` make_train_step steps of ``arch`` (bf16) with params, AdamW
+    state and batch as DTensors on the (1, 1) mesh with FSDP, against the
+    same steps on plain tensors from the same params: the losses and every
+    leaf, the kernels' launches of each run against ``per_step`` a step, the
+    wall ms of each step and the peak memory. Returns the runs' (label,
+    launches, launches by shape), their rows and the comparison."""
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.configs import get_arch
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import batch_spec, distribute, make_plan, named, param_specs
     from repro_torch.train import TrainStepCfg, adamw_init, make_train_step
 
-    arch = dataclasses.replace(get_arch("qwen3-8b"), num_layers=SHARD_LAYERS)
-    B, S = TRAIN_BS
-    L = arch.num_layers
     plan = make_plan(mesh, fsdp=True)
     step_fn = make_train_step(arch, lm.ModelCfg(dtype=torch.bfloat16),
                               TrainStepCfg(warmup_steps=2, total_steps=10,
                                            batch_axes=plan.batch_axes))
-    per_step = {"rmsnorm_fwd": 4 * L + 1, "flash_attention_fwd": L, "ssd_scan_fwd": 0}
+    name = arch.name
     runs, rows = [], {}
 
     def run(label, sharded, kept_bytes):
@@ -2450,7 +2462,7 @@ def shard_steps_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, d
         opt = adamw_init(params)
         losses, ms = [], []
         reset_counts(counters)
-        for i in range(SHARD_STEPS):
+        for i in range(steps):
             g = torch.Generator(device=dev).manual_seed(200 + i)
             batch = {"tokens": torch.randint(0, arch.vocab, (B, S), device=dev, generator=g)}
             if sharded:
@@ -2464,8 +2476,8 @@ def shard_steps_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, d
         counts, shapes = read_counts(counters)
         peak = torch.cuda.max_memory_allocated() - kept_bytes
         check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss {losses}")
-        check(counts == {k: SHARD_STEPS * v for k, v in per_step.items()},
-              f"{label}: launches {counts}, {SHARD_STEPS} x {per_step} expected")
+        check(counts == {k: steps * v for k, v in per_step.items()},
+              f"{label}: launches {counts}, {steps} x {per_step} expected")
         if sharded:
             check(all(isinstance(t, DTensor) for t in _leaves(params))
                   and all(isinstance(t, DTensor) for t in _leaves(opt.mu)),
@@ -2481,8 +2493,8 @@ def shard_steps_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, d
         names = [f"{k}.{n}" for k, tree in trees.items() for n in _leaf_names(tree)]
         return state, losses, names
 
-    plain_label = f"qwen3-8b shard plain x{SHARD_STEPS}"
-    dt_label = f"qwen3-8b shard DTensor (1,1) x{SHARD_STEPS}"
+    plain_label = f"{name} shard plain x{steps}"
+    dt_label = f"{name} shard DTensor (1,1) x{steps}"
     want, want_loss, names = run(plain_label, False, 0)
     kept = sum(t.numel() * t.element_size() for t in want)
     got, got_loss, _ = run(dt_label, True, kept)
@@ -2490,28 +2502,72 @@ def shard_steps_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, d
     worst = max(range(len(rels)), key=rels.__getitem__)
     equal = sum(torch.equal(a, b) for a, b in zip(got, want))
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(got_loss, want_loss))
-    log("shard", f"DTensor vs plain after {SHARD_STEPS} steps: loss rel gap {loss_gap:.3e}; "
+    log("shard", f"{name} DTensor vs plain after {steps} steps: loss rel gap {loss_gap:.3e}; "
         f"{equal} of {len(want)} leaves (params, mu, nu) equal bit for bit, worst leaf "
         f"{names[worst]} rel {rels[worst]:.3e} (bound {SHARD_REL})")
     check(loss_gap <= SHARD_REL and rels[worst] <= SHARD_REL,
-          "the DTensor step disagrees with the plain-tensor step")
+          f"the {name} DTensor step disagrees with the plain-tensor step")
     del got, want
     _free()
     plain, dt = rows[plain_label], rows[dt_label]
     warm = {k: sorted(r["step_ms"][1:]) for k, r in (("plain", plain), ("dtensor", dt))}
     med = {k: statistics.median(v) for k, v in warm.items()}
-    log("shard", f"steps 2-{SHARD_STEPS}: plain median {med['plain']:.1f} ms "
+    log("shard", f"{name} steps 2-{steps}: plain median {med['plain']:.1f} ms "
         f"({warm['plain'][0]:.1f}-{warm['plain'][-1]:.1f}), DTensor median "
         f"{med['dtensor']:.1f} ms ({warm['dtensor'][0]:.1f}-{warm['dtensor'][-1]:.1f}), "
         f"ratio of the medians {med['dtensor'] / med['plain']:.4f}")
-    print(json.dumps({"shard": {
-        "card": card, "arch": f"qwen3-8b, {L} layers", "batch": B, "seq": S, "mesh": [1, 1],
-        "plain_step_ms": plain["step_ms"], "dtensor_step_ms": dt["step_ms"],
-        "plain_warm_median_ms": med["plain"], "dtensor_warm_median_ms": med["dtensor"],
-        "plain_peak_gb": plain["peak_gb"], "dtensor_peak_gb": dt["peak_gb"],
-        "loss_rel_gap": loss_gap, "worst_leaf": names[worst], "worst_leaf_rel": rels[worst],
-        "leaves_equal": equal, "leaves": len(rels),
-        "dtensor_launches": dt["launches"]}}), flush=True)
+    return {"runs": runs, "plain": plain, "dtensor": dt, "median": med, "loss_gap": loss_gap,
+            "worst_leaf": names[worst], "worst_leaf_rel": rels[worst], "leaves_equal": equal,
+            "leaves": len(rels)}
+
+
+def _shard_row(card: str, arch, B: int, S: int, res: dict) -> dict:
+    plain, dt, med = res["plain"], res["dtensor"], res["median"]
+    return {"card": card, "arch": f"{arch.name}, {arch.num_layers} layers", "batch": B,
+            "seq": S, "mesh": [1, 1], "plain_step_ms": plain["step_ms"],
+            "dtensor_step_ms": dt["step_ms"], "plain_warm_median_ms": med["plain"],
+            "dtensor_warm_median_ms": med["dtensor"], "plain_peak_gb": plain["peak_gb"],
+            "dtensor_peak_gb": dt["peak_gb"], "loss_rel_gap": res["loss_gap"],
+            "worst_leaf": res["worst_leaf"], "worst_leaf_rel": res["worst_leaf_rel"],
+            "leaves_equal": res["leaves_equal"], "leaves": res["leaves"],
+            "dtensor_launches": dt["launches"]}
+
+
+def shard_steps_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, dict]]:
+    """SHARD_STEPS steps of qwen3-8b (full width, SHARD_LAYERS layers) on
+    DTensors against plain tensors (``_shard_vs_plain``), K1 and K2 on the
+    DTensor path; a {"shard": ...} JSON line. Returns (label, launches,
+    launches by shape) of both runs."""
+    from repro_torch.configs import get_arch
+
+    arch = dataclasses.replace(get_arch("qwen3-8b"), num_layers=SHARD_LAYERS)
+    B, S = TRAIN_BS
+    L = arch.num_layers
+    per_step = {"rmsnorm_fwd": 4 * L + 1, "flash_attention_fwd": L, "ssd_scan_fwd": 0}
+    res = _shard_vs_plain(dev, mesh, counters, arch, B, S, SHARD_STEPS, per_step)
+    print(json.dumps({"shard": _shard_row(card, arch, B, S, res)}), flush=True)
+    return res["runs"]
+
+
+def shard_ssm_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, dict]]:
+    """The ssm and hybrid families on DTensors: SHARD_SSM_STEPS steps of
+    mamba2-370m and hymba-1.5b (full width, SHARD_SSM_CELLS' layers, B and
+    S) against plain tensors (``_shard_vs_plain``): K1 and K3 on each rank's
+    shards (through local_apply), hymba's attention past its window through
+    the banded path; a {"shard_ssm": ...} JSON line."""
+    from repro_torch.configs import get_arch
+
+    runs, rows = [], []
+    for name, (L, (B, S)) in SHARD_SSM_CELLS.items():
+        arch = dataclasses.replace(get_arch(name), num_layers=L)
+        norms = L + 1 if arch.family == "ssm" else 2 * L + 1
+        flash = L if arch.sliding_window == 0 or S <= arch.sliding_window else 0
+        per_step = {"rmsnorm_fwd": norms, "flash_attention_fwd": 0 if arch.is_attention_free
+                    else flash, "ssd_scan_fwd": L}
+        res = _shard_vs_plain(dev, mesh, counters, arch, B, S, SHARD_SSM_STEPS, per_step)
+        runs += res["runs"]
+        rows.append(_shard_row(card, arch, B, S, res))
+    print(json.dumps({"shard_ssm": rows}), flush=True)
     return runs
 
 
@@ -2631,6 +2687,7 @@ def shard_phase(dev, counters, card: str) -> list[tuple[str, dict, dict]]:
     mesh = _one_rank_group(dev)
     try:
         runs = shard_steps_phase(dev, mesh, counters, card)
+        runs += shard_ssm_phase(dev, mesh, counters, card)
         shard_pipeline_phase(dev)
         shard_restore_phase(dev, mesh)
     finally:
@@ -2667,6 +2724,18 @@ DRYRUN_EARLY_CELLS = (("qwen3-8b", "train_4k", "single"), ("qwen3-8b", "train_4k
 DRYRUN_LATE_CELLS = tuple((a, s, "single") for a in ("qwen3-8b", "yi-6b", "qwen3-32b",
                                                     "command-r-35b")
                           for s in ("prefill_32k", "decode_32k"))
+# the ssm and hybrid archs' 16 production cells (long_500k included): their
+# train cells start with the script, the others with the phase
+SSM_ARCHS = ("mamba2-370m", "hymba-1.5b")
+DRYRUN_EARLY_CELLS += tuple((a, "train_4k", p) for a in SSM_ARCHS for p in ("single", "multi"))
+DRYRUN_LATE_CELLS += tuple((a, s, p) for a in SSM_ARCHS
+                           for s in ("prefill_32k", "decode_32k", "long_500k")
+                           for p in ("single", "multi"))
+# (a) the ssm and hybrid archs at full depth: (name, B, prompt, new, max_len);
+# hymba's second run fills its ring of 1024 with the prompt (the ring
+# prefill) and its decode steps wrap it
+DRYRUN_SSM_SERVE = (("mamba2-370m", 4, 128, 32, 160), ("hymba-1.5b", 4, 128, 32, 160),
+                    ("hymba-1.5b", 2, 1024, 8, 1024 + 8))
 DRYRUN_CELL_TIMEOUT_S = 1000
 DRYRUN_OUT = pathlib.Path(__file__).resolve().parent / "build" / "dryrun_smoke"
 
@@ -2728,28 +2797,24 @@ def _greedy(params, arch, cfg, caches, prompts, N: int, place=None):
     return first, torch.cat(seq, dim=1), ms
 
 
-def dryrun_serve_phase(dev, mesh, counters) -> tuple[list, dict]:
-    """(a) qwen3-8b at full width and depth, bf16: prefill + 32 greedy steps
-    of 4 prompts x 128 with params, caches and tokens as DTensors on the
-    (1, 1) mesh (the cached path on DTensors, K1 through local_apply)
-    against the same run on plain tensors: tokens equal, prefill logits bit
-    for bit. Returns the DTensor run's (label, launches, by shape) and a row
-    for the JSON line."""
-    from repro_torch.configs import get_arch
+def _serve_vs_plain(dev, mesh, counters, arch, B: int, P: int, N: int, T: int, seed: int,
+                    per_forward: dict) -> tuple[tuple, dict]:
+    """Prefill + N greedy steps of P-token prompts (cache of T) in bf16 with
+    params, caches and tokens as DTensors on the (1, 1) mesh (the cached path
+    on DTensors, the kernels through local_apply) against the same run on
+    plain tensors: tokens equal, prefill logits bit for bit, each run's
+    launches (N + 1) x ``per_forward``. Returns the DTensor run's (label,
+    launches, by shape) and a row for the JSON line."""
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import (batch_spec, cache_specs, distribute, make_plan,
                                                named, param_specs)
 
-    arch = get_arch("qwen3-8b")
-    B, P, N, T = (DRYRUN_SERVE[k] for k in ("B", "P", "N", "max_len"))
     cfg = lm.ModelCfg(dtype=torch.bfloat16)
     plan = make_plan(mesh, fsdp=True)
-    params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(11), torch.bfloat16,
+    params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(seed), torch.bfloat16,
                             dev)
-    prompts = torch.as_tensor(np.random.default_rng(6).integers(0, arch.vocab, size=(B, P)),
-                              device=dev)
-    per_forward = {"rmsnorm_fwd": 4 * arch.num_layers + 1, "flash_attention_fwd": 0,
-                   "ssd_scan_fwd": 0}
+    prompts = torch.as_tensor(np.random.default_rng(seed - 5).integers(0, arch.vocab,
+                                                                       size=(B, P)), device=dev)
     expect = {k: (N + 1) * v for k, v in per_forward.items()}
 
     reset_counts(counters)
@@ -2772,19 +2837,51 @@ def dryrun_serve_phase(dev, mesh, counters) -> tuple[list, dict]:
     same_logits = torch.equal(got_logits, want_logits)
     same_tokens = torch.equal(got, want)
     med = {"plain": statistics.median(plain_ms), "dtensor": statistics.median(dt_ms)}
-    log("dryrun", f"(a) qwen3-8b serve B={B} prompt={P} new={N} max_len={T}, bf16: DTensor "
-        f"params, caches and tokens on the (1, 1) mesh against plain tensors: tokens equal "
-        f"{same_tokens}, prefill logits equal bit for bit {same_logits}; median decode step "
-        f"plain {med['plain']:.2f} ms, DTensor {med['dtensor']:.2f} ms; launches plain "
+    ring = (f", a ring of {min(T, arch.sliding_window)} slots" if arch.sliding_window else "")
+    log("dryrun", f"(a) {arch.name} serve B={B} prompt={P} new={N} max_len={T}{ring}, bf16: "
+        f"DTensor params, caches and tokens on the (1, 1) mesh against plain tensors: tokens "
+        f"equal {same_tokens}, prefill logits equal bit for bit {same_logits}; median decode "
+        f"step plain {med['plain']:.2f} ms, DTensor {med['dtensor']:.2f} ms; launches plain "
         f"{plain_counts}, DTensor {counts} (expect {expect})")
-    check(same_tokens and same_logits, "the sharded cached path disagrees with the plain one")
-    check(counts == expect and plain_counts == expect, "sharded serve launch counts")
+    check(same_tokens and same_logits,
+          f"the sharded cached path of {arch.name} disagrees with the plain one")
+    check(counts == expect and plain_counts == expect, f"{arch.name} sharded serve launches")
     del dparams, dcaches
     _free()
-    return ([(f"qwen3-8b serve DTensor (1,1) {B}x{P}+{N}", counts, shapes)],
-            {"tokens_equal": same_tokens, "prefill_logits_equal": same_logits,
+    return ((f"{arch.name} serve DTensor (1,1) {B}x{P}+{N}", counts, shapes),
+            {"arch": arch.name, "batch": B, "prompt": P, "new": N, "max_len": T,
+             "tokens_equal": same_tokens, "prefill_logits_equal": same_logits,
              "plain_decode_median_ms": med["plain"], "dtensor_decode_median_ms": med["dtensor"],
              "dtensor_launches": counts})
+
+
+def dryrun_serve_phase(dev, mesh, counters) -> tuple[list, dict]:
+    """(a) qwen3-8b at full width and depth, then mamba2-370m and hymba-1.5b
+    (DRYRUN_SSM_SERVE: a cache that never wraps, and hymba's prompt that
+    fills its ring of 1024 with decode steps that wrap it), each served on
+    DTensors against plain tensors (``_serve_vs_plain``). Returns the DTensor
+    runs' (label, launches, by shape) and qwen3's row for the JSON line with
+    the others' under "ssm"."""
+    from repro_torch.configs import get_arch
+
+    arch = get_arch("qwen3-8b")
+    per_forward = {"rmsnorm_fwd": 4 * arch.num_layers + 1, "flash_attention_fwd": 0,
+                   "ssd_scan_fwd": 0}
+    run, row = _serve_vs_plain(dev, mesh, counters, arch, *(DRYRUN_SERVE[k] for k in (
+        "B", "P", "N", "max_len")), 11, per_forward)
+    runs, rows = [run], []
+    for name, B, P, N, T in DRYRUN_SSM_SERVE:
+        arch = get_arch(name)
+        L = arch.num_layers
+        # the cached path scans with the plain version (the JAX package's
+        # impl="xla" there) and attends through flash_xla: K1 alone
+        per_forward = {"rmsnorm_fwd": L + 1 if arch.family == "ssm" else 2 * L + 1,
+                       "flash_attention_fwd": 0, "ssd_scan_fwd": 0}
+        run, r = _serve_vs_plain(dev, mesh, counters, arch, B, P, N, T, 11, per_forward)
+        runs.append(run)
+        rows.append(r)
+    row["ssm"] = rows
+    return runs, row
 
 
 def _dryrun_cell(arch, shape, **kw) -> dict:
@@ -2798,13 +2895,19 @@ def _dryrun_cell(arch, shape, **kw) -> dict:
     return rep
 
 
-def _train_cell():
+def _train_cell(name: str = "qwen3-8b", L: int = DRYRUN_TRAIN_LAYERS, bs=TRAIN_BS):
     from repro_torch.configs import get_arch
     from repro_torch.core.arch import InputShape
 
-    B, S = TRAIN_BS
-    return (dataclasses.replace(get_arch("qwen3-8b"), num_layers=DRYRUN_TRAIN_LAYERS),
+    B, S = bs
+    return (dataclasses.replace(get_arch(name), num_layers=L),
             InputShape("phase9_cell", S, B, "train"))
+
+
+def _mamba2_cell():
+    """Phase 9's mamba2 cell."""
+    L, bs = SHARD_SSM_CELLS["mamba2-370m"]
+    return _train_cell("mamba2-370m", L, bs)
 
 
 def _decode_cell():
@@ -2815,19 +2918,23 @@ def _decode_cell():
     return get_arch("qwen3-8b"), InputShape("decode_1k", T, B, "decode")
 
 
-def dryrun_train_phase(dev, mesh, counters, rep: dict) -> tuple[list, dict]:
-    """(b) phase 9's cell through lower_cell (``rep``), then the same step on the card
-    ("xla" impls, as the dry-run runs it) under the same accountant: FLOPs
-    equal, the predicted per-device memory against max_memory_allocated, the
-    roofline bound against the measured median step; then the same step
-    through the kernels (its time, peak and K1/K2 launches)."""
+def dryrun_train_phase(dev, mesh, counters, rep: dict, cell=None,
+                       kernel_launches=None) -> tuple[list, dict]:
+    """(b) phase 9's cell (``cell``, default qwen3-8b's) through lower_cell
+    (``rep``), then the same step on the card ("xla" impls, as the dry-run
+    runs it; mamba2's scan the real loop of S steps, which the dry-run
+    counts in three) under the same accountant: FLOPs equal, the predicted
+    per-device memory against max_memory_allocated, the roofline bound
+    against the measured median step; then the same step through the
+    kernels (its time, peak and launches, ``kernel_launches`` by default
+    qwen3's)."""
     from repro_torch.launch import roofline as rl
     from repro_torch.launch.op_account import OpAccountant
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import batch_spec, distribute, make_plan, named, param_specs
     from repro_torch.train import TrainStepCfg, adamw_init, make_train_step
 
-    arch, shape = _train_cell()
+    arch, shape = cell or _train_cell()
     B, S = shape.global_batch, shape.seq_len
     plan = make_plan(mesh, fsdp=True)
     xla = lm.ModelCfg(dtype=torch.bfloat16, attn_impl="xla", ssm_impl="xla", norm_impl="xla",
@@ -2867,7 +2974,7 @@ def dryrun_train_phase(dev, mesh, counters, rep: dict) -> tuple[list, dict]:
                        "accountant_peak_bytes": acc.memory()["per_device_total"],
                        "launches_counted_step": counts}
         if label == "cuda":
-            runs.append((f"qwen3-8b dry-run cell through the kernels x1", counts, shapes))
+            runs.append((f"{arch.name} dry-run cell through the kernels x1", counts, shapes))
         del params, opt, batch, acc
     _free()
     r, x, k = rep["roofline"], rows["xla"], rows["cuda"]
@@ -2893,9 +3000,10 @@ def dryrun_train_phase(dev, mesh, counters, rep: dict) -> tuple[list, dict]:
     check(DRYRUN_MEM_RATIO[0] <= ratio <= DRYRUN_MEM_RATIO[1],
           "the dry-run's memory is far from the card's")
     # remat "full" runs each layer's forward twice
-    check(k["launches_counted_step"] == {"rmsnorm_fwd": 8 * arch.num_layers + 1,
-                                         "flash_attention_fwd": 2 * arch.num_layers,
-                                         "ssd_scan_fwd": 0}, "kernel-step launches")
+    want = kernel_launches or {"rmsnorm_fwd": 8 * arch.num_layers + 1,
+                               "flash_attention_fwd": 2 * arch.num_layers, "ssd_scan_fwd": 0}
+    check(k["launches_counted_step"] == want,
+          f"{arch.name} kernel-step launches {k['launches_counted_step']}, expected {want}")
     return runs, {"cell": f"{arch.name} {arch.num_layers} layers B={B} S={S} K=1 (1,1)",
                   "dryrun": {"flops": r["flops_per_chip"], "hbm_bytes": r["hbm_bytes_per_chip"],
                              "per_device_total": predicted, "bound_ms": bound_ms,
@@ -3013,11 +3121,17 @@ def dryrun_phase(dev, counters, card: str, procs: list) -> list[tuple[str, dict,
     start_dryrun_cells(DRYRUN_LATE_CELLS, procs)
     # lower_cell starts its own fake process group: before the NCCL one
     train_rep = _dryrun_cell(*_train_cell(), microbatch_rows=TRAIN_BS[0])
+    mamba_rep = _dryrun_cell(*_mamba2_cell(), microbatch_rows=SHARD_SSM_CELLS["mamba2-370m"][1][0])
     decode_rep = _dryrun_cell(*_decode_cell())
     mesh = _one_rank_group(dev)
     try:
         runs, serve = dryrun_serve_phase(dev, mesh, counters)
         more, train = dryrun_train_phase(dev, mesh, counters, train_rep)
+        runs += more
+        L = SHARD_SSM_CELLS["mamba2-370m"][0]
+        more, train_mamba = dryrun_train_phase(
+            dev, mesh, counters, mamba_rep, _mamba2_cell(),
+            {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": 0, "ssd_scan_fwd": 2 * L})
         runs += more
         decode = dryrun_decode_phase(dev, mesh, decode_rep)
     finally:
@@ -3025,7 +3139,8 @@ def dryrun_phase(dev, counters, card: str, procs: list) -> list[tuple[str, dict,
     _free()
     cells = dryrun_cells_phase(procs)
     print(json.dumps({"dryrun": {"card": card, "serve": serve, "train": train,
-                                 "decode": decode, "cells": cells}}), flush=True)
+                                 "train_mamba2": train_mamba, "decode": decode,
+                                 "cells": cells}}), flush=True)
     log("dryrun", f"done in {time.perf_counter() - t0:.1f} s")
     return runs
 

@@ -17,15 +17,18 @@ package's: the VJP of the plain version, recomputed from the saved inputs
 (``repro/kernels/ops.py`` ``_fa_bwd``, ``_rn_bwd``, ``_ssd_bwd``). The JAX
 package has no backward kernel, so neither has the port.
 
-A DTensor operand (a sharded model, ``repro_torch.parallel``) reaches
-``flash_attention`` and ``fused_rmsnorm`` through ``sharding.local_apply``,
-the counterpart of ``shard_map``: its input is first laid out as the op needs it,
-then the chosen ``impl`` runs on each rank's local shard, the kernel on a card.
-RMSNorm takes rows sharded any way and the normalised last dim whole;
-attention takes B over the batch axes ("pod", "data") and heads over "model",
-with k/v kept whole over "model" when their heads do not split (GQA with
-``kv_heads < tp``). The SSD scan takes no DTensor: the ssm and hybrid
-families are not sharded in the port.
+A DTensor operand (a sharded model, ``repro_torch.parallel``) reaches every
+op through ``sharding.local_apply``, the counterpart of ``shard_map``: its
+input is first laid out as the op needs it, then the chosen ``impl`` runs on
+each rank's local shard, the kernel on a card (on a CUDA shard the kernel
+runs or the call raises; nothing falls back to the plain version). RMSNorm
+takes rows sharded any way and the normalised last dim whole; attention
+(and ``banded_attention``, the sliding window past its length) takes B over
+the batch axes ("pod", "data") and heads over "model", with k/v kept whole
+over "model" when their heads do not split (GQA with ``kv_heads < tp``); the
+SSD scan takes B over the batch axes and its heads H over "model" where
+"model" divides them (else every rank scans every head), with B/C whole
+over "model" (their grads partial sums there).
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch.kernels.ssd import ssd_scan_fwd
-from repro_torch.kernels.xla_flash import flash_xla_train
+from repro_torch.kernels.xla_flash import banded_flash_xla, flash_xla_train
 from repro_torch.parallel.sharding import BATCH_AXES, MODEL_AXIS, local_apply
 
 IMPLS = ("cuda", "torch", "xla")
@@ -132,11 +135,12 @@ def _kv_heads_of(k, v, first: int, n: int, group: int):
     return k.index_select(1, idx), v.index_select(1, idx)
 
 
-def _sharded_attention(q, k, v, causal, sm_scale, impl):
-    """Attention on DTensors: each rank runs ``impl`` on its batch rows and
-    q heads. Where the kv heads do not split over "model" (Hkv % tp != 0),
-    k/v stay whole there and each rank reads only the kv heads of its q
-    heads; their grads are then partial sums over "model"."""
+def _sharded_heads(q, k, v, attend):
+    """``attend(q, k, v)`` (plain tensors, ``(B, H, S, D)``) on DTensors:
+    each rank runs it on its batch rows and q heads. Where the kv heads do
+    not split over "model" (Hkv % tp != 0), k/v stay whole there and each
+    rank reads only the kv heads of its q heads; their grads are then
+    partial sums over "model"."""
     mesh = q.device_mesh
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     B, Hq, Hkv = q.shape[0], q.shape[1], k.shape[1]
@@ -166,9 +170,22 @@ def _sharded_attention(q, k, v, causal, sm_scale, impl):
     def local(q, k, v):
         if split_q and not split_kv:
             k, v = _kv_heads_of(k, v, first, n_local, Hq // Hkv)
-        return _attention(q, k, v, causal, sm_scale, impl)
+        return attend(q, k, v)
 
     return local_apply(local, (q, k, v), (pq, pkv, pkv), pq, (pq, gkv, gkv))
+
+
+def _sharded_attention(q, k, v, causal, sm_scale, impl):
+    return _sharded_heads(q, k, v, lambda q, k, v: _attention(q, k, v, causal, sm_scale, impl))
+
+
+def banded_attention(q, k, v, *, window: int):
+    """Causal sliding-window attention past the window's length:
+    ``xla_flash.banded_flash_xla`` (the JAX package's path there, whatever
+    the attention impl), on DTensors through ``_sharded_heads``."""
+    if isinstance(q, DTensor):
+        return _sharded_heads(q, k, v, lambda q, k, v: banded_flash_xla(q, k, v, window=window))
+    return banded_flash_xla(q, k, v, window=window)
 
 
 def fused_rmsnorm(x, weight, *, eps: float = 1e-6, impl: str = "cuda"):
@@ -204,11 +221,14 @@ def _zeros_d(x, D):
 def ssd(x, dt, A, Bm, C, D=None, *, impl: str = "cuda"):
     """Mamba-2 SSD mixer, training form (zero initial state, no state out).
     x ``(B, S, H, P)``, dt ``(B, S, H)``, A ``(H,)``, Bm/C ``(B, S, N)``;
-    D None means f32 zeros."""
+    D None means f32 zeros. DTensors go through ``_sharded_ssd``."""
     _check_impl(impl)
     if isinstance(x, DTensor):
-        raise NotImplementedError("the SSD scan takes no DTensor: the ssm and hybrid "
-                                  "families are not sharded in the port")
+        return _sharded_ssd(x, dt, A, Bm, C, D, None, impl, with_state=False)
+    return _ssd(x, dt, A, Bm, C, D, impl)
+
+
+def _ssd(x, dt, A, Bm, C, D, impl):
     D = _zeros_d(x, D)
     if impl == "cuda":
         return _SSD.apply(x, dt, A, Bm, C, D)
@@ -217,9 +237,60 @@ def ssd(x, dt, A, Bm, C, D=None, *, impl: str = "cuda"):
 
 def ssd_with_state(x, dt, A, Bm, C, D=None, *, init_state=None, impl: str = "torch"):
     """Prefill/decode form: returns ``(y, final_state)``. The kernel starts
-    from a zero state, so an ``init_state`` always takes the plain version."""
+    from a zero state, so an ``init_state`` always takes the plain version.
+    ``init_state`` ``(B, H, P, N)``; DTensors go through ``_sharded_ssd``."""
     _check_impl(impl)
+    if isinstance(x, DTensor):
+        return _sharded_ssd(x, dt, A, Bm, C, D, init_state, impl, with_state=True)
+    return _ssd_with_state(x, dt, A, Bm, C, D, init_state, impl)
+
+
+def _ssd_with_state(x, dt, A, Bm, C, D, init_state, impl):
     D = _zeros_d(x, D)
     if impl == "cuda" and init_state is None:
         return ssd_scan_fwd(x, dt, A, Bm, C, D)
     return ref.ssd_scan(x, dt, A, Bm, C, D, init_state=init_state, return_state=True)
+
+
+def _sharded_ssd(x, dt, A, Bm, C, D, init_state, impl, *, with_state: bool):
+    """The SSD scan on DTensors: each rank scans its batch rows (x's own
+    rows: B keeps its placement over the batch axes) and its heads, H over
+    "model" where "model" divides it, else all H on every rank. x/dt/y and
+    the state follow the heads; A and D are split with them, their grads
+    partial sums over the batch axes; B/C are whole over "model", their
+    grads partial sums there. The chosen ``impl`` runs on the local shards:
+    the kernel (strided B/C views and all) on a card."""
+    mesh = x.device_mesh
+    H = x.shape[2]
+    tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get(MODEL_AXIS, 1)
+    split_h = tp > 1 and H % tp == 0
+    # per mesh dim: x/dt/y, A/D, B/C, the state; the grads of A/D and of B/C
+    px, ph, pbc, ps, gh, gbc = [], [], [], [], [], []
+    for name, place in zip(mesh.mesh_dim_names, x.placements):
+        if name == MODEL_AXIS:
+            places = ((Shard(2), Shard(0), Replicate(), Shard(1), Shard(0), Partial())
+                      if split_h else (Replicate(),) * 6)
+        elif place == Shard(0):
+            places = (Shard(0), Replicate(), Shard(0), Shard(0), Partial(), Shard(0))
+        else:
+            places = (Replicate(),) * 6
+        for out, p in zip((px, ph, pbc, ps, gh, gbc), places):
+            out.append(p)
+    if D is None:
+        D = DTensor.from_local(_zeros_d(x, None), mesh, (Replicate(),) * mesh.ndim,
+                               run_check=False)
+    args = [x, dt, A, Bm, C, D]
+    ins, grads = [px, px, ph, pbc, pbc, ph], [px, px, gh, gbc, gbc, gh]
+    if init_state is not None:
+        args.append(init_state)
+        ins.append(ps)
+        grads.append(ps)
+    if not with_state:
+        return local_apply(lambda *a: _ssd(*a, impl), args, ins, px, grads)
+    Bsz, _, _, P = x.shape
+    state = (Bsz, H, P, Bm.shape[-1])
+
+    def local(x, dt, A, Bm, C, D, s=None):
+        return tuple(_ssd_with_state(x, dt, A, Bm, C, D, s, impl))
+
+    return local_apply(local, args, ins, (px, ps), grads, out_shape=(x.shape, state))

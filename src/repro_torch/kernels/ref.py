@@ -89,16 +89,35 @@ def ssd_scan(x, dt, A, Bm, C, D=None, *, init_state=None, return_state: bool = F
     xf, dtf, Bf, Cf, Af = x.float(), dt.float(), Bm.float(), C.float(), A.float()
     h = (init_state.float() if init_state is not None
          else torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device))
-    ys = []
-    for t in range(S):
-        decay = torch.exp(Af[None, :] * dtf[:, t])  # (B, H)
-        dx = dtf[:, t, :, None] * xf[:, t]  # (B, H, P)
-        h = h * decay[..., None, None] + dx[..., None] * Bf[:, t, None, None, :]
-        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
-    y = torch.stack(ys, dim=1)
+    y, h = scan_steps(xf, dtf, Af, Bf, Cf, h)
     if D is not None:
         y = y + D.float()[None, None, :, None] * xf
     y = y.to(x.dtype)
     if return_state:
         return y, h
     return y
+
+
+def scan_step(xf, dtf, Af, Bf, Cf, h, t: int):
+    """Step t of the recurrence from state h: ``(h_t, y_t (B, H, P))``, f32."""
+    decay = torch.exp(Af[None, :] * dtf[:, t])  # (B, H)
+    dx = dtf[:, t, :, None] * xf[:, t]  # (B, H, P)
+    h = h * decay[..., None, None] + dx[..., None] * Bf[:, t, None, None, :]
+    return h, torch.einsum("bhpn,bn->bhp", h, Cf[:, t])
+
+
+def _scan_steps(xf, dtf, Af, Bf, Cf, h):
+    """The S steps of the recurrence from state h, one after another:
+    ``(y (B, S, H, P), the last state)``, f32."""
+    ys = []
+    for t in range(xf.shape[1]):
+        h, y = scan_step(xf, dtf, Af, Bf, Cf, h, t)
+        ys.append(y)
+    return torch.stack(ys, dim=1), h
+
+
+# What ssd_scan runs its steps with. The dry-run's op accountant
+# (launch/op_account.py) puts a counted loop in its place while it is active,
+# which traces fake tensors in a few steps instead of S; real tensors always
+# take the loop above.
+scan_steps = _scan_steps

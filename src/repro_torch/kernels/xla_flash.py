@@ -175,14 +175,17 @@ def flash_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_xla_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_start: int,
-                  kv_valid_len: int, sm_scale: Optional[float] = None,
+                  kv_valid_len: int, causal: bool = True, sm_scale: Optional[float] = None,
                   block: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
-    """``flash_xla`` (causal, no ring) over one part of the keys, for a merge
-    with the other parts: the f32 output ``(B, Hq, S, D)`` normalised over
-    this part and its log-sum-exp ``(B, Hq, S)``. ``q_start`` is relative to
-    the part's first key and may be negative; a query that sees no key of
-    the part gets a log-sum-exp near -1e30, which weighs nothing in a merge."""
-    out, m, l = _flash_xla_parts(q, k, v, q_start, kv_valid_len, False, True, sm_scale, block)
+    """``flash_xla`` (no ring) over one part of the keys, for a merge with
+    the other parts: the f32 output ``(B, Hq, S, D)`` normalised over this
+    part and its log-sum-exp ``(B, Hq, S)``. ``q_start`` is relative to the
+    part's first key and may be negative; a query that sees no key of the
+    part gets a log-sum-exp near -1e30, which weighs nothing in a merge.
+    ``causal=False`` with ``kv_valid_len`` the part's length: every key
+    live, as in a ring that has wrapped."""
+    out, m, l = _flash_xla_parts(q, k, v, q_start, kv_valid_len, False, causal, sm_scale,
+                                 block)
     B, Hq, S, D = q.shape
     return out.reshape(B, Hq, S, D), (m + torch.log(l)).reshape(B, Hq, S)
 

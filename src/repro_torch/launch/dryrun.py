@@ -18,7 +18,9 @@ and the mesh's device type; nothing falls back from one to the other.
 As in the JAX dry-run, the model runs its plain "xla" paths (attention
 through ``flash_xla``/``flash_xla_train``, the norm and the scan in plain
 PyTorch): the hand-written kernels are calls a dispatch mode cannot see into
-and that cannot run on fake tensors. ``donate`` has no eager counterpart:
+and that cannot run on fake tensors. The SSD scan's loop of S steps is
+counted, not traced step by step (``op_account._CountedScan``), as the JAX
+accountant multiplies a scan body by its trip count. ``donate`` has no eager counterpart:
 the port's optimizer and cache writes work in place already; the report
 says so.
 
@@ -75,8 +77,8 @@ def cell_applicable(arch: ModelArch, shape: InputShape) -> tuple[bool, str]:
     if shape.name == "long_500k" and not arch.supports_long_context:
         return False, "full-attention arch: 500k dense decode skipped (DESIGN.md §4)"
     if arch.family not in lm.SHARDED_FAMILIES:
-        return False, (f"the port shards {', '.join(lm.SHARDED_FAMILIES)} only; the "
-                       f"{arch.family} family waits on ROADMAP Queue 1 item 9")
+        return False, (f"the port shards the {', '.join(lm.SHARDED_FAMILIES)} families only; "
+                       f"the {arch.family} family waits on ROADMAP Queue 1 item 9")
     return True, ""
 
 

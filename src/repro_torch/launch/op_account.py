@@ -37,10 +37,24 @@ trace counts only what the rank itself runs. They also run outside any
 ``FakeTensorMode`` (``unset_fake_temporarily``): propagation reads placements,
 not the rank's data, and torch 2.13's cost model of a strided shard builds
 index tensors and reads them back, which a fake tensor cannot.
+
+Loops: the JAX accountant multiplies a ``lax.scan`` body by its trip count.
+The port's plain SSD scan (``kernels/ref.py``) is a Python loop of S steps,
+each a few ops: traced op by op on fake tensors, a prefill of 32768 tokens
+at 48 layers would dispatch some 1.6e7 ops. While the accountant is active
+(``count_loops``) it puts ``_CountedScan`` in the loop's place for fake
+tensors: a ``scaled(n)`` scope multiplies what the ops inside it count by n,
+and the counted scan traces the steps it must (the first, one in the middle
+and the last, whose backward ops differ at the ends of the chain) and scales
+the middle one by the S - 2 it stands for, forward and backward, to the
+loop's FLOPs and HBM bytes exactly. It keeps, from its forward to its
+backward, a tensor of the bytes the loop's autograd would keep for its S
+steps, so that the peak still holds them. Real tensors always run the loop.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import weakref
@@ -52,6 +66,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.kernels import ref
 from repro_torch.launch.roofline import _wire_bytes, link_bw
 
 # _c10d_functional op -> the JAX accountant's collective name
@@ -115,10 +130,13 @@ class OpAccountant(TorchDispatchMode):
     """Counts what one rank runs while it is active (``with
     OpAccountant() as acc: ...``). ``totals``, ``collectives`` (one
     ``(kind, result_bytes, group_size, ranks)`` per collective),
-    ``breakdown()`` and ``memory()`` read the count."""
+    ``breakdown()`` and ``memory()`` read the count. ``count_loops=False``
+    leaves the plain SSD scan's loop as it is (see the module docstring)."""
 
-    def __init__(self):
+    def __init__(self, count_loops: bool = True):
         super().__init__()
+        self.count_loops = count_loops
+        self._scale = 1
         self.totals = Totals()
         self.collectives: list[tuple[str, float, int, tuple[int, ...]]] = []
         self._by_op: dict = collections.defaultdict(lambda: [0, 0.0, 0.0, 0.0])
@@ -143,7 +161,22 @@ class OpAccountant(TorchDispatchMode):
             inner = getattr(prop, name)
 
             setattr(prop, name, self.muted(inner))
+        self._saved_scan = ref.scan_steps
+        if self.count_loops:
+            ref.scan_steps = functools.partial(_counted_scan_steps, self)
         return super().__enter__()
+
+    @contextlib.contextmanager
+    def scaled(self, n: int):
+        """What the ops inside count (FLOPs, bytes, wire bytes, calls) is
+        multiplied by n; under n = 0 they count nothing and their results
+        hold no memory."""
+        outer = self._scale
+        self._scale = outer * n
+        try:
+            yield
+        finally:
+            self._scale = outer
 
     def muted(self, fn):
         """``fn`` as a function whose ops are not counted, run outside any
@@ -163,6 +196,7 @@ class OpAccountant(TorchDispatchMode):
         return run
 
     def __exit__(self, *exc):
+        ref.scan_steps = self._saved_scan
         prop = _propagator()
         for name, saved in self._saved.items():
             if saved is None:
@@ -216,19 +250,22 @@ class OpAccountant(TorchDispatchMode):
         if self._muted:
             self.muted_ops += 1
             return out
+        n = self._scale
+        if n == 0:
+            return out
         row = self._by_op[str(func)]
-        row[0] += 1
+        row[0] += n
         if func.namespace in _COLLECTIVE_NAMESPACES and func not in _SKIP_BYTES:
             self._collective(func, args, kwargs, out, row)
         packet = func._overloadpacket
         if packet in flop_registry:
-            f = float(flop_registry[packet](*args, **kwargs, out_val=out))
+            f = float(flop_registry[packet](*args, **kwargs, out_val=out)) * n
             self.totals.flops += f
             row[1] += f
         if func.is_view or func in _SKIP_BYTES:
             return out
         moved = sum(_nbytes(x) for x in tree_leaves((args, kwargs, out))
-                    if isinstance(x, torch.Tensor))
+                    if isinstance(x, torch.Tensor)) * n
         self.totals.bytes += moved
         row[2] += moved
         for x in tree_leaves(out):
@@ -260,6 +297,115 @@ class OpAccountant(TorchDispatchMode):
                 for name, (c, f, b, w) in self._by_op.items()]
         rows.sort(key=lambda r: -r["bytes"])
         return rows[:top]
+
+
+def _counted_scan_steps(acc: OpAccountant, xf, dtf, Af, Bf, Cf, h):
+    """``ref.scan_steps`` under ``acc``: the counted scan on fake tensors of
+    S >= 3 steps from a state that takes no grad, else the loop."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    ins = (xf, dtf, Af, Bf, Cf)
+    if xf.shape[1] < 3 or not isinstance(xf, FakeTensor) or h.requires_grad:
+        return ref._scan_steps(*ins, h)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return _CountedScan.apply(acc, h, *ins)
+    return _counted_forward(acc, ins, h)
+
+
+def _counted_forward(acc: OpAccountant, ins, h0):
+    """The loop's forward as counted: step 0 under ``scaled(S)``, then the
+    stack of S outputs, with the other S - 1 outputs the loop holds until
+    its stack standing in the tally."""
+    S = ins[0].shape[1]
+    with acc.scaled(S):
+        h, y = ref.scan_step(*ins, h0, 0)
+    others = torch.empty((S - 1) * _nbytes(y), dtype=torch.uint8, device=y.device)
+    acc._add_storage(others)
+    y = torch.stack([y] * S, dim=1)
+    acc._release(id(others.untyped_storage()))
+    return y, h
+
+
+def _step_residual_bytes(ins, h) -> int:
+    """The bytes one step's autograd keeps for its backward beyond its
+    inputs' storages (its new state, its decay, ...): traced with grad on
+    ``ins`` (xf, dtf, Af, Bf, Cf) from state ``h``, under a scale of 0."""
+    known = {id(t.untyped_storage()) for t in (*ins, h)}
+    kept: dict = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if id(st) not in known:
+            kept[id(st)] = st.nbytes()
+        return t
+
+    with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        inputs = [t.detach().requires_grad_() for t in (*ins, h)]
+        ref.scan_step(*inputs, 0)
+    return sum(kept.values())
+
+
+class _CountedScan(torch.autograd.Function):
+    """``ref._scan_steps`` as the accountant counts it, in three traced
+    steps instead of S (module docstring). Its outputs have the loop's
+    shapes; their values are those of step 0 (fake tensors carry none).
+
+    Forward: step 0 under ``scaled(S)`` (every step runs the same ops on
+    tensors of the same shapes), then the stack of S outputs. Backward: the
+    first, a middle and the last step are traced again with grad under
+    ``scaled(0)``; the stack's backward (a select a step), then the last
+    step's VJP, the middle
+    one's under ``scaled(S - 2)`` and the first's, each from the state grad
+    the step after it hands back, as the loop's autograd runs them; the grads
+    of the inputs (each step's reach the whole input, through its select's
+    backward) add up in S - 1 sums as the engine adds the loop's."""
+
+    @staticmethod
+    def forward(ctx, acc, h0, *ins):
+        S = ins[0].shape[1]
+        y, h = _counted_forward(acc, ins, h0)
+        with acc.scaled(0):
+            per_step = _step_residual_bytes(ins, h0)
+        # what the loop's autograd keeps for its S steps, live until backward
+        kept = torch.empty(S * per_step, dtype=torch.uint8, device=h0.device)
+        acc._add_storage(kept)
+        ctx.acc = acc
+        ctx.save_for_backward(h0, *ins, kept)
+        ctx.mark_non_differentiable(h)
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, _gh):
+        acc = ctx.acc
+        h0, *ins, _kept = ctx.saved_tensors
+        S = ins[0].shape[1]
+        wanted = ctx.needs_input_grad[2:]
+        with acc.scaled(0), torch.enable_grad():
+            inputs = [t.detach().requires_grad_(w) for t, w in zip(ins, wanted)]
+            h1, y_first = ref.scan_step(*inputs, h0, 0)
+            h_mid_in = h1.detach().requires_grad_()
+            h_mid, y_mid = ref.scan_step(*inputs, h_mid_in, 1)
+            h_last_in = h_mid.detach().requires_grad_()
+            _, y_last = ref.scan_step(*inputs, h_last_in, S - 1)
+        need = [t for t in inputs if t.requires_grad]
+        # the stack's backward: one select of gy a step
+        gy_last = gy.select(1, S - 1)
+        with acc.scaled(S - 2):
+            gy_mid = gy.select(1, 1)
+        gy_first = gy.select(1, 0)
+        dh, *g_last = torch.autograd.grad([y_last], [h_last_in, *need], [gy_last])
+        # the loop frees each step's residuals as its backward ends: here
+        # they leave the tally at once, once the last step's is done
+        acc._release(id(_kept.untyped_storage()))
+        with acc.scaled(S - 2):
+            dh, *g_mid = torch.autograd.grad([y_mid, h_mid], [h_mid_in, *need], [gy_mid, dh])
+        g_first = torch.autograd.grad([y_first, h1], need, [gy_first, dh])
+        total = [a + b for a, b in zip(g_first, g_last)]
+        with acc.scaled(S - 2):
+            total = [a + b for a, b in zip(total, g_mid)]
+        it = iter(total)
+        return (None, None, *[next(it) if w else None for w in wanted])
 
 
 def account(fn, *args, arguments=None, **kwargs):

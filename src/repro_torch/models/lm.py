@@ -19,13 +19,18 @@ place instead of being returned as new arrays.
 
 Sharded (``repro_torch.parallel``): the full-sequence forward and its loss
 take params and a batch of DTensors, placed by ``param_specs`` and
-``batch_spec``, for the dense family. DTensor's propagation inserts the
-collectives; the layer carry is pinned by ``constrain_batch_sharding`` where
-the JAX package pins it, ``ModelCfg.act_shard`` pins the activations it pins,
-and the logits are made whole over "model" before the loss. The cached path
+``batch_spec``, for the families of ``SHARDED_FAMILIES`` (dense, ssm and
+hybrid). DTensor's propagation inserts the collectives; the layer carry is
+pinned by ``constrain_batch_sharding`` where the JAX package pins it,
+``ModelCfg.act_shard`` pins the activations it pins, and the logits are made
+whole over "model" before the loss. The kernels, the sliding window's banded
+attention and the Mamba-2 mixer's conv and scan run on each rank's shards
+through ``local_apply`` (``ops``, ``models/ssm.py``). The cached path
 (prefill and decode) takes params, caches and tokens as DTensors too, placed
-by ``param_specs``, ``cache_specs`` and ``batch_spec``, for the dense family
-(see ``_sharded_cached_attention``). The other families refuse DTensors.
+by ``param_specs``, ``cache_specs`` and ``batch_spec``: the KV cache, a ring
+included, over its heads or its sequence (``_sharded_cached_attention``), the
+conv and state caches written in place on each rank's shard. The moe, encdec
+and vlm families refuse DTensors.
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ from repro_torch.models.moe import aux_load_balance_loss, moe_block
 from repro_torch.models.ssm import CONV_K, ssm_block, ssm_dims
 from repro_torch.parallel.sharding import (MODEL_AXIS, P, constrain_batch_sharding,
                                            gather_fsdp, local_apply, placements,
-                                           whole_over_model)
+                                           split_over_model, whole_over_model)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +117,7 @@ REMATS = ("none", "selective", "full")
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # the families whose full-sequence forward and cached path take DTensors
 # (ROADMAP lists what the others need)
-SHARDED_FAMILIES = ("dense",)
+SHARDED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _check_family(arch: ModelArch) -> None:
@@ -338,11 +343,11 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
     v = cfg.constrain(v.transpose(1, 2), ("b", None, None, None))
     if cache is None:
         if causal and window and window < S:
-            out = banded_flash_xla(q, k, v, window=window)
+            out = ops.banded_attention(q, k, v, window=window)
         else:
             out = ops.flash_attention(q, k, v, causal=causal, impl=cfg.attn_impl)
     elif isinstance(q, DTensor):
-        out = _sharded_cached_attention(cfg, cache, q, k, v)
+        out = _sharded_cached_attention(cfg, cache, q, k, v, window)
     else:
         if cfg.kv_cache_repeat > 1:
             k = k.repeat_interleave(cfg.kv_cache_repeat, dim=1)
@@ -373,7 +378,10 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
             else:
                 out = flash_xla(q, k_read, v_read, q_start=start, kv_valid_len=start + S,
                                 ring=bool(window), causal=True)
-    out = out.transpose(1, 2).reshape(B, S, H * D)
+    # split over "model" before the row-sharded wo: where the heads do not
+    # split (hymba's 25 at 16-way), its backward then hands the reshape a
+    # whole grad, not one cut inside a head; where they do, out is so already
+    out = split_over_model(out.transpose(1, 2).reshape(B, S, H * D), -1)
     return out @ gather_fsdp(p["wo"])
 
 
@@ -394,7 +402,7 @@ def _cache_layout(cache_k) -> tuple[str, int, int]:
     return "whole", tp, rank
 
 
-def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v):
+def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v, window: int = 0):
     """The cached attention on DTensors: q ``(B, H, S, D)`` and the new k/v
     ``(B, Hkv, S, D)`` against the layer's cache DTensors, placed by
     ``cache_specs``: B over the batch axes where they divide it, and over
@@ -413,6 +421,16 @@ def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v):
       * whole: every rank writes the whole cache and reads the kv heads of
         its q heads (q's heads over "model" where it divides them).
 
+    With a sliding ``window`` the cache is a ring of T slots, slot j holding
+    the position p with ``p % T == j``, as on a plain cache: a chunk is
+    written at slot ``start % T`` (each rank its own slots of it, and none
+    may cross the end of the ring); once the ring has wrapped every slot is
+    live and no mask applies, so each rank's part of T merges unmasked; a
+    prefill of S >= T tokens attends through ``banded_flash_xla`` on q's
+    heads over "model" (where "model" divides them, whatever the layout)
+    and each rank writes its slots of the last T positions, rolled into
+    place.
+
     The KV-cache options run on each rank's shards as on a plain cache, but
     for ``decode_dense_attn`` with the cache split over T, which is refused."""
     import torch.distributed._functional_collectives as funcol
@@ -424,12 +442,22 @@ def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v):
     start, T, Hc = cache["start"], kc.shape[2], kc.shape[1]
     B, H, S, D = q.shape
     layout, tp, rank = _cache_layout(kc)
-    dense = cfg.decode_dense_attn and S <= 16
+    ring_prefill = bool(window) and S >= T
+    if ring_prefill and start:
+        raise ValueError(f"a ring-cache prefill of {S} >= {T} tokens starts at position 0, "
+                         f"not {start}")
+    idx = start % T if window else start
+    if not ring_prefill and idx + S > T:
+        raise ValueError(f"positions {start}..{start + S - 1} cross the end of the "
+                         f"{T}-slot KV cache at slot {idx}")
+    wrapped = bool(window) and start + S - 1 >= T
+    dense = cfg.decode_dense_attn and S <= 16 and not ring_prefill
     if layout == "seq" and dense:
         raise NotImplementedError("decode_dense_attn: the KV cache is split over its "
                                   "sequence on \"model\"; the dense product over it is not "
                                   "ported")
-    split_q = layout == "heads" or (layout == "whole" and tp > 1 and H % tp == 0)
+    split_q = layout == "heads" or ((layout == "whole" or ring_prefill) and tp > 1
+                                    and H % tp == 0)
     q_pl, kv_pl = [], []
     for name, place in zip(mesh.mesh_dim_names, kc.placements):
         if name == MODEL_AXIS:
@@ -451,10 +479,19 @@ def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v):
             v = v.repeat_interleave(cfg.kv_cache_repeat, dim=1)
         if layout == "heads":
             k, v = k[:, rank * Hc_l:(rank + 1) * Hc_l], v[:, rank * Hc_l:(rank + 1) * Hc_l]
-        lo, hi = max(start, t0), min(start + S, t0 + T_l)
+        if ring_prefill:
+            kq, vq = ((k, v) if layout == "heads" or not split_q
+                      else _kv_heads_of(k, v, rank * n_q, n_q, H // Hc))
+            out = banded_flash_xla(q, kq, vq, window=window)
+            shift = (S - T) % T
+            k_last = torch.roll(k[:, :, -T:], shift, dims=2)[:, :, t0:t0 + T_l]
+            v_last = torch.roll(v[:, :, -T:], shift, dims=2)[:, :, t0:t0 + T_l]
+            _write_cache(cfg, local_cache, k_last, v_last, 0)
+            return out
+        lo, hi = max(idx, t0), min(idx + S, t0 + T_l)
         if lo < hi:
-            _write_cache(cfg, local_cache, k[:, :, lo - start:hi - start],
-                         v[:, :, lo - start:hi - start], lo - t0)
+            _write_cache(cfg, local_cache, k[:, :, lo - idx:hi - idx],
+                         v[:, :, lo - idx:hi - idx], lo - t0)
         if cfg.kv_cache_quant:
             k_read = _kv_dequantize(local_cache["k"], local_cache["k_scale"], cfg.dtype)
             v_read = _kv_dequantize(local_cache["v"], local_cache["v_scale"], cfg.dtype)
@@ -464,11 +501,15 @@ def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v):
             k_read, v_read = _kv_heads_of(k_read, v_read, rank * n_q, n_q, H // Hc)
         if layout != "seq":
             if dense:
-                return _dense_cached_attention(q, k_read, v_read, start)
+                return _dense_cached_attention(q, k_read, v_read, start, ring=bool(window))
             return flash_xla(q, k_read, v_read, q_start=start, kv_valid_len=start + S,
-                             causal=True)
-        out, lse = flash_xla_lse(q, k_read, v_read, q_start=start - t0,
-                                 kv_valid_len=min(max(start + S - t0, 0), T_l))
+                             ring=bool(window), causal=True)
+        if wrapped:  # every slot of the ring is live
+            out, lse = flash_xla_lse(q, k_read, v_read, q_start=0, kv_valid_len=T_l,
+                                     causal=False)
+        else:
+            out, lse = flash_xla_lse(q, k_read, v_read, q_start=start - t0,
+                                     kv_valid_len=min(max(start + S - t0, 0), T_l))
         group = mesh.get_group(MODEL_AXIS)
         w = torch.exp(lse - funcol.all_reduce(lse, "max", group))
         both = funcol.all_reduce(torch.cat([out * w[..., None], w[..., None]], dim=-1),
@@ -498,9 +539,19 @@ def _ssm_sublayer(arch: ModelArch, cfg: ModelCfg, p: dict, x: torch.Tensor,
     s, new_cache = ssm_block(p, x, arch, ssm_impl=cfg.ssm_impl,
                              cache=None if cache is None else (cache["conv"], cache["state"]))
     if new_cache is not None:
-        cache["conv"].copy_(new_cache[0])
-        cache["state"].copy_(new_cache[1])
+        for name, new in zip(("conv", "state"), new_cache):
+            _copy_into(cache[name], new)
     return s
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; for DTensors, on each rank's shard of ``dst`` (a
+    view into the stacked cache), ``src`` laid out as ``dst`` first."""
+    if isinstance(dst, DTensor):
+        if tuple(src.placements) != tuple(dst.placements):
+            src = src.redistribute(dst.device_mesh, dst.placements)
+        dst, src = dst.to_local(), src.to_local()
+    dst.copy_(src)
 
 
 def _layer_fn(arch: ModelArch, cfg: ModelCfg, lp: dict, h: torch.Tensor,
@@ -761,15 +812,12 @@ def forward_cached(params: dict, arch: ModelArch, cfg: ModelCfg, caches: dict,
     Positions must lie in the KV cache, except in a ring that holds the whole
     window, which serves any position.
 
-    Sharded (the dense family): params, caches and tokens as DTensors, the
-    logits come back as one. The caches are written in place on each rank's
-    shards (``_sharded_cached_attention``); a ring cache is not sharded."""
+    Sharded (``SHARDED_FAMILIES``): params, caches and tokens as DTensors,
+    the logits come back as one. The caches are written in place on each
+    rank's shards (``_sharded_cached_attention``, ``_ssm_sublayer``)."""
     _check_family(arch)
     _check_sharded(arch, params)
     sharded = isinstance(params["embed"], DTensor)
-    if sharded and arch.sliding_window:
-        raise NotImplementedError(f"{arch.name}: the ring KV cache of a sliding window "
-                                  f"takes no DTensor")
     if sharded and not isinstance(tokens, DTensor):
         raise TypeError("sharded params take the tokens as a DTensor (batch_spec)")
     if cfg.cast_params_in_forward:

@@ -126,7 +126,9 @@ def constrain_batch_sharding(x, batch_axes: tuple[str, ...] = BATCH_AXES):
     FSDP x TP a row-parallel product leaves it a partial sum over "model",
     and this redistribute settles it once per layer, data-sharded. Outside a
     mesh (a plain tensor), or where the axes do not divide dim 0, it returns
-    ``x``."""
+    ``x``. A one-row dim 0 sharded over batch axes of size 1 is made whole
+    there: DTensor refuses the next product's view of a sharded dim of size
+    1 (the rows are the same either way)."""
     if not isinstance(x, DTensor):
         return x
     mesh = x.device_mesh
@@ -135,6 +137,9 @@ def constrain_batch_sharding(x, batch_axes: tuple[str, ...] = BATCH_AXES):
     if not axes:
         return x
     size = math.prod(sizes[a] for a in axes)
+    if size == 1 and x.shape[0] == 1 and Shard(0) in x.placements:
+        return x.redistribute(mesh, tuple(Replicate() if p == Shard(0) else p
+                                          for p in x.placements))
     if size <= 1 or x.shape[0] % size != 0:
         return x
     return x.redistribute(mesh, placements(mesh, P(axes, *([None] * (x.dim() - 1)))))
@@ -389,7 +394,9 @@ def local_apply(fn, args, in_placements, out_placements, in_grad_placements=None
     ``in_grad_placements`` (default: ``in_placements``; a partial sum where
     ``fn`` reads on each rank only part of a replicated input). ``fn``'s one
     output, of global shape ``out_shape`` (default: the first argument's),
-    comes back as a DTensor in ``out_placements``."""
+    comes back as a DTensor in ``out_placements``. Where ``fn`` returns a
+    tuple, ``out_placements`` and ``out_shape`` hold one entry per output,
+    and a tuple of DTensors comes back."""
     mesh = args[0].device_mesh
     grads = in_grad_placements or in_placements
     local = []
@@ -397,6 +404,14 @@ def local_apply(fn, args, in_placements, out_placements, in_grad_placements=None
         if tuple(x.placements) != tuple(places):
             x = x.redistribute(mesh, places)
         local.append(_ToLocal.apply(x, tuple(grad_places)))
-    shape = torch.Size(out_shape or args[0].shape)
-    return DTensor.from_local(fn(*local).contiguous(), mesh, tuple(out_placements),
-                              run_check=False, shape=shape, stride=_contiguous_stride(shape))
+    out = fn(*local)
+    if isinstance(out, tuple):
+        return tuple(_from_local(o, mesh, p, s)
+                     for o, p, s in zip(out, out_placements, out_shape))
+    return _from_local(out, mesh, out_placements, out_shape or args[0].shape)
+
+
+def _from_local(x, mesh, places, shape):
+    shape = torch.Size(shape)
+    return DTensor.from_local(x.contiguous(), mesh, tuple(places), run_check=False,
+                              shape=shape, stride=_contiguous_stride(shape))

@@ -29,6 +29,25 @@
 (i) ``python -m repro_torch.launch.dryrun --device cpu`` writes an artifact
     that ``report`` renders, and prints a cell of an unsharded family as
     SKIP.
+(j) The counted SSD scan (``op_account._CountedScan``) on fake tensors
+    against the plain loop it stands for (``OpAccountant(count_loops=False)``)
+    at S = 3, 4, 8, 17 and 64: FLOPs and HBM bytes equal, forward alone,
+    forward and backward, under a non-reentrant checkpoint, and in the
+    stateful form under no_grad, f32 and bf16; after the forward the tally
+    holds the bytes the loop's autograd keeps, exactly; from S = 17 on,
+    where the S steps' tensors outweigh the few kB a single step's
+    temporaries hold, the peak is within 25% of the loop's.
+(k) (g) and (h) for reduced mamba2-370m and hymba-1.5b at the same cells.
+    FLOPs within 2% of the JAX count; the gaps are in the train cells, where
+    the eager recompute of remat "full" runs products the optimised HLO the
+    JAX accountant reads drops as dead: the SSD scan's output einsum, 2 B H P
+    N S per layer and microbatch (the recomputed forward needs only the
+    states), and for hymba past its window one banded block's q k^T per
+    layer and microbatch, 2 B Hq bq (window + bq) D, as the dense gap of
+    (g). mamba2 +0.99%, hymba +1.30%. Argument bytes equal but for the JAX
+    int32 scalar and what JAX's jit drops as never read: mamba2's decode
+    position (no attention reads it) and, in hymba's prefill of 64 > its
+    ring of 32, the k/v caches, which the ring prefill overwrites unread.
 """
 import json
 import math
@@ -278,7 +297,8 @@ def test_lower_cell_refuses_what_it_cannot_trace():
 
     decode = {s.name: s for s in ASSIGNED_SHAPES}["decode_32k"]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        dryrun.lower_cell(get_reduced("mamba2-370m"), decode, MeshShape(*MESH_4), device="cpu")
+        dryrun.lower_cell(get_reduced("granite-moe-3b-a800m"), decode, MeshShape(*MESH_4),
+                          device="cpu")
     with pytest.raises(ValueError, match="unknown --opt"):
         dryrun.lower_cell(get_reduced("qwen3-8b"), decode, MeshShape(*MESH_4), device="cpu",
                           opts=frozenset({"no_such_opt"}))
@@ -308,8 +328,174 @@ def test_the_cli_writes_an_artifact_that_report_renders(tmp_path):
     assert "| qwen3-8b-reduced | decode_32k | 2x2 |" in table
     assert report.summary(cells)["cells_ok"] == 1
 
-    res = _cli("--arch", "mamba2-370m", out=tmp_path)
+    res = _cli("--arch", "granite-moe-3b-a800m", out=tmp_path)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "SKIP mamba2-370m x decode_32k: the port shards dense only" in res.stdout
+    assert ("SKIP granite-moe-3b-a800m x decode_32k: the port shards the dense, ssm, hybrid "
+            "families only" in res.stdout)
     assert len(report.load_cells(str(tmp_path))) == 1
     assert math.isfinite(report.summary(cells)["worst_fraction"][0])
+
+
+# --- (j) ---------------------------------------------------------------------
+
+def _scan_count(count_loops: bool, S: int, mode: str, dtype):
+    """The plain SSD scan on fake tensors under an accountant: ``mode``
+    "forward", "backward" (forward + grads), "remat" (forward + grads through
+    a non-reentrant checkpoint) or "state" (init_state, return_state, under
+    no_grad). Returns the accountant and its live bytes after the forward."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels import ref
+
+    B, H, P, N = 2, 4, 8, 16
+    with FakeTensorMode():
+        grad = mode != "state"
+        ins = (torch.empty(B, S, H, P, dtype=dtype, requires_grad=grad),
+               torch.empty(B, S, H, dtype=dtype, requires_grad=grad),
+               torch.empty(H, requires_grad=grad),
+               torch.empty(B, S, N, dtype=dtype, requires_grad=grad),
+               torch.empty(B, S, N, dtype=dtype, requires_grad=grad),
+               torch.empty(H, requires_grad=grad))
+        acc = OpAccountant(count_loops=count_loops)
+        acc.add_arguments(ins)
+        with acc:
+            if mode == "state":
+                with torch.no_grad():
+                    ref.ssd_scan(*ins, init_state=torch.empty(B, H, P, N), return_state=True)
+                return acc, acc.live_bytes
+            if mode == "remat":
+                loss = checkpoint(lambda *a: ref.ssd_scan(*a).sum(), *ins, use_reentrant=False)
+                after = acc.live_bytes
+            else:
+                loss = ref.ssd_scan(*ins).sum()
+                after = acc.live_bytes
+            if mode != "forward":
+                torch.autograd.grad(loss, ins)
+    return acc, after
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["forward", "backward", "remat", "state"])
+def test_the_counted_scan_counts_what_the_loop_runs(mode, dtype):
+    for S in (3, 4, 8, 17, 64):
+        loop, loop_after = _scan_count(False, S, mode, dtype)
+        counted, counted_after = _scan_count(True, S, mode, dtype)
+        assert counted.totals.flops == loop.totals.flops > 0, (S, mode)
+        assert counted.totals.bytes == loop.totals.bytes > 0, (S, mode)
+        if mode in ("forward", "backward"):
+            assert counted_after == loop_after, (S, mode)  # the loop's residuals, held
+        if S >= 17:
+            assert abs(counted.peak_bytes - loop.peak_bytes) <= 0.25 * loop.peak_bytes, (
+                S, mode, counted.peak_bytes, loop.peak_bytes)
+
+
+def test_the_counted_scan_traces_three_steps_not_s():
+    """At S = 64 the plain loop dispatches an op set per step; the counted
+    scan dispatches the same op set a fixed number of times whatever S is."""
+    from repro_torch.launch import op_account
+
+    seen = []
+    step = op_account.ref.scan_step
+    op_account.ref.scan_step = lambda *a: seen.append(a[-1]) or step(*a)
+    try:
+        _scan_count(True, 64, "backward", torch.float32)
+    finally:
+        op_account.ref.scan_step = step
+    # forward: step 0 and its residual trace; backward: the first, a middle
+    # and the last step
+    assert seen == [0, 0, 0, 1, 63]
+
+
+# --- (k) ---------------------------------------------------------------------
+
+SSM_ARCHS = ("mamba2-370m", "hymba-1.5b")
+
+
+@pytest.fixture(scope="module")
+def jax_ssm_cells():
+    """The JAX lower_cell reports of the ssm and hybrid archs on one device
+    (``jax_cells``'s import guard)."""
+    from repro.launch.mesh import make_mesh
+
+    jax.devices()
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun as jdryrun
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+    mesh = make_mesh(*MESH_1)
+    return {(name, kind): jdryrun.lower_cell(jax_reduced(name), JaxShape(kind, S, B, kind), mesh)
+            for name in SSM_ARCHS for kind, (S, B) in CELLS.items()}
+
+
+@pytest.fixture(scope="module")
+def port_ssm_cells():
+    return {(name, mesh, kind): dryrun.lower_cell(get_reduced(name), InputShape(kind, S, B, kind),
+                                                  MeshShape(*mesh), device="cpu")
+            for name in SSM_ARCHS for mesh in (MESH_1, MESH_4)
+            for kind, (S, B) in CELLS.items()}
+
+
+def _unread_bytes(arch, kind: str, S: int, B: int) -> int:
+    """The argument bytes JAX's jit drops from a program that never reads
+    them: the int32 position of an attention-free model's decode step, and
+    the k/v caches of a ring prefill (S >= the ring's T), which it writes
+    unread."""
+    if kind == "decode" and arch.is_attention_free:
+        return JAX_ONLY_ARG_BYTES[kind]
+    if kind != "prefill" or not arch.sliding_window or S < arch.sliding_window:
+        return 0
+    caches = specs.prefill_specs(arch, InputShape(kind, S, B, kind),
+                                 lm.ModelCfg(dtype=torch.bfloat16))["caches"]
+    return sum(caches[k].numel() * caches[k].element_size() for k in ("k", "v"))
+
+
+@pytest.mark.parametrize("kind", list(CELLS))
+@pytest.mark.parametrize("name", SSM_ARCHS)
+def test_an_ssm_or_hybrid_one_rank_cell_against_the_jax_dry_run(name, kind, jax_ssm_cells,
+                                                                port_ssm_cells):
+    want, got = jax_ssm_cells[(name, kind)], port_ssm_cells[(name, MESH_1, kind)]
+    S, B = CELLS[kind]
+    assert got["ok"] and got["mesh"] == "1x1"
+    unread = _unread_bytes(get_reduced(name), kind, S, B)
+    assert (got["memory"]["argument_bytes"] + JAX_ONLY_ARG_BYTES[kind] - unread
+            == want["memory"]["argument_bytes"])
+    jf, tf = want["roofline"]["flops_per_chip"], got["roofline"]["flops_per_chip"]
+    assert abs(tf - jf) <= FLOP_TOL_JAX * jf, (tf, jf)
+    if kind != "train":  # the gap of docstring (k) is the train cells' alone
+        assert tf == jf
+    assert got["roofline"]["model_flops_total"] == want["roofline"]["model_flops_total"]
+
+
+@pytest.mark.parametrize("kind", list(CELLS))
+@pytest.mark.parametrize("name", SSM_ARCHS)
+def test_an_ssm_or_hybrid_four_rank_cell_splits_the_one_rank_cell(name, kind, port_ssm_cells):
+    one, four = port_ssm_cells[(name, MESH_1, kind)], port_ssm_cells[(name, MESH_4, kind)]
+    f1, f4 = one["roofline"]["flops_per_chip"], four["roofline"]["flops_per_chip"]
+    assert abs(4 * f4 - f1) <= FLOP_TOL_MESH * f1, (4 * f4, f1)
+    arch, (S, B) = get_reduced(name), CELLS[kind]
+    plan = make_plan(MeshShape(*MESH_4), fsdp=True)
+    cfg = lm.ModelCfg(dtype=torch.bfloat16)
+    shape = InputShape(kind, S, B, kind)
+    if kind == "train":
+        p = lm.init_params(arch, torch.Generator(), torch.float32, device="meta")
+        b = specs.train_batch_specs(arch, shape, cfg)
+        want = 3 * _local_bytes(plan, param_specs(arch, plan, p), p)  # params, mu, nu
+        want += _local_bytes(plan, batch_spec(plan, b), b)
+    else:
+        p = lm.init_params(arch, torch.Generator(), torch.bfloat16, device="meta")
+        s = (specs.prefill_specs if kind == "prefill" else specs.decode_specs)(arch, shape, cfg)
+        want = (_local_bytes(plan, param_specs(arch, plan, p), p)
+                + _local_bytes(plan, cache_specs(arch, plan, s["caches"]), s["caches"])
+                + _local_bytes(plan, batch_spec(plan, {"t": s["tokens"]}), {"t": s["tokens"]}))
+    assert four["memory"]["argument_bytes"] == want
+    coll = four["collectives"]
+    assert sum(coll["counts"].values()) > 0
+    wire = sum(jrl._wire_bytes(r["op"], r["result_bytes"], r["group_size"])
+               for r in coll["by_group_size"])
+    assert coll["wire_bytes"] == pytest.approx(wire, rel=1e-12)
+    assert four["roofline"]["chips"] == 4 and four["memory"]["fits_h100_80g"]

@@ -1,7 +1,7 @@
-"""The dense family's cached path (prefill and decode) on DTensors, over 4
-gloo ranks on a (2, 2) data x model mesh with FSDP: params, caches and tokens
-placed by ``param_specs``, ``cache_specs`` and ``batch_spec``, as the JAX
-dry-run places them.
+"""The cached path (prefill and decode) on DTensors, over 4 gloo ranks on a
+(2, 2) data x model mesh with FSDP: params, caches and tokens placed by
+``param_specs``, ``cache_specs`` and ``batch_spec``, as the JAX dry-run
+places them.
 
 Reduced yi-6b has one kv head, which "model" does not divide, so its cache's
 sequence T lies over "model" and each rank's part of T merges through the
@@ -13,6 +13,16 @@ the default options, against the JAX ``prefill``/``decode_step`` on the same
 params (1e-4, the serve tests' tolerance). The KV-cache options run on the
 ranks' shards as on a plain cache, but dense decode attention over a cache
 split over T, which is refused with the option's name.
+
+The ssm and hybrid families: reduced mamba2-370m (conv and state caches over
+"model" by channels and heads) and hymba-1.5b (a 32-slot ring for its window
+of 32) on the (2, 2) mesh, where hymba's 2 kv heads split, and hymba on a
+(1, 4) mesh, where they do not: there the ring's T lies over "model", 8
+slots a rank, as at production. Each hymba layout runs a prompt of 24 and 16
+decode steps that wrap the ring at 32, and a prompt of 40 > 32 (the ring
+prefill, each rank writing its slots of the last 32 positions) and 8 decode
+steps. Every step's logits are held against the unsharded port (1e-5) and
+the JAX package (1e-4), and the caches lie as ``cache_specs`` places them.
 """
 import dataclasses
 
@@ -44,13 +54,26 @@ CASES = {  # label -> (arch, ModelCfg options)
     "yi-6b-seq-dense": ("yi-6b", {"decode_dense_attn": True}),
 }
 CHUNK = (30, 4)  # a prefill of 30, then 4 tokens at slots 30..33 across the boundary at 32
+# label -> (arch, mesh, prompt length, decode steps): the ssm and hybrid cases
+SSM_CASES = {
+    "mamba2-2x2": ("mamba2-370m", (2, 2), 40, 8),
+    "hymba-heads-wrap": ("hymba-1.5b", (2, 2), 24, 16),
+    "hymba-heads-ring-prefill": ("hymba-1.5b", (2, 2), 40, 8),
+    "hymba-seq-wrap": ("hymba-1.5b", (1, 4), 24, 16),
+    "hymba-seq-ring-prefill": ("hymba-1.5b", (1, 4), 40, 8),
+}
 
 
-def _case(name: str, seed: int = 0):
+def _case(name: str, seed: int = 0, P: int = P):
     jarch = jax_reduced(name)
     jparams = jax.device_get(jlm.init_params(jarch, jax.random.PRNGKey(seed)))
     prompts = np.random.default_rng(seed + 1).integers(0, jarch.vocab, (B, P)).astype(np.int32)
     return jarch, jparams, prompts
+
+
+def _ssm_cases(mesh):
+    return [(label, name, *_case(name, P=p)[1:], n, T, {})
+            for label, (name, m, p, n) in SSM_CASES.items() if m == mesh]
 
 
 @pytest.fixture(scope="module")
@@ -59,15 +82,24 @@ def ranks(tmp_path_factory):
     cases = [(label, name, _case(name)[1], _case(name)[2], N, T, opts)
              for label, (name, opts) in CASES.items()]
     toks = np.random.default_rng(7).integers(0, 64, (B, sum(CHUNK)))
-    torch_ranks.run_ranks(torch_ranks.cached_program, 4, tmp, str(tmp / "out.pt"), cases,
+    torch_ranks.run_ranks(torch_ranks.cached_program, 4, tmp, str(tmp / "out.pt"), (2, 2),
+                          cases + _ssm_cases((2, 2)),
                           (_case("yi-6b")[1], CHUNK[0], CHUNK[1], T, toks))
     return torch.load(tmp / "out.pt", weights_only=False)
 
 
-def _unsharded(name: str, opts: dict, got_tokens):
+@pytest.fixture(scope="module")
+def ranks_1x4(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("cached_1x4")
+    torch_ranks.run_ranks(torch_ranks.cached_program, 4, tmp, str(tmp / "out.pt"), (1, 4),
+                          _ssm_cases((1, 4)), None)
+    return torch.load(tmp / "out.pt", weights_only=False)
+
+
+def _unsharded(name: str, opts: dict, got_tokens, P: int = P, N: int = N):
     """The port on plain tensors, teacher-forced with the sharded run's
     tokens: every step's logits and the greedy tokens."""
-    _, jparams, prompts = _case(name)
+    _, jparams, prompts = _case(name, P=P)
     arch = get_reduced(name)
     cfg = lm.ModelCfg(dtype=torch.float32, **opts)
     params = params_from_numpy(jparams, device="cpu")
@@ -151,4 +183,56 @@ def test_dense_decode_over_a_sequence_split_cache_is_refused(ranks):
 
 
 def test_an_unsharded_family_refuses_dtensors_in_the_cached_path(ranks):
-    assert "ssm family takes no DTensor" in ranks["ssm"]
+    msg = ranks["unsharded_family"]
+    assert "moe family takes no DTensor" in msg and "dense, ssm, hybrid" in msg
+
+
+def _ssm_run(label, ranks, ranks_1x4):
+    name, mesh, p, n = SSM_CASES[label]
+    return name, p, n, (ranks if mesh == (2, 2) else ranks_1x4)[label]
+
+
+@pytest.mark.parametrize("label", list(SSM_CASES))
+def test_ssm_and_hybrid_cached_paths_match_the_unsharded_port(label, ranks, ranks_1x4):
+    name, p, n, got = _ssm_run(label, ranks, ranks_1x4)
+    want, greedy = _unsharded(name, {}, got["tokens"], P=p, N=n)
+    assert len(got["logits"]) == n + 1
+    for step, (g, w) in enumerate(zip(got["logits"], want)):
+        np.testing.assert_allclose(g, w, atol=PORT_TOL, rtol=0, err_msg=f"step {step}")
+    np.testing.assert_array_equal(got["tokens"][:, p:], greedy)
+
+
+@pytest.mark.parametrize("label", list(SSM_CASES))
+def test_ssm_and_hybrid_cached_paths_match_jax(label, ranks, ranks_1x4):
+    name, p, n, got = _ssm_run(label, ranks, ranks_1x4)
+    jarch, jparams, prompts = _case(name, P=p)
+    jcfg = jlm.ModelCfg(dtype=jnp.float32, attn_impl="xla", ssm_impl="xla")
+    caches = jlm.init_caches(jarch, jcfg, B, T)
+    logits, caches = jlm.prefill(jparams, jarch, jcfg, caches, jnp.asarray(prompts))
+    np.testing.assert_allclose(got["logits"][0], np.asarray(logits), atol=JAX_TOL, rtol=0)
+    for i in range(n):
+        tok = jnp.asarray(got["tokens"][:, p + i:p + i + 1], jnp.int32)
+        logits, caches = jlm.decode_step(jparams, jarch, jcfg, caches, tok, p + i)
+        np.testing.assert_allclose(got["logits"][i + 1], np.asarray(logits), atol=JAX_TOL,
+                                   rtol=0, err_msg=f"decode step {i}")
+
+
+@pytest.mark.parametrize("label", list(SSM_CASES))
+def test_ssm_and_hybrid_caches_lie_as_cache_specs_place_them(label, ranks, ranks_1x4):
+    from repro_torch.parallel.sharding import MeshShape, cache_specs, make_plan, placements
+
+    name, mesh, _, _ = SSM_CASES[label]
+    got = _ssm_run(label, ranks, ranks_1x4)[3]["placements"]
+    arch = get_reduced(name)
+    cfg = lm.ModelCfg(dtype=torch.float32)
+    caches = lm.init_caches(arch, cfg, B, T, device="meta")
+    specs = cache_specs(arch, make_plan(MeshShape(mesh, ("data", "model"))), caches)
+
+    class Mesh:  # placements() reads the dim names only
+        mesh_dim_names = ("data", "model")
+
+    assert got == {k: placements(Mesh, spec) for k, spec in specs.items()}
+    if mesh == (1, 4) and "k" in got:  # 2 kv heads do not split 4 ways: T does
+        from torch.distributed.tensor import Shard
+
+        assert got["k"][1] == Shard(3) and caches["k"].shape[3] // 4 == 8

@@ -13,8 +13,20 @@ against the JAX package's, on the CPU.
     loss within 1e-4 and params within 1e-3 (tests/test_distributed.py's
     bounds), and against the port's unsharded step within 1e-5 (loss, params
     and the global grad norm, relative); then K = 2 microbatches with
-    ``batch_axes``. A tensor dim over ("pod", "data") lands on each rank as
-    JAX puts it on the device of that index.
+    ``batch_axes``. The same for reduced mamba2-370m (in_proj's 548 columns
+    cut at 274, inside x; the conv's 288 channels at 144, inside x) and
+    hymba-1.5b (S = 64 past its window of 32: the banded attention; 532
+    in_proj columns cut at 266), with every grad leaf within 1e-5 of the
+    unsharded port's and the weight grads of in_proj, conv_w and out_proj
+    handed back split over "model" as their params are. Their leaves that
+    start at zero (conv_b, dt_bias, A_log) are, after one step, the AdamW
+    update alone, lr g / (|g| + eps), whose relative error is eps / |g|
+    times the grad's: at hymba's conv_b channel with |g| = 3e-7 (the leaf's
+    largest is 3.4e-2) the unsharded f32 step itself lies 5e-5 from the f64
+    step. Those leaves are held at 1e-5 through their grads, and through
+    their params at the JAX bound. A mamba2 state saved from the (2, 2) mesh
+    restores onto it leaf for leaf. A tensor dim over ("pod", "data") lands
+    on each rank as JAX puts it on the device of that index.
 (c) An elastic restart: two steps on (4, 1), a save, a restore onto (2, 2)
     with placements, two more: the loss within 1e-4 of four steps in one
     run; rank 0 alone copies the state to the host; the checkpoint restores
@@ -170,12 +182,17 @@ def test_act_shard_and_batch_axes_are_accepted():
 # --- (b) and (e): the sharded train step on 4 ranks ---------------------------
 
 ARCHS = ("yi-6b", "qwen3-8b")
+SSM_ARCHS = ("mamba2-370m", "hymba-1.5b")
+SEQ = {"hymba-1.5b": 64}  # past the reduced window of 32
+# zero at init: one step leaves them the AdamW update alone (docstring (b))
+ZERO_INIT = ("layers/ssm/conv_b", "layers/ssm/dt_bias", "layers/ssm/A_log")
 ORDER_CASES = [((2, 2, 1), ("pod", "data", "model"), sharding.P(("pod", "data"), None)),
                ((2, 1, 2), ("pod", "data", "model"), sharding.P("pod", "model")),
                ((1, 2, 2), ("pod", "data", "model"), sharding.P(None, ("data", "model")))]
 
 
-def _case(name, seed=0, B=8, S=32):
+def _case(name, seed=0, B=8, S=None):
+    S = S or SEQ.get(name, 32)
     jarch = jax_reduced(name)
     jparams = jax.device_get(jlm.init_params(jarch, jax.random.PRNGKey(seed)))
     tokens = np.random.default_rng(seed + 1).integers(0, jarch.vocab, (B, S)).astype(np.int32)
@@ -185,9 +202,10 @@ def _case(name, seed=0, B=8, S=32):
 @pytest.fixture(scope="module")
 def sharded_steps(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("steps")
-    cases = [(name, *_case(name)[1:]) for name in ARCHS]
+    cases = [(name, *_case(name)[1:]) for name in ARCHS + SSM_ARCHS]
     torch_ranks.run_ranks(torch_ranks.train_step_program, 4, tmp, str(tmp / "out.pt"), cases,
-                          [(shape, axes, tuple(spec)) for shape, axes, spec in ORDER_CASES])
+                          [(shape, axes, tuple(spec)) for shape, axes, spec in ORDER_CASES],
+                          str(tmp / "ckpt"), timeout=240)
     return torch.load(tmp / "out.pt", weights_only=False)
 
 
@@ -198,7 +216,7 @@ def _max_err(got: dict, want: dict) -> float:
                for k in w)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + SSM_ARCHS)
 def test_sharded_step_matches_the_jax_step(name, sharded_steps):
     jarch, jparams, tokens = _case(name)
     step = jax.jit(jstep.make_train_step(jarch, JCFG, jstep.TrainStepCfg()))
@@ -219,7 +237,7 @@ def _port_step(name, K):
 
 
 @pytest.mark.parametrize("K", [1, 2], ids=["K1", "K2-batch_axes"])
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + SSM_ARCHS)
 def test_sharded_step_matches_the_unsharded_port(name, K, sharded_steps):
     params, m = _port_step(name, K)
     got = sharded_steps[(name, K)]
@@ -227,8 +245,50 @@ def test_sharded_step_matches_the_unsharded_port(name, K, sharded_steps):
     assert abs(got["grad_norm"] - float(m["grad_norm"])) <= PORT_TOL * float(m["grad_norm"])
     want = {k: v.numpy() for k, v in _flat(params).items()}
     for k, w in want.items():
+        if k in ZERO_INIT:  # held through their grads (docstring (b))
+            assert np.abs(got["params"][k] - w).max() < PARAM_TOL, k
+            continue
         rel = np.abs(got["params"][k] - w).max() / (np.abs(w).max() + 1e-30)
         assert rel <= PORT_TOL, (k, rel)
+
+
+@pytest.mark.parametrize("name", SSM_ARCHS)
+def test_sharded_grads_match_the_unsharded_port(name, sharded_steps):
+    """Every grad leaf of the loss at the first step's params, made whole,
+    within 1e-5 of the unsharded port's (relative to the leaf's largest);
+    the weight grads of in_proj, conv_w and out_proj come back from the
+    backward split over "model" as their params are (no rank computes the
+    whole weight grad), partial sums over "data" at most."""
+    from torch.distributed.tensor import Partial
+
+    _, jparams, tokens = _case(name)
+    arch = get_reduced(name)
+    params = {k: v.requires_grad_() for k, v in
+              _flat(params_from_numpy(jparams, device="cpu")).items()}
+    tree = {}
+    for k, v in params.items():
+        node = tree
+        *parents, last = k.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = v
+    loss, _ = lm.forward_train(tree, arch, CFG, {"tokens": torch.from_numpy(tokens).long()})
+    want = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    got, placed = sharded_steps[(name, "grads")]
+    for k, w in want.items():
+        w = w.numpy()
+        rel = np.abs(got[k] - w).max() / (np.abs(w).max() + 1e-30)
+        assert rel <= PORT_TOL, (k, rel)
+    for leaf in ("in_proj", "conv_w", "out_proj"):
+        grad, param = placed[f"layers/ssm/{leaf}"]
+        data, model = 0, 1  # the mesh's dims
+        assert grad[model] == param[model] and param[model].is_shard(), (leaf, grad, param)
+        assert grad[data] in (param[data], Partial()), (leaf, grad, param)
+
+
+def test_a_sharded_mamba2_state_round_trips_through_a_checkpoint(sharded_steps):
+    got = sharded_steps["ckpt"]
+    assert got["same_placements"] and got["equal"] and got["leaves"] > 0
 
 
 def test_k1_takes_the_sharded_q_k_views_in_place(sharded_steps):

@@ -451,7 +451,7 @@ def test_train_step_refuses_sharding_knobs(one_rank_mesh):
     plan = make_plan(one_rank_mesh)
     for name, cfg, err in (("qwen3-8b", TrainStepCfg(num_microbatches=2, batch_axes=("pod",)),
                             ValueError),
-                           ("mamba2-370m", TrainStepCfg(), NotImplementedError)):
+                           ("granite-moe-3b-a800m", TrainStepCfg(), NotImplementedError)):
         _, arch, _, params, toks = _setup(name, B=2, S=8)
         params = distribute(params, named(plan, param_specs(arch, plan, params)))
         batch = {"tokens": torch.from_numpy(toks).long()}

@@ -75,12 +75,39 @@ def _full(tree) -> dict:
     return {k: v.full_tensor().numpy() for k, v in _flat(tree).items()}
 
 
-def train_step_program(rank, world, out, cases, order_cases):
+def _grads(arch, cfg, params, batch):
+    """The loss's grads on DTensor params, each redistributed to its param's
+    placements as make_train_step does, made whole; and, per leaf, the
+    placements the backward handed the grad in beside its param's."""
+    from repro_torch.models.lm import forward_train
+
+    flat = _flat(params)
+    inputs = {k: v.detach().requires_grad_() for k, v in flat.items()}
+    tree = {}
+    for k, v in inputs.items():
+        node = tree
+        *parents, last = k.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = v
+    loss, _ = forward_train(tree, arch, cfg, batch)
+    grads = torch.autograd.grad(loss, list(inputs.values()))
+    placed = {k: (tuple(g.placements), tuple(v.placements))
+              for (k, v), g in zip(inputs.items(), grads)}
+    whole = {k: g.redistribute(v.device_mesh, v.placements).full_tensor().numpy()
+             for (k, v), g in zip(inputs.items(), grads)}
+    return whole, placed
+
+
+def train_step_program(rank, world, out, cases, order_cases, ckpt_dir=None):
     """On a (2, 2) data x model mesh with FSDP: per case (arch name, params,
     tokens), one make_train_step step, then one of K = 2 microbatches with
     batch_axes; the inputs K1 was handed, each with what K1's ``_plan`` made
-    of it. Then the shards the ranks hold of an arange under each (mesh
-    shape, axes, spec) of ``order_cases``, by rank. Rank 0 saves the results."""
+    of it; the loss's grads at the first step's params (``_grads``). Then
+    the shards the ranks hold of an arange under each (mesh shape, axes,
+    spec) of ``order_cases``, by rank; and, with ``ckpt_dir``, the mamba2
+    case's state after its step saved there and restored with its
+    placements (``_ckpt_round_trip``). Rank 0 saves the results."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_reduced
@@ -108,6 +135,8 @@ def train_step_program(rank, world, out, cases, order_cases):
     results = {}
     for name, params_np, tokens in cases:
         arch = get_reduced(name)
+        params, batch = _placed(arch, plan, params_np, tokens)
+        results[(name, "grads")] = _grads(arch, cfg, params, batch)
         for K in (1, 2):
             seen.clear()
             step = make_train_step(arch, cfg, TrainStepCfg(num_microbatches=K,
@@ -132,8 +161,45 @@ def train_step_program(rank, world, out, cases, order_cases):
         dist.all_gather_object(every, local.numpy().copy())
         shards.append(every)
     results["shards"] = shards
+    if ckpt_dir is not None:
+        name, params_np, tokens = next(c for c in cases if c[0] == "mamba2-370m")
+        results["ckpt"] = _ckpt_round_trip(get_reduced(name), cfg, plan, params_np, tokens,
+                                           ckpt_dir)
     if rank == 0:
         torch.save(results, out)
+
+
+def _ckpt_round_trip(arch, cfg, plan, params_np, tokens, ckpt_dir) -> dict:
+    """One step's params and AdamW state as DTensors through
+    ``CheckpointManager.save`` and ``restore(shardings=)`` onto the same
+    placements: whether every rank's local shards came back equal."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.parallel.sharding import named, param_specs
+    from repro_torch.train import TrainStepCfg, adamw_init, make_train_step
+
+    step = make_train_step(arch, cfg, TrainStepCfg(batch_axes=plan.batch_axes))
+    params, batch = _placed(arch, plan, params_np, tokens)
+    params, opt, _ = step(params, adamw_init(params), batch)
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save(1, {"params": params, "opt": opt}, blocking=True)
+    dist.barrier()  # rank 0's write is done
+    whole = params_from_numpy(params_np, device="cpu")
+    sh = named(plan, param_specs(arch, plan, whole))
+    state, _ = mgr.restore({"params": whole, "opt": adamw_init(whole)},
+                           shardings={"params": sh, "opt": {"mu": sh, "nu": sh}})
+    pairs = [(_flat(a), _flat(b)) for a, b in ((state["params"], params),
+                                                (state["opt"].mu, opt.mu),
+                                                (state["opt"].nu, opt.nu))]
+    same = all(got[k].placements == want[k].placements for got, want in pairs for k in want)
+    equal = all(torch.equal(got[k].to_local(), want[k].to_local())
+                for got, want in pairs for k in want)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (same, equal))
+    return {"same_placements": all(s for s, _ in every), "equal": all(e for _, e in every),
+            "leaves": sum(len(want) for _, want in pairs)}
 
 
 def elastic_program(rank, world, out, ckpt_dir, params_np, token_batches):
@@ -272,15 +338,17 @@ def pipeline_program(rank, world, out, w_np, x_np):
         torch.save(results, out)
 
 
-def cached_program(rank, world, out, cases, chunk_case):
-    """On a (2, 2) data x model mesh with FSDP, params, caches and tokens as
-    DTensors placed by param_specs, cache_specs and batch_spec. Per case
-    (label, arch name, params, prompts, new tokens N, max_len, ModelCfg
-    options): the prefill and N greedy decode steps, each step's logits made
-    whole, the tokens, and the caches' placements; or the error the cached
-    path raised. Then chunk_case (params, P0, C, max_len, tokens) for reduced
-    yi-6b: a prefill of P0 tokens and a chunk of C more from position P0,
-    each rank's local k shard after each. Rank 0 saves the results."""
+def cached_program(rank, world, out, mesh_shape, cases, chunk_case):
+    """On a ``mesh_shape`` data x model mesh with FSDP, params, caches and
+    tokens as DTensors placed by param_specs, cache_specs and batch_spec.
+    Per case (label, arch name, params, prompts, new tokens N, max_len,
+    ModelCfg options): the prefill and N greedy decode steps, each step's
+    logits made whole, the tokens, and the caches' placements; or the error
+    the cached path raised. Then, where given, chunk_case (params, P0, C,
+    max_len, tokens) for reduced yi-6b: a prefill of P0 tokens and a chunk
+    of C more from position P0, each rank's local k shard after each; and
+    the error a family the port does not shard raises. Rank 0 saves the
+    results."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_reduced
@@ -290,7 +358,7 @@ def cached_program(rank, world, out, cases, chunk_case):
     from repro_torch.parallel.sharding import (batch_spec, cache_specs, distribute, make_plan,
                                                named, param_specs)
 
-    plan = make_plan(make_mesh((2, 2), ("data", "model"), "cpu"), fsdp=True)
+    plan = make_plan(make_mesh(mesh_shape, ("data", "model"), "cpu"), fsdp=True)
 
     def placed(arch, cfg, params_np, B, T):
         params = params_from_numpy(params_np, device="cpu")
@@ -323,29 +391,30 @@ def cached_program(rank, world, out, cases, chunk_case):
         except NotImplementedError as e:
             results[label] = {"error": str(e)}
 
-    params_np, P0, C, T, toks = chunk_case
-    arch = get_reduced("yi-6b")
-    cfg = lm.ModelCfg(dtype=torch.float32)
-    params, caches = placed(arch, cfg, params_np, toks.shape[0], T)
-    shards = []
-    lm.prefill(params, arch, cfg, caches, tokens(toks[:, :P0]))
-    for start, chunk in ((None, None), (P0, toks[:, P0:P0 + C])):
-        if start is not None:
-            lm.forward_cached(params, arch, cfg, caches, tokens(chunk), start)
-        every = [None] * world
-        dist.all_gather_object(every, (plan.mesh.get_coordinate(),
-                                       caches["k"].to_local().numpy().copy()))
-        shards.append(every)
-    results["chunk"] = {"shards": shards, "placements": tuple(caches["k"].placements)}
+    if chunk_case is not None:
+        params_np, P0, C, T, toks = chunk_case
+        arch = get_reduced("yi-6b")
+        cfg = lm.ModelCfg(dtype=torch.float32)
+        params, caches = placed(arch, cfg, params_np, toks.shape[0], T)
+        shards = []
+        lm.prefill(params, arch, cfg, caches, tokens(toks[:, :P0]))
+        for start, chunk in ((None, None), (P0, toks[:, P0:P0 + C])):
+            if start is not None:
+                lm.forward_cached(params, arch, cfg, caches, tokens(chunk), start)
+            every = [None] * world
+            dist.all_gather_object(every, (plan.mesh.get_coordinate(),
+                                           caches["k"].to_local().numpy().copy()))
+            shards.append(every)
+        results["chunk"] = {"shards": shards, "placements": tuple(caches["k"].placements)}
 
-    ssm = get_reduced("mamba2-370m")
-    ssm_params = lm.init_params(ssm, torch.Generator().manual_seed(0), torch.float32, "cpu")
-    ssm_params = distribute(ssm_params, named(plan, param_specs(ssm, plan, ssm_params)))
-    try:
-        lm.prefill(ssm_params, ssm, cfg, lm.init_caches(ssm, cfg, 2, 16, device="cpu"),
-                   tokens(torch.zeros((2, 4), dtype=torch.long)))
-        results["ssm"] = None
-    except NotImplementedError as e:
-        results["ssm"] = str(e)
+        moe = get_reduced("granite-moe-3b-a800m")
+        moe_params = lm.init_params(moe, torch.Generator().manual_seed(0), torch.float32, "cpu")
+        moe_params = distribute(moe_params, named(plan, param_specs(moe, plan, moe_params)))
+        try:
+            lm.prefill(moe_params, moe, cfg, lm.init_caches(moe, cfg, 2, 16, device="cpu"),
+                       tokens(torch.zeros((2, 4), dtype=torch.long)))
+            results["unsharded_family"] = None
+        except NotImplementedError as e:
+            results["unsharded_family"] = str(e)
     if rank == 0:
         torch.save(results, out)
