@@ -1401,8 +1401,8 @@ def granite_extra(dev, arch, params, counters, res, decode_ms) -> list:
     with torch.inference_mode(), RoutingReplay() as rec:
         lm.forward_logits(params, arch, cfg, {"tokens": toks})
     C = moe.capacity(toks.numel(), arch.top_k, cfg.capacity_factor, arch.num_experts)
-    dropped = [int((torch.bincount(e.flatten(), minlength=arch.num_experts) - C)
-                   .clamp(min=0).sum()) for e in rec.experts]
+    dropped = [int((moe.expert_counts(e, arch.num_experts) - C).clamp(min=0).sum())
+               for e in rec.experts]
     total = sum(e.numel() for e in rec.experts)
     shares = [d / e.numel() for d, e in zip(dropped, rec.experts)]
     log("forward", f"{arch.name} B=2 S=512 capacity factor {cfg.capacity_factor}: "
@@ -2418,6 +2418,13 @@ SHARD_DRIVER_STEPS = 20
 # as phase 6's mamba2 step, hymba past its window of 1024 (the banded path)
 SHARD_SSM_CELLS = {"mamba2-370m": (2, (1, 256)), "hymba-1.5b": (2, (1, 2048))}
 SHARD_SSM_STEPS = 4
+# the moe family on DTensors: granite-moe-3b-a800m at full width and 4 of its
+# 32 layers (phase 6's cut), TRAIN_BS, at the default capacity factor
+# 1.25 (the step drops assignments). Its dispatch sums each token's k expert
+# outputs in a fixed order (models/moe.py), so the two runs must agree bit
+# for bit, leaf for leaf.
+SHARD_MOE_LAYERS = 4
+SHARD_MOE_STEPS = 4
 
 
 def _one_rank_group(dev):
@@ -2433,13 +2440,16 @@ def _one_rank_group(dev):
 
 
 def _shard_vs_plain(dev, mesh, counters, arch, B: int, S: int, steps: int,
-                    per_step: dict) -> dict:
+                    per_step: dict, without_fsdp: bool = False) -> dict:
     """``steps`` make_train_step steps of ``arch`` (bf16) with params, AdamW
     state and batch as DTensors on the (1, 1) mesh with FSDP, against the
     same steps on plain tensors from the same params: the losses and every
     leaf, the kernels' launches of each run against ``per_step`` a step, the
     wall ms of each step and the peak memory. Returns the runs' (label,
-    launches, launches by shape), their rows and the comparison."""
+    launches, launches by shape), their rows and the comparison; with
+    ``without_fsdp``, also a third run on the plan without FSDP against the
+    same plain run ("no_fsdp": its leaves equal, its launches and its
+    step ms)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.models import lm
@@ -2453,12 +2463,16 @@ def _shard_vs_plain(dev, mesh, counters, arch, B: int, S: int, steps: int,
     name = arch.name
     runs, rows = [], {}
 
-    def run(label, sharded, kept_bytes):
+    def run(label, sharded, kept_bytes, plan=plan):
         _free()
         params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(0),
                                 torch.float32, dev)
         if sharded:
             params = distribute(params, named(plan, param_specs(arch, plan, params)))
+            if arch.family == "moe":  # the layout the dispatch takes
+                data = plan.axis_names.index("data")
+                check(params["layers"]["moe"]["wi"].placements[data].is_shard() == plan.fsdp,
+                      f"{label}: the experts lie over \"data\" {'not ' * plan.fsdp}as planned")
         opt = adamw_init(params)
         losses, ms = [], []
         reset_counts(counters)
@@ -2507,7 +2521,18 @@ def _shard_vs_plain(dev, mesh, counters, arch, B: int, S: int, steps: int,
         f"{names[worst]} rel {rels[worst]:.3e} (bound {SHARD_REL})")
     check(loss_gap <= SHARD_REL and rels[worst] <= SHARD_REL,
           f"the {name} DTensor step disagrees with the plain-tensor step")
-    del got, want
+    del got
+    no_fsdp = None
+    if without_fsdp:
+        label = f"{name} shard DTensor (1,1) without FSDP x{steps}"
+        got, got_loss, _ = run(label, True, kept, make_plan(mesh, fsdp=False))
+        no_fsdp = {"leaves_equal": sum(torch.equal(a, b) for a, b in zip(got, want)),
+                   "leaves": len(want), "losses_equal": got_loss == want_loss,
+                   "step_ms": rows[label]["step_ms"], "launches": rows[label]["launches"]}
+        log("shard", f"{label} vs plain: {no_fsdp['leaves_equal']} of {len(want)} leaves "
+            f"equal bit for bit, losses equal: {no_fsdp['losses_equal']}")
+        del got
+    del want
     _free()
     plain, dt = rows[plain_label], rows[dt_label]
     warm = {k: sorted(r["step_ms"][1:]) for k, r in (("plain", plain), ("dtensor", dt))}
@@ -2518,7 +2543,7 @@ def _shard_vs_plain(dev, mesh, counters, arch, B: int, S: int, steps: int,
         f"ratio of the medians {med['dtensor'] / med['plain']:.4f}")
     return {"runs": runs, "plain": plain, "dtensor": dt, "median": med, "loss_gap": loss_gap,
             "worst_leaf": names[worst], "worst_leaf_rel": rels[worst], "leaves_equal": equal,
-            "leaves": len(rels)}
+            "leaves": len(rels), "no_fsdp": no_fsdp}
 
 
 def _shard_row(card: str, arch, B: int, S: int, res: dict) -> dict:
@@ -2569,6 +2594,36 @@ def shard_ssm_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, dic
         rows.append(_shard_row(card, arch, B, S, res))
     print(json.dumps({"shard_ssm": rows}), flush=True)
     return runs
+
+
+def shard_moe_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, dict]]:
+    """The moe family on DTensors: SHARD_MOE_STEPS steps of granite-moe-3b-
+    a800m (full width, SHARD_MOE_LAYERS layers, TRAIN_BS) against plain
+    tensors (``_shard_vs_plain``): K1 on ln1, ln2 and the final norm, K2 on
+    the attention, through local_apply. The dispatch in both its layouts:
+    with FSDP through its global slots (its 40 experts over "data" of size
+    1), and without (the experts whole over "data", as granite's 40 are at
+    16-way) through each rank's own rows. Every leaf of params, mu and nu
+    bit for bit in both; a {"shard_moe": ...} JSON line."""
+    from repro_torch.configs import get_arch
+
+    arch = dataclasses.replace(get_arch("granite-moe-3b-a800m"), num_layers=SHARD_MOE_LAYERS)
+    B, S = TRAIN_BS
+    L = arch.num_layers
+    per_step = {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": L, "ssd_scan_fwd": 0}
+    res = _shard_vs_plain(dev, mesh, counters, arch, B, S, SHARD_MOE_STEPS, per_step,
+                          without_fsdp=True)
+    whole = res["no_fsdp"]
+    log("shard", f"{arch.name} DTensor vs plain: {res['leaves_equal']} of {res['leaves']} "
+        f"leaves bit for bit with the experts over \"data\", {whole['leaves_equal']} of "
+        f"{whole['leaves']} with them whole over it (all required)")
+    check(res["leaves_equal"] == res["leaves"] and whole["leaves_equal"] == whole["leaves"]
+          and whole["losses_equal"], f"the {arch.name} DTensor step is not bit for bit the "
+          f"plain one")
+    row = _shard_row(card, arch, B, S, res)
+    row["without_fsdp"] = whole
+    print(json.dumps({"shard_moe": row}), flush=True)
+    return res["runs"]
 
 
 def shard_pipeline_phase(dev) -> None:
@@ -2688,6 +2743,7 @@ def shard_phase(dev, counters, card: str) -> list[tuple[str, dict, dict]]:
     try:
         runs = shard_steps_phase(dev, mesh, counters, card)
         runs += shard_ssm_phase(dev, mesh, counters, card)
+        runs += shard_moe_phase(dev, mesh, counters, card)
         shard_pipeline_phase(dev)
         shard_restore_phase(dev, mesh)
     finally:
@@ -2736,6 +2792,19 @@ DRYRUN_LATE_CELLS += tuple((a, s, p) for a in SSM_ARCHS
 # prefill) and its decode steps wrap it
 DRYRUN_SSM_SERVE = (("mamba2-370m", 4, 128, 32, 160), ("hymba-1.5b", 4, 128, 32, 160),
                     ("hymba-1.5b", 2, 1024, 8, 1024 + 8))
+# (a) the moe archs: (name, layers, B, prompt, new, max_len); granite at full
+# depth, llama4-scout at full width and 2 of its 48 layers (13 GB in bf16;
+# its top-1 routing and its shared expert)
+DRYRUN_MOE_SERVE = (("granite-moe-3b-a800m", 32, 4, 128, 32, 160),
+                    ("llama4-scout-17b-a16e", 2, 4, 128, 32, 160))
+# (c) the moe archs' cells: granite's six, llama4-scout's four serve cells
+# (its train_4k cells, 48 layers at d=5120, trace for minutes each: PERF.md
+# has them from a run of the CLI); long_500k is SKIP for both (full
+# attention)
+MOE_ARCHS = ("granite-moe-3b-a800m", "llama4-scout-17b-a16e")
+DRYRUN_EARLY_CELLS += tuple(("granite-moe-3b-a800m", "train_4k", p) for p in ("single", "multi"))
+DRYRUN_LATE_CELLS += tuple((a, s, p) for a in MOE_ARCHS for s in ("prefill_32k", "decode_32k")
+                           for p in ("single", "multi"))
 DRYRUN_CELL_TIMEOUT_S = 1000
 DRYRUN_OUT = pathlib.Path(__file__).resolve().parent / "build" / "dryrun_smoke"
 
@@ -2809,7 +2878,7 @@ def _serve_vs_plain(dev, mesh, counters, arch, B: int, P: int, N: int, T: int, s
     from repro_torch.parallel.sharding import (batch_spec, cache_specs, distribute, make_plan,
                                                named, param_specs)
 
-    cfg = lm.ModelCfg(dtype=torch.bfloat16)
+    cfg = _serve_cfg(arch, torch.bfloat16)  # moe: capacity factor MOE_SERVE_CAPACITY
     plan = make_plan(mesh, fsdp=True)
     params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(seed), torch.bfloat16,
                             dev)
@@ -2858,10 +2927,11 @@ def _serve_vs_plain(dev, mesh, counters, arch, B: int, P: int, N: int, T: int, s
 def dryrun_serve_phase(dev, mesh, counters) -> tuple[list, dict]:
     """(a) qwen3-8b at full width and depth, then mamba2-370m and hymba-1.5b
     (DRYRUN_SSM_SERVE: a cache that never wraps, and hymba's prompt that
-    fills its ring of 1024 with decode steps that wrap it), each served on
-    DTensors against plain tensors (``_serve_vs_plain``). Returns the DTensor
-    runs' (label, launches, by shape) and qwen3's row for the JSON line with
-    the others' under "ssm"."""
+    fills its ring of 1024 with decode steps that wrap it), then granite-moe
+    and llama4-scout (DRYRUN_MOE_SERVE, capacity factor MOE_SERVE_CAPACITY),
+    each served on DTensors against plain tensors (``_serve_vs_plain``).
+    Returns the DTensor runs' (label, launches, by shape) and qwen3's row for
+    the JSON line with the others' under "ssm" and "moe"."""
     from repro_torch.configs import get_arch
 
     arch = get_arch("qwen3-8b")
@@ -2881,6 +2951,15 @@ def dryrun_serve_phase(dev, mesh, counters) -> tuple[list, dict]:
         runs.append(run)
         rows.append(r)
     row["ssm"] = rows
+    rows = []
+    for name, L, B, P, N, T in DRYRUN_MOE_SERVE:
+        arch = dataclasses.replace(get_arch(name), num_layers=L)
+        # the cached path attends through flash_xla: K1 on ln1, ln2, the final norm
+        per_forward = {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": 0, "ssd_scan_fwd": 0}
+        run, r = _serve_vs_plain(dev, mesh, counters, arch, B, P, N, T, 11, per_forward)
+        runs.append(run)
+        rows.append(dict(r, layers=L, capacity_factor=MOE_SERVE_CAPACITY))
+    row["moe"] = rows
     return runs, row
 
 
@@ -2908,6 +2987,11 @@ def _mamba2_cell():
     """Phase 9's mamba2 cell."""
     L, bs = SHARD_SSM_CELLS["mamba2-370m"]
     return _train_cell("mamba2-370m", L, bs)
+
+
+def _granite_cell():
+    """Phase 9's granite cell."""
+    return _train_cell("granite-moe-3b-a800m", SHARD_MOE_LAYERS, TRAIN_BS)
 
 
 def _decode_cell():
@@ -3122,6 +3206,7 @@ def dryrun_phase(dev, counters, card: str, procs: list) -> list[tuple[str, dict,
     # lower_cell starts its own fake process group: before the NCCL one
     train_rep = _dryrun_cell(*_train_cell(), microbatch_rows=TRAIN_BS[0])
     mamba_rep = _dryrun_cell(*_mamba2_cell(), microbatch_rows=SHARD_SSM_CELLS["mamba2-370m"][1][0])
+    granite_rep = _dryrun_cell(*_granite_cell(), microbatch_rows=TRAIN_BS[0])
     decode_rep = _dryrun_cell(*_decode_cell())
     mesh = _one_rank_group(dev)
     try:
@@ -3133,14 +3218,19 @@ def dryrun_phase(dev, counters, card: str, procs: list) -> list[tuple[str, dict,
             dev, mesh, counters, mamba_rep, _mamba2_cell(),
             {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": 0, "ssd_scan_fwd": 2 * L})
         runs += more
+        L = SHARD_MOE_LAYERS
+        more, train_granite = dryrun_train_phase(
+            dev, mesh, counters, granite_rep, _granite_cell(),
+            {"rmsnorm_fwd": 4 * L + 1, "flash_attention_fwd": 2 * L, "ssd_scan_fwd": 0})
+        runs += more
         decode = dryrun_decode_phase(dev, mesh, decode_rep)
     finally:
         dist.destroy_process_group()
     _free()
     cells = dryrun_cells_phase(procs)
     print(json.dumps({"dryrun": {"card": card, "serve": serve, "train": train,
-                                 "train_mamba2": train_mamba, "decode": decode,
-                                 "cells": cells}}), flush=True)
+                                 "train_mamba2": train_mamba, "train_granite": train_granite,
+                                 "decode": decode, "cells": cells}}), flush=True)
     log("dryrun", f"done in {time.perf_counter() - t0:.1f} s")
     return runs
 

@@ -6,8 +6,9 @@ modality tokens arrive pre-embedded like every frontend stub).
 In the port for its reduced config, the only one with a shared expert (the
 CPU tests hold ``moe.shared_wi`` / ``moe.shared_wo`` against the JAX package
 with it). The full config, 107.8e9 parameters (216 GB in bf16), does not fit
-one 80 GB card: its params need at least three cards, and the port does not
-shard the moe family yet (ROADMAP)."""
+one 80 GB card: its params need at least three cards. The port shards the
+moe family (its 16 experts split over a data axis of 16); on one card it runs
+cut to a few of its 48 layers."""
 from repro_torch.core.arch import ModelArch
 
 ARCH = ModelArch(

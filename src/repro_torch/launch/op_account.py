@@ -14,7 +14,10 @@ the ops as the rank runs them, on real or on fake tensors alike:
     intermediate written and read again, not what XLA's fusions would move.
   * collectives: the ``_c10d_functional`` ops (all_gather_into_tensor,
     all_reduce, reduce_scatter_tensor, all_to_all_single) with the size and
-    ranks of the group named in the op, each turned into wire bytes by the
+    ranks of the group named in the op: DTensor's, and those the MoE
+    dispatch runs on local tensors (``sharding.gather_over`` and its
+    kin run them, and their mirrors in the backward, through these same
+    ops, once each), each turned into wire bytes by the
     JAX ring model (``roofline._wire_bytes``) and into seconds at the rate of
     its group's slowest link (``roofline.link_bw``).
   * peak memory: the live bytes of the rank's storages. The storages of the

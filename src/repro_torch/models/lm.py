@@ -19,18 +19,22 @@ place instead of being returned as new arrays.
 
 Sharded (``repro_torch.parallel``): the full-sequence forward and its loss
 take params and a batch of DTensors, placed by ``param_specs`` and
-``batch_spec``, for the families of ``SHARDED_FAMILIES`` (dense, ssm and
-hybrid). DTensor's propagation inserts the collectives; the layer carry is
+``batch_spec``, for the families of ``SHARDED_FAMILIES`` (dense, moe, ssm
+and hybrid). DTensor's propagation inserts the collectives; the layer carry is
 pinned by ``constrain_batch_sharding`` where the JAX package pins it,
 ``ModelCfg.act_shard`` pins the activations it pins, and the logits are made
 whole over "model" before the loss. The kernels, the sliding window's banded
 attention and the Mamba-2 mixer's conv and scan run on each rank's shards
-through ``local_apply`` (``ops``, ``models/ssm.py``). The cached path
+through ``local_apply`` (``ops``, ``models/ssm.py``), as does the MoE
+block, whose dispatch keeps the global capacity and drops of the unsharded
+program (``models/moe.py``); the aux loss takes its means over the global
+tokens and comes back, with the loss, as a plain tensor. The cached path
 (prefill and decode) takes params, caches and tokens as DTensors too, placed
 by ``param_specs``, ``cache_specs`` and ``batch_spec``: the KV cache, a ring
 included, over its heads or its sequence (``_sharded_cached_attention``), the
-conv and state caches written in place on each rank's shard. The moe, encdec
-and vlm families refuse DTensors.
+conv and state caches written in place on each rank's shard; an MoE layer's
+capacity there comes from the chunk's global B x S. The encdec and vlm
+families refuse DTensors.
 """
 from __future__ import annotations
 
@@ -117,7 +121,7 @@ REMATS = ("none", "selective", "full")
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # the families whose full-sequence forward and cached path take DTensors
 # (ROADMAP lists what the others need)
-SHARDED_FAMILIES = ("dense", "ssm", "hybrid")
+SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(arch: ModelArch) -> None:
@@ -708,12 +712,12 @@ def forward_train(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict):
     Returns ``(loss, {"ce_loss", "loss"})``; the moe family adds
     ``moe_aux_weight`` times the load-balancing loss, reported as
     ``"aux_loss"``. As in the JAX package, that loss is layer 0's router
-    applied to the embedded inputs. Sharded, the logits are made whole over
-    every mesh dim but the batch's before the loss, each rank takes the
-    losses of its own rows (``local_apply``: DTensor's backward of the
-    gather would allocate zeros of the *global* logits on every rank, 40 GB
-    at train_4k), and the loss and metrics come back as plain tensors, the
-    same on every rank."""
+    applied to the embedded inputs (sharded, its means run over the global
+    tokens). Sharded, the logits are made whole over every mesh dim but the
+    batch's before the loss, each rank takes the losses of its own rows
+    (``local_apply``: DTensor's backward of the gather would allocate zeros
+    of the *global* logits on every rank, 40 GB at train_4k), and the loss
+    and metrics come back as plain tensors, the same on every rank."""
     logits = forward_logits(params, arch, cfg, batch)
     S_txt = batch["tokens"].shape[1]
     targets = batch["tokens"][:, 1:].long()

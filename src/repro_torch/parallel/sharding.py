@@ -21,7 +21,11 @@ it over the mesh dims in order, pod major, as JAX does.
 GSPMD's place is taken by DTensor's op propagation, which inserts the
 collectives; :func:`constrain_batch_sharding` is a ``redistribute``. The mesh
 in use is the one its argument lives on: a plain tensor has none, and the
-constraint is the identity, as the JAX one is outside a mesh.
+constraint is the identity, as the JAX one is outside a mesh. Code that runs
+on each rank's shards (:func:`local_apply`) and must talk across ranks (the
+MoE dispatch) uses :func:`gather_over`, :func:`sum_scatter_over` and
+:func:`sum_over`, whose backwards are the mirror collectives, over the
+groups of :func:`batch_groups` and "model".
 """
 from __future__ import annotations
 
@@ -415,3 +419,109 @@ def _from_local(x, mesh, places, shape):
     shape = torch.Size(shape)
     return DTensor.from_local(x.contiguous(), mesh, tuple(places), run_check=False,
                               shape=shape, stride=_contiguous_stride(shape))
+
+
+# --- collectives on local tensors, inside a local_apply -----------------------
+#
+# Each local grad here is the grad of the rank's own copy: a value that every
+# rank of a group holds but that each rank uses on its own rows gets a partial
+# grad on each, and the backward of each collective is its mirror
+# (all-gather <-> reduce-scatter, all-reduce <-> all-reduce). Written as
+# autograd Functions over the functional collectives, which torch 2.11 and
+# 2.13 both have (their autograd forms differ between the two).
+
+def batch_groups(mesh: DeviceMesh) -> list[tuple[str, int, Any, int]]:
+    """The mesh dims of the batch axes that have more than one rank, major
+    first, as ``(name, size, process group, this rank's index)``. A tensor
+    whose rows ``batch_spec`` places over them holds, on the rank of index
+    ``r`` in row-major order over these dims, the r-th block of rows."""
+    out = []
+    for name, n in zip(mesh.mesh_dim_names, mesh.shape):
+        if name in BATCH_AXES and n > 1:
+            out.append((name, n, mesh.get_group(name), mesh.get_local_rank(name)))
+    return out
+
+
+def _wait(t):
+    import torch.distributed._functional_collectives as funcol
+
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+# torch 2.11's names; 2.13 keeps them (with a FutureWarning) beside its new
+# all_gather_single / reduce_scatter_single, which 2.11 lacks
+def _all_gather(x, dim, group):
+    import torch.distributed._functional_collectives as funcol
+
+    return _wait(funcol.all_gather_tensor(x.contiguous(), dim, group))
+
+
+def _reduce_scatter(x, dim, group):
+    import torch.distributed._functional_collectives as funcol
+
+    return _wait(funcol.reduce_scatter_tensor(x.contiguous(), "sum", dim, group))
+
+
+def _all_reduce(x, group):
+    import torch.distributed._functional_collectives as funcol
+
+    return _wait(funcol.all_reduce(x.contiguous(), "sum", group))
+
+
+class _Mirrored(torch.autograd.Function):
+    """``forward(x)``, whose backward is ``backward(g)``."""
+
+    @staticmethod
+    def forward(ctx, x, forward, backward):
+        ctx.backward_fn = backward
+        return forward(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.backward_fn(g), None, None
+
+
+def gather_over(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` of ``group`` concatenated along ``dim`` in rank
+    order; the grad comes back reduce-scattered (summed). ``group`` None is
+    the identity."""
+    if group is None:
+        return x
+    return _Mirrored.apply(x, lambda t: _all_gather(t, dim, group),
+                           lambda g: _reduce_scatter(g, dim, group))
+
+
+def sum_scatter_over(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of the ranks' ``x`` of ``group``, each rank keeping its block
+    of ``dim``; the grad comes back all-gathered. ``group`` None is the
+    identity."""
+    if group is None:
+        return x
+    return _Mirrored.apply(x, lambda t: _reduce_scatter(t, dim, group),
+                           lambda g: _all_gather(g, dim, group))
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' ``x`` of ``group`` on every rank; the grad comes
+    back summed the same way. ``group`` None is the identity."""
+    if group is None:
+        return x
+    return _Mirrored.apply(x, lambda t: _all_reduce(t, group), lambda g: _all_reduce(g, group))
+
+
+def gather_rows(x: torch.Tensor, groups) -> torch.Tensor:
+    """Without grad: each rank's ``x`` stacked along a new dim 0 in row-major
+    order over ``groups`` (``batch_groups``'s entries, major first), on
+    every rank: ``(prod of the sizes, *x.shape)``."""
+    every = x[None]
+    for _, _, group, _ in reversed(groups):
+        every = _all_gather(every, 0, group)
+    return every
+
+
+def row_block(groups) -> int:
+    """This rank's index in row-major order over ``groups``."""
+    idx = 0
+    for _, n, _, r in groups:
+        idx = idx * n + r
+    return idx

@@ -15,6 +15,7 @@ AdamW.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
@@ -22,7 +23,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.core.arch import ModelArch
 from repro_torch.models.lm import ModelCfg, cast_params, forward_train
-from repro_torch.parallel.sharding import P, placements
+from repro_torch.parallel.sharding import P, axis_sizes, placements
 from repro_torch.train.optimizer import OptState, adamw_update, cosine_schedule
 
 
@@ -82,7 +83,10 @@ def make_train_step(arch: ModelArch, model_cfg: ModelCfg, cfg: TrainStepCfg) -> 
         DTensor is reshaped to (K, GB/K, ...) with dim 1 over ``batch_axes``,
         as the JAX step pins it, and its microbatches are the slices of dim 0.
         A one-row microbatch (one data replica) stays whole: a sharded dim of
-        size 1 is one DTensor's views cannot merge into the next."""
+        size 1 is one DTensor's views cannot merge into the next. A
+        microbatch that the batch axes do not divide is refused: its ranks
+        would hold blocks of unequal size, which DTensor cannot flatten in the
+        model's first product."""
         n = x.shape[0] // K
         if not isinstance(x, DTensor):
             return [x[i * n:(i + 1) * n] for i in range(K)]
@@ -90,6 +94,10 @@ def make_train_step(arch: ModelArch, model_cfg: ModelCfg, cfg: TrainStepCfg) -> 
         mesh = y.device_mesh
         if cfg.batch_axes:  # a batch axis the mesh lacks is refused here
             pinned = placements(mesh, P(None, cfg.batch_axes, *([None] * (y.dim() - 2))))
+            ranks = math.prod(axis_sizes(mesh)[a] for a in cfg.batch_axes)
+            if n > 1 and n % ranks:
+                raise ValueError(f"{K} microbatches of {n} rows do not split over "
+                                 f"{cfg.batch_axes} ({ranks} ranks)")
         if n == 1:
             y = y.redistribute(mesh, placements(mesh, P()))
         elif cfg.batch_axes:

@@ -27,8 +27,8 @@
     ``param_specs``/``cache_specs``/``batch_spec`` give, collectives counted
     and their wire bytes by the JAX formula.
 (i) ``python -m repro_torch.launch.dryrun --device cpu`` writes an artifact
-    that ``report`` renders, and prints a cell of an unsharded family as
-    SKIP.
+    that ``report`` renders, and prints a cell of an unsharded family (vlm)
+    as SKIP.
 (j) The counted SSD scan (``op_account._CountedScan``) on fake tensors
     against the plain loop it stands for (``OpAccountant(count_loops=False)``)
     at S = 3, 4, 8, 17 and 64: FLOPs and HBM bytes equal, forward alone,
@@ -48,6 +48,26 @@
     int32 scalar and what JAX's jit drops as never read: mamba2's decode
     position (no attention reads it) and, in hymba's prefill of 64 > its
     ring of 32, the k/v caches, which the ring prefill overwrites unread.
+(l) (g) and (h) for reduced granite-moe-3b-a800m and llama4-scout-17b-a16e,
+    whose experts (8 and 4) split over "data" of 2 on the (2, 2) mesh: the
+    one-rank cells' FLOPs equal the JAX count in prefill and decode, and in
+    train lie above it by the attention block product of (g) alone, 2 B Hq
+    S T D per layer and microbatch (granite +1.73%, llama4 +0.74%); the
+    experts' products count as the JAX einsums over the (E, C, d) buffer do.
+    Four ranks: FLOPs per chip x 4 within 1% of the one-rank cell (each
+    model rank routes its T / tp of the tokens; an expert's
+    buffer is split over "data", its F over "model"), argument bytes the
+    local shards, collectives by the JAX formula. Granite without FSDP, its
+    experts whole over "data" (as granite's 40 at 16-way): each data rank
+    multiplies a whole C-slot buffer of its own rows, so 4 x the per-chip
+    FLOPs exceed the one-rank cell's by its expert products, exactly the
+    split cell's plus their difference. On its own under the
+    accountant, on a fake (2, 2) mesh, one MoE block runs each collective
+    of its dispatch once: forward, the router's choices gathered over
+    "model" (gates and experts), the counts over "data", the buffer's
+    reduce-scatter over "data", the expert product's all-gather over "model"
+    and the products' over "data"; backward, the mirror of each that carries
+    a grad.
 """
 import json
 import math
@@ -297,7 +317,7 @@ def test_lower_cell_refuses_what_it_cannot_trace():
 
     decode = {s.name: s for s in ASSIGNED_SHAPES}["decode_32k"]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        dryrun.lower_cell(get_reduced("granite-moe-3b-a800m"), decode, MeshShape(*MESH_4),
+        dryrun.lower_cell(get_reduced("pixtral-12b"), decode, MeshShape(*MESH_4),
                           device="cpu")
     with pytest.raises(ValueError, match="unknown --opt"):
         dryrun.lower_cell(get_reduced("qwen3-8b"), decode, MeshShape(*MESH_4), device="cpu",
@@ -328,9 +348,9 @@ def test_the_cli_writes_an_artifact_that_report_renders(tmp_path):
     assert "| qwen3-8b-reduced | decode_32k | 2x2 |" in table
     assert report.summary(cells)["cells_ok"] == 1
 
-    res = _cli("--arch", "granite-moe-3b-a800m", out=tmp_path)
+    res = _cli("--arch", "pixtral-12b", out=tmp_path)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert ("SKIP granite-moe-3b-a800m x decode_32k: the port shards the dense, ssm, hybrid "
+    assert ("SKIP pixtral-12b x decode_32k: the port shards the dense, moe, ssm, hybrid "
             "families only" in res.stdout)
     assert len(report.load_cells(str(tmp_path))) == 1
     assert math.isfinite(report.summary(cells)["worst_fraction"][0])
@@ -499,3 +519,180 @@ def test_an_ssm_or_hybrid_four_rank_cell_splits_the_one_rank_cell(name, kind, po
                for r in coll["by_group_size"])
     assert coll["wire_bytes"] == pytest.approx(wire, rel=1e-12)
     assert four["roofline"]["chips"] == 4 and four["memory"]["fits_h100_80g"]
+
+
+# --- (l) ---------------------------------------------------------------------
+
+MOE_ARCHS = ("granite-moe-3b-a800m", "llama4-scout-17b-a16e")
+WHOLE = "granite-moe-3b-a800m without FSDP"  # its experts whole over "data"
+
+
+@pytest.fixture(scope="module")
+def jax_moe_cells():
+    """The JAX lower_cell reports of the moe archs on one device
+    (``jax_cells``'s import guard)."""
+    from repro.launch.mesh import make_mesh
+
+    jax.devices()
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun as jdryrun
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+    mesh = make_mesh(*MESH_1)
+    return {(name, kind): jdryrun.lower_cell(jax_reduced(name), JaxShape(kind, S, B, kind), mesh)
+            for name in MOE_ARCHS for kind, (S, B) in CELLS.items()}
+
+
+@pytest.fixture(scope="module")
+def port_moe_cells():
+    return {(name, mesh, kind): dryrun.lower_cell(get_reduced(name), InputShape(kind, S, B, kind),
+                                                  MeshShape(*mesh), device="cpu")
+            for name in MOE_ARCHS for mesh in (MESH_1, MESH_4)
+            for kind, (S, B) in CELLS.items()} | {
+        (WHOLE, MESH_4, kind): dryrun.lower_cell(get_reduced("granite-moe-3b-a800m"),
+                                                 InputShape(kind, S, B, kind),
+                                                 MeshShape(*MESH_4), fsdp=False, device="cpu")
+        for kind, (S, B) in CELLS.items()}
+
+
+@pytest.mark.parametrize("kind", list(CELLS))
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_a_moe_one_rank_cell_against_the_jax_dry_run(name, kind, jax_moe_cells, port_moe_cells):
+    want, got = jax_moe_cells[(name, kind)], port_moe_cells[(name, MESH_1, kind)]
+    arch, (S, B) = get_reduced(name), CELLS[kind]
+    assert got["ok"] and got["mesh"] == "1x1"
+    assert (got["memory"]["argument_bytes"] + JAX_ONLY_ARG_BYTES[kind]
+            == want["memory"]["argument_bytes"])
+    jf, tf = want["roofline"]["flops_per_chip"], got["roofline"]["flops_per_chip"]
+    assert abs(tf - jf) <= FLOP_TOL_JAX * jf, (tf, jf)
+    gap = 0
+    if kind == "train":  # docstring (g): one attention block product a layer and microbatch
+        K = got["num_microbatches"]
+        gap = arch.num_layers * K * 2 * (B // K) * arch.heads * S * S * arch.head_dim
+    assert tf - jf == gap
+    assert got["roofline"]["model_flops_total"] == want["roofline"]["model_flops_total"]
+
+
+@pytest.mark.parametrize("kind", list(CELLS))
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_a_moe_four_rank_cell_splits_the_one_rank_cell(name, kind, port_moe_cells):
+    one, four = port_moe_cells[(name, MESH_1, kind)], port_moe_cells[(name, MESH_4, kind)]
+    f1, f4 = one["roofline"]["flops_per_chip"], four["roofline"]["flops_per_chip"]
+    assert abs(4 * f4 - f1) <= FLOP_TOL_MESH * f1, (4 * f4, f1)
+    assert get_reduced(name).num_experts % 2 == 0  # the experts split over "data"
+    _four_rank_bytes_and_wire(name, kind, four, fsdp=True)
+    assert four["collectives"]["counts"]["reduce-scatter"] > 0  # the dispatch's, at least
+
+
+def _expert_flops(arch, kind: str, report: dict, dp: int, tp: int) -> tuple[int, int, int]:
+    """The grouped expert products' FLOPs per chip of a moe cell, the slots
+    of one expert's buffer, and C. Per layer, microbatch and pass, the two
+    products over an (E, C', d) buffer make 6 E C' d F, over tp (which
+    splits F); C' = min(C, T / dp), C from the microbatch's T: all C slots
+    on one rank, at most a data rank's own tokens where the experts lie
+    whole over "data". A train cell runs each product 4 times: forward,
+    remat's recompute, and two products in backward."""
+    from repro_torch.models.moe import capacity
+
+    S, B = CELLS[kind]
+    K = report["num_microbatches"] if kind == "train" else 1
+    T = B // K * (1 if kind == "decode" else S)
+    C = capacity(T, arch.top_k, 1.25, arch.num_experts)
+    slots = min(C, T // dp)
+    passes = 4 if kind == "train" else 1
+    return (arch.num_layers * K * passes * 6 * arch.num_experts * slots * arch.hidden
+            * arch.moe_ffn // tp, slots, C)
+
+
+@pytest.mark.parametrize("kind", list(CELLS))
+def test_a_moe_four_rank_cell_with_experts_whole_over_data(kind, port_moe_cells):
+    """Granite without FSDP on (2, 2): its experts lie whole over "data", as
+    granite's 40 do over a data axis of 16 at production. Each data rank
+    multiplies its own kept rows in an (E, min(C, T / 2), d) buffer, and
+    here C <= T / 2: each of the two data ranks runs the products of a whole
+    C-slot buffer (F split over "model"). So the four chips run twice the
+    one-rank cell's expert FLOPs X, and 4 x the per-chip FLOPs exceed the
+    one-rank cell's by X (4 x the split cell's exceed them by under 1%, the
+    aux loss's router product, replicated over "model"). Per chip, exactly:
+    the split cell plus the expert products' difference."""
+    name = "granite-moe-3b-a800m"
+    arch = get_reduced(name)
+    one, split = port_moe_cells[(name, MESH_1, kind)], port_moe_cells[(name, MESH_4, kind)]
+    whole = port_moe_cells[(WHOLE, MESH_4, kind)]
+    x1, _, _ = _expert_flops(arch, kind, one, dp=1, tp=1)
+    x4, slots, C = _expert_flops(arch, kind, whole, dp=2, tp=2)
+    assert slots == C and 4 * x4 == 2 * x1
+    f1, fs, fw = (r["roofline"]["flops_per_chip"] for r in (one, split, whole))
+    assert fw - fs == x4 - x1 / 4
+    assert abs(4 * fw - f1 - x1) <= FLOP_TOL_MESH * f1
+    _four_rank_bytes_and_wire(name, kind, whole, fsdp=False)
+
+
+def _four_rank_bytes_and_wire(name: str, kind: str, four: dict, fsdp: bool):
+    """A four-rank cell's argument bytes are each leaf's local shard under the
+    rules, its collectives' wire bytes the JAX formula's, and it fits."""
+    arch, (S, B) = get_reduced(name), CELLS[kind]
+    plan = make_plan(MeshShape(*MESH_4), fsdp=fsdp)
+    cfg = lm.ModelCfg(dtype=torch.bfloat16)
+    shape = InputShape(kind, S, B, kind)
+    if kind == "train":
+        p = lm.init_params(arch, torch.Generator(), torch.float32, device="meta")
+        b = specs.train_batch_specs(arch, shape, cfg)
+        want = 3 * _local_bytes(plan, param_specs(arch, plan, p), p)  # params, mu, nu
+        want += _local_bytes(plan, batch_spec(plan, b), b)
+    else:
+        p = lm.init_params(arch, torch.Generator(), torch.bfloat16, device="meta")
+        s = (specs.prefill_specs if kind == "prefill" else specs.decode_specs)(arch, shape, cfg)
+        want = (_local_bytes(plan, param_specs(arch, plan, p), p)
+                + _local_bytes(plan, cache_specs(arch, plan, s["caches"]), s["caches"])
+                + _local_bytes(plan, batch_spec(plan, {"t": s["tokens"]}), {"t": s["tokens"]}))
+    assert four["memory"]["argument_bytes"] == want
+    coll = four["collectives"]
+    wire = sum(jrl._wire_bytes(r["op"], r["result_bytes"], r["group_size"])
+               for r in coll["by_group_size"])
+    assert coll["wire_bytes"] == pytest.approx(wire, rel=1e-12)
+    assert four["roofline"]["chips"] == 4 and four["memory"]["fits_h100_80g"]
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "forward-backward"])
+def test_a_moe_block_runs_each_collective_of_its_dispatch_once(backward):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.moe import capacity, moe_block
+    from repro_torch.parallel.sharding import P
+
+    arch = get_reduced("granite-moe-3b-a800m")
+    E, d, F, k = arch.num_experts, arch.hidden, arch.moe_ffn, arch.top_k
+    B, S = 2, 16
+    plan = make_plan(MeshShape(*MESH_4), fsdp=True)
+    with dryrun.fake_mesh(MeshShape(*MESH_4), "cpu") as mesh, FakeTensorMode():
+        p = lm.init_params(arch, torch.Generator(), torch.float32, device="cpu")
+        p = dryrun._placed(mesh, p, param_specs(arch, plan, p))
+        lp = {name: w[0] for name, w in p["layers"]["moe"].items()}
+        x = dryrun._placed(mesh, torch.empty(B, S, d), P("data", None, None))
+        leaves = [x, *lp.values()]
+        for t in leaves:
+            t.requires_grad_(backward)
+        acc = OpAccountant()
+        with acc:
+            y = moe_block(lp, x, top_k=k)
+            if backward:
+                torch.autograd.grad(y.to_local().sum(), leaves)
+    C = capacity(B * S, k, 1.25, E)
+    T_r = B * S // 2  # a rank's tokens; each "model" rank routes half of them
+    f32, i64 = 4, 8
+    fwd = [("all-gather", T_r * k * f32, 2), ("all-gather", T_r * k * i64, 2),  # gates, experts
+           ("all-gather", 2 * E * i64, 2),  # the counts, over "data"
+           ("reduce-scatter", E // 2 * C * d * f32, 2),  # the buffer, over "data"
+           ("all-gather", E // 2 * C * 2 * F * f32, 2),  # wi's product, over "model"
+           ("all-gather", E * C * d * f32, 2)]  # the products, over "data"
+    bwd = [("reduce-scatter", E // 2 * C * d * f32, 2),  # the products' grad
+           ("reduce-scatter", E // 2 * C * F * f32, 2),  # wi's product's
+           ("all-gather", E * C * d * f32, 2),  # the buffer's
+           ("reduce-scatter", T_r // 2 * k * f32, 2)]  # the gates'
+    got = sorted(c[:3] for c in acc.collectives)
+    assert got == sorted(fwd + (bwd if backward else [])), got

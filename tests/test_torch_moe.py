@@ -118,13 +118,22 @@ def test_init_params_and_params_from_numpy_carry_the_moe_leaves(name, dtype):
         np.testing.assert_array_equal(carried[k].float().numpy(), np.asarray(a, np.float32))
 
 
+def _route(p, xt, top_k, capacity_factor):
+    """The one-rank dispatch of tokens xt (T, d): each assignment's slot
+    ``e * C + i`` in expert order, or ``E * C`` where dropped; its token; C."""
+    E = p["router"].shape[-1]
+    _, e, _, pos, tok, _, C = moe.global_route(p["router"], xt, top_k, capacity_factor,
+                                               xt.shape[0])
+    return torch.where(pos < C, e * C + pos, E * C), tok, C
+
+
 @pytest.mark.parametrize("name", ARCHS)
 def test_moe_block_without_drops_matches_jax(name):
     jarch, jp, p, x = _block(name)
     want = jmoe.moe_block(jp, jnp.asarray(x), top_k=jarch.top_k, capacity_factor=8.0)
     got = moe.moe_block(p, torch.from_numpy(x), top_k=jarch.top_k, capacity_factor=8.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=BLOCK_TOL, rtol=0)
-    dest, _, _, C = moe.route(p, torch.from_numpy(x).reshape(-1, jarch.hidden), jarch.top_k, 8.0)
+    dest, _, C = _route(p, torch.from_numpy(x).reshape(-1, jarch.hidden), jarch.top_k, 8.0)
     assert int((dest == jarch.num_experts * C).sum()) == 0
 
 
@@ -135,8 +144,7 @@ def test_moe_block_with_drops_matches_jax(name, T):
     assignments keep the same slots and the same ones are dropped."""
     jarch, jp, p, x = _block(name, T=T)
     want_dest, want_tok, C = _jax_dest(jp, jnp.asarray(x), jarch.top_k, 1.25)
-    dest, tok, _, c = moe.route(p, torch.from_numpy(x).reshape(-1, jarch.hidden),
-                                jarch.top_k, 1.25)
+    dest, tok, c = _route(p, torch.from_numpy(x).reshape(-1, jarch.hidden), jarch.top_k, 1.25)
     assert c == C == moe.capacity(T[0] * T[1], jarch.top_k, 1.25, jarch.num_experts)
     np.testing.assert_array_equal(dest.numpy(), want_dest)
     np.testing.assert_array_equal(tok.numpy(), want_tok)
@@ -145,6 +153,33 @@ def test_moe_block_with_drops_matches_jax(name, T):
     want = jmoe.moe_block(jp, jnp.asarray(x), top_k=jarch.top_k, capacity_factor=1.25)
     got = moe.moe_block(p, torch.from_numpy(x), top_k=jarch.top_k, capacity_factor=1.25)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=BLOCK_TOL, rtol=0)
+
+
+def test_expert_counts_are_bincounts_with_a_static_shape():
+    """The static count gives bincount's integers, experts nobody picked
+    included, with no read back to the host."""
+    g = torch.Generator().manual_seed(4)
+    for E, shape in ((40, (100, 8)), (16, (7, 1)), (8, (1, 2))):
+        experts = torch.randint(0, E // 2, shape, generator=g)  # the upper half unpicked
+        got = moe.expert_counts(experts, E)
+        assert got.shape == (E,) and got.dtype == torch.long
+        assert torch.equal(got, torch.bincount(experts.flatten(), minlength=E))
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_moe_block_and_aux_loss_trace_on_fake_tensors(name):
+    """The block and the aux loss run under FakeTensorMode (the dry-run's
+    tensors): nothing on their path has a shape that depends on the data."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    arch = get_reduced(name)
+    with FakeTensorMode():
+        params = lm.init_params(arch, torch.Generator(), torch.float32, "cpu")
+        lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+        x = torch.empty(2, 12, arch.hidden)
+        y = moe.moe_block(lp, x, top_k=arch.top_k)
+        aux = moe.aux_load_balance_loss(lp, x, top_k=arch.top_k)
+    assert y.shape == x.shape and aux.shape == ()
 
 
 def test_moe_routing_is_sparse_and_weighted():

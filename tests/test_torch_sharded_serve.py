@@ -23,6 +23,14 @@ decode steps that wrap the ring at 32, and a prompt of 40 > 32 (the ring
 prefill, each rank writing its slots of the last 32 positions) and 8 decode
 steps. Every step's logits are held against the unsharded port (1e-5) and
 the JAX package (1e-4), and the caches lie as ``cache_specs`` places them.
+
+The moe family: reduced granite-moe-3b-a800m (8 experts, top-2) and
+llama4-scout-17b-a16e (4, top-1, a shared expert) on the (2, 2) mesh, their
+experts over "data", at the default capacity factor 1.25: C comes from the
+chunk's global B x S (80 tokens in the prefill, 2 in a decode step), so the
+sharded run drops what the unsharded one and the JAX package drop. Each run's
+logits are held as the dense cases' are, and its tokens against the JAX
+``ServeEngine``'s greedy tokens.
 """
 import dataclasses
 
@@ -52,7 +60,10 @@ CASES = {  # label -> (arch, ModelCfg options)
     "yi-6b-repeat2-heads": ("yi-6b", {"kv_cache_repeat": 2}),
     "qwen3-8b-heads-dense": ("qwen3-8b", {"decode_dense_attn": True}),
     "yi-6b-seq-dense": ("yi-6b", {"decode_dense_attn": True}),
+    "granite-moe-experts-over-data": ("granite-moe-3b-a800m", {}),
+    "llama4-moe-experts-over-data": ("llama4-scout-17b-a16e", {}),
 }
+MOE_LABELS = ["granite-moe-experts-over-data", "llama4-moe-experts-over-data"]
 CHUNK = (30, 4)  # a prefill of 30, then 4 tokens at slots 30..33 across the boundary at 32
 # label -> (arch, mesh, prompt length, decode steps): the ssm and hybrid cases
 SSM_CASES = {
@@ -124,7 +135,7 @@ def test_sharded_cached_path_matches_the_unsharded_port(label, ranks):
     np.testing.assert_array_equal(got["tokens"][:, P:], greedy)
 
 
-@pytest.mark.parametrize("label", ["yi-6b-seq", "qwen3-8b-heads"])
+@pytest.mark.parametrize("label", ["yi-6b-seq", "qwen3-8b-heads"] + MOE_LABELS)
 def test_sharded_cached_path_matches_jax(label, ranks):
     name, _ = CASES[label]
     jarch, jparams, prompts = _case(name)
@@ -184,7 +195,20 @@ def test_dense_decode_over_a_sequence_split_cache_is_refused(ranks):
 
 def test_an_unsharded_family_refuses_dtensors_in_the_cached_path(ranks):
     msg = ranks["unsharded_family"]
-    assert "moe family takes no DTensor" in msg and "dense, ssm, hybrid" in msg
+    assert "vlm family takes no DTensor" in msg and "dense, moe, ssm, hybrid" in msg
+
+
+@pytest.mark.parametrize("label", MOE_LABELS)
+def test_sharded_moe_tokens_equal_the_jax_engines(label, ranks):
+    """The JAX ``ServeEngine``'s greedy decode from the same prompts (its
+    prefill and decode steps at the same chunk sizes, so the same drops)."""
+    from repro.serve import ServeEngine as JaxEngine
+
+    name, _ = CASES[label]
+    jarch, jparams, prompts = _case(name)
+    jcfg = jlm.ModelCfg(dtype=jnp.float32, attn_impl="xla", ssm_impl="xla")
+    want = JaxEngine(jarch, jcfg, jparams, max_len=T).generate(prompts, max_new_tokens=N)
+    np.testing.assert_array_equal(ranks[label]["tokens"], np.asarray(want.tokens))
 
 
 def _ssm_run(label, ranks, ranks_1x4):

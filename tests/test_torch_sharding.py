@@ -27,6 +27,22 @@ against the JAX package's, on the CPU.
     their params at the JAX bound. A mamba2 state saved from the (2, 2) mesh
     restores onto it leaf for leaf. A tensor dim over ("pod", "data") lands
     on each rank as JAX puts it on the device of that index.
+(f) The moe family (reduced granite-moe-3b-a800m, 8 experts top-2, and
+    llama4-scout-17b-a16e, 4 experts top-1 with a shared expert) on the same
+    (2, 2) mesh at capacity factor 1.25, where the step drops assignments:
+    the experts over "data" (8 and 4 over 2), and whole over it (granite
+    with 5 experts, which 2 does not divide, and granite without FSDP). Each
+    held against the JAX single-device step (loss 1e-4, params 1e-3) and the
+    unsharded port (1e-5, every grad leaf too), K = 2 with ``batch_axes``,
+    and the assignments the sharded forward drops equal in number to the
+    unsharded forward's (the capacity and the drops are the global
+    program's). On a (4, 1) mesh, at a capacity that no rank's own
+    assignments to an expert exceed but the global count does, the kept
+    (token, expert) pairs equal the unsharded ``global_route``'s exactly. A
+    granite state saved from the (2, 2) mesh (experts over "data" and
+    "model") restores onto it leaf for leaf. Granite's block on 3 rows over
+    "data" of 2 (blocks of 2 and 1 rows) is the unsharded block, output and
+    grads; make_train_step refuses microbatches the batch axes do not divide.
 (c) An elastic restart: two steps on (4, 1), a save, a restore onto (2, 2)
     with placements, two more: the loss within 1e-4 of four steps in one
     run; rank 0 alone copies the state to the host; the checkpoint restores
@@ -183,6 +199,19 @@ def test_act_shard_and_batch_axes_are_accepted():
 
 ARCHS = ("yi-6b", "qwen3-8b")
 SSM_ARCHS = ("mamba2-370m", "hymba-1.5b")
+# label -> (arch, fields of its reduced config replaced, FSDP)
+MOE_CASES = {
+    "granite-moe-3b-a800m": ("granite-moe-3b-a800m", {}, True),  # 8 experts over data 2
+    "llama4-scout-17b-a16e": ("llama4-scout-17b-a16e", {}, True),  # 4 over data 2, shared
+    "granite-5-experts": ("granite-moe-3b-a800m", {"num_experts": 5}, True),  # whole over data
+    "granite-no-fsdp": ("granite-moe-3b-a800m", {}, False),  # whole over data
+}
+MOE = tuple(MOE_CASES)
+WHOLE_OVER_DATA = ("granite-5-experts", "granite-no-fsdp")
+# token ids drawn below this: llama4's router spreads uniform ids over its 4
+# experts too evenly to drop at 1.25; the first 64 of its 128 ids drop 31 and 7
+# assignments in its two layers
+TOKEN_IDS = {"llama4-scout-17b-a16e": 64}
 SEQ = {"hymba-1.5b": 64}  # past the reduced window of 32
 # zero at init: one step leaves them the AdamW update alone (docstring (b))
 ZERO_INIT = ("layers/ssm/conv_b", "layers/ssm/dt_bias", "layers/ssm/A_log")
@@ -191,21 +220,60 @@ ORDER_CASES = [((2, 2, 1), ("pod", "data", "model"), sharding.P(("pod", "data"),
                ((1, 2, 2), ("pod", "data", "model"), sharding.P(None, ("data", "model")))]
 
 
+def _arch_of(label):
+    """The JAX and the port's reduced config of a case label."""
+    name, over, _ = MOE_CASES.get(label, (label, {}, True))
+    return (dataclasses.replace(jax_reduced(name), **over),
+            dataclasses.replace(get_reduced(name), **over))
+
+
 def _case(name, seed=0, B=8, S=None):
     S = S or SEQ.get(name, 32)
-    jarch = jax_reduced(name)
+    jarch = _arch_of(name)[0]
     jparams = jax.device_get(jlm.init_params(jarch, jax.random.PRNGKey(seed)))
-    tokens = np.random.default_rng(seed + 1).integers(0, jarch.vocab, (B, S)).astype(np.int32)
+    tokens = np.random.default_rng(seed + 1).integers(0, TOKEN_IDS.get(name, jarch.vocab),
+                                                      (B, S)).astype(np.int32)
     return jarch, jparams, tokens
+
+
+def _rank_case(label):
+    name, over, fsdp = MOE_CASES.get(label, (label, {}, True))
+    opts = {"label": label, "arch": over, "fsdp": fsdp} if label != name or not fsdp else {}
+    return (name, *_case(label)[1:]) + ((opts,) if opts else ())
+
+
+def _kept_case():
+    """Reduced granite's layer-0 router and an input (16, 8, d) split over 4
+    ranks, with the capacity factor that puts C at the largest count of one
+    rank's own assignments to one expert, below the largest global count."""
+    jarch = jax_reduced("granite-moe-3b-a800m")
+    router = np.array(jlm.init_params(jarch, jax.random.PRNGKey(0))["layers"]["moe"]["router"][0])
+    x = np.random.default_rng(9).standard_normal((16, 8, jarch.hidden)).astype(np.float32)
+    logits = x.reshape(4, -1, jarch.hidden) @ router
+    experts = np.argsort(-logits, axis=-1, kind="stable")[..., :jarch.top_k]
+    local = np.stack([np.bincount(e.ravel(), minlength=jarch.num_experts) for e in experts])
+    C = int(local.max())
+    assert local.sum(0).max() > C
+    T = x.shape[0] * x.shape[1]
+    return router, x, jarch.top_k, (C + 0.5) * jarch.num_experts / (T * jarch.top_k)
+
+
+def _uneven_case():
+    """Reduced granite's params, an input x (3, 32, d) and a cotangent for
+    its MoE block, and a batch of 6 rows."""
+    _, jparams, tokens = _case("granite-moe-3b-a800m", B=6)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((3, 32, jax_reduced("granite-moe-3b-a800m").hidden))
+    return jparams, x.astype(np.float32), rng.standard_normal(x.shape).astype(np.float32), tokens
 
 
 @pytest.fixture(scope="module")
 def sharded_steps(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("steps")
-    cases = [(name, *_case(name)[1:]) for name in ARCHS + SSM_ARCHS]
+    cases = [_rank_case(label) for label in ARCHS + SSM_ARCHS + MOE]
     torch_ranks.run_ranks(torch_ranks.train_step_program, 4, tmp, str(tmp / "out.pt"), cases,
                           [(shape, axes, tuple(spec)) for shape, axes, spec in ORDER_CASES],
-                          str(tmp / "ckpt"), timeout=240)
+                          str(tmp / "ckpt"), _kept_case(), _uneven_case(), timeout=240)
     return torch.load(tmp / "out.pt", weights_only=False)
 
 
@@ -216,7 +284,7 @@ def _max_err(got: dict, want: dict) -> float:
                for k in w)
 
 
-@pytest.mark.parametrize("name", ARCHS + SSM_ARCHS)
+@pytest.mark.parametrize("name", ARCHS + SSM_ARCHS + MOE)
 def test_sharded_step_matches_the_jax_step(name, sharded_steps):
     jarch, jparams, tokens = _case(name)
     step = jax.jit(jstep.make_train_step(jarch, JCFG, jstep.TrainStepCfg()))
@@ -229,7 +297,7 @@ def test_sharded_step_matches_the_jax_step(name, sharded_steps):
 
 def _port_step(name, K):
     _, jparams, tokens = _case(name)
-    arch = get_reduced(name)
+    arch = _arch_of(name)[1]
     params = params_from_numpy(jparams, device="cpu")
     step = make_train_step(arch, CFG, TrainStepCfg(num_microbatches=K))
     params, _, m = step(params, adamw_init(params), {"tokens": torch.from_numpy(tokens).long()})
@@ -237,7 +305,7 @@ def _port_step(name, K):
 
 
 @pytest.mark.parametrize("K", [1, 2], ids=["K1", "K2-batch_axes"])
-@pytest.mark.parametrize("name", ARCHS + SSM_ARCHS)
+@pytest.mark.parametrize("name", ARCHS + SSM_ARCHS + MOE)
 def test_sharded_step_matches_the_unsharded_port(name, K, sharded_steps):
     params, m = _port_step(name, K)
     got = sharded_steps[(name, K)]
@@ -252,17 +320,11 @@ def test_sharded_step_matches_the_unsharded_port(name, K, sharded_steps):
         assert rel <= PORT_TOL, (k, rel)
 
 
-@pytest.mark.parametrize("name", SSM_ARCHS)
-def test_sharded_grads_match_the_unsharded_port(name, sharded_steps):
-    """Every grad leaf of the loss at the first step's params, made whole,
-    within 1e-5 of the unsharded port's (relative to the leaf's largest);
-    the weight grads of in_proj, conv_w and out_proj come back from the
-    backward split over "model" as their params are (no rank computes the
-    whole weight grad), partial sums over "data" at most."""
-    from torch.distributed.tensor import Partial
-
+def _unsharded_grads(name):
+    """The loss's grads on the unsharded port at the case's params, and the
+    assignments its forward dropped (moe)."""
     _, jparams, tokens = _case(name)
-    arch = get_reduced(name)
+    arch = _arch_of(name)[1]
     params = {k: v.requires_grad_() for k, v in
               _flat(params_from_numpy(jparams, device="cpu")).items()}
     tree = {}
@@ -272,23 +334,125 @@ def test_sharded_grads_match_the_unsharded_port(name, sharded_steps):
         for part in parents:
             node = node.setdefault(part, {})
         node[last] = v
-    loss, _ = lm.forward_train(tree, arch, CFG, {"tokens": torch.from_numpy(tokens).long()})
-    want = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    with torch_ranks._Drops() as drops:  # counts in moe.global_route, as on the ranks
+        loss, _ = lm.forward_train(tree, arch, CFG, {"tokens": torch.from_numpy(tokens).long()})
+    return dict(zip(params, torch.autograd.grad(loss, list(params.values())))), drops.n
+
+
+@pytest.mark.parametrize("name", SSM_ARCHS + MOE)
+def test_sharded_grads_match_the_unsharded_port(name, sharded_steps):
+    """Every grad leaf of the loss at the first step's params, made whole,
+    within 1e-5 of the unsharded port's (relative to the leaf's largest);
+    the weight grads of in_proj, conv_w and out_proj (ssm, hybrid) and of
+    the experts' wi and wo (moe) come back from the backward split over
+    "model" as their params are (no rank computes the whole weight grad),
+    over "data" split as their params are or partial sums."""
+    from torch.distributed.tensor import Partial
+
+    want, _ = _unsharded_grads(name)
     got, placed = sharded_steps[(name, "grads")]
     for k, w in want.items():
         w = w.numpy()
         rel = np.abs(got[k] - w).max() / (np.abs(w).max() + 1e-30)
         assert rel <= PORT_TOL, (k, rel)
-    for leaf in ("in_proj", "conv_w", "out_proj"):
-        grad, param = placed[f"layers/ssm/{leaf}"]
+    leaves = (("moe/wi", "moe/wo") if _arch_of(name)[1].family == "moe"
+              else ("ssm/in_proj", "ssm/conv_w", "ssm/out_proj"))
+    for leaf in leaves:
+        grad, param = placed[f"layers/{leaf}"]
         data, model = 0, 1  # the mesh's dims
         assert grad[model] == param[model] and param[model].is_shard(), (leaf, grad, param)
         assert grad[data] in (param[data], Partial()), (leaf, grad, param)
 
 
+@pytest.mark.parametrize("name", MOE)
+def test_the_sharded_aux_loss_matches_jax(name, sharded_steps):
+    """The load-balancing loss of the sharded step (its means over the
+    global tokens) against the JAX forward's on the same params and batch."""
+    jarch, jparams, tokens = _case(name)
+    _, m = jlm.forward_train(jparams, jarch, JCFG, {"tokens": jnp.asarray(tokens)})
+    got = sharded_steps[(name, 1)]["aux_loss"]
+    assert got == pytest.approx(float(m["aux_loss"]), rel=PORT_TOL)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_the_sharded_moe_step_drops_what_the_unsharded_one_drops(name, sharded_steps):
+    """At capacity factor 1.25 the forward drops assignments; over all
+    ranks, as many as the unsharded forward, whose C comes from the same
+    global token count. Whether experts split over "data" or not."""
+    _, drops = _unsharded_grads(name)
+    assert drops > 0
+    assert sharded_steps[(name, "drops")] == drops
+    split = name not in WHOLE_OVER_DATA
+    grad, param = sharded_steps[(name, "grads")][1]["layers/moe/wi"]
+    assert param[0].is_shard() == split
+
+
+def test_an_uneven_block_of_rows_keeps_the_global_capacity(sharded_steps):
+    """Reduced granite's layer-0 MoE block on (2, 2) with 3 rows over "data"
+    of 2: the data ranks hold 2 and 1 rows (64 and 32 tokens). C comes from
+    x's 96 tokens and the aux loss's means run over them, so the output, the
+    aux loss, ``sum(y * cot) + aux`` and every grad are the unsharded
+    block's (1e-5), where that block drops. make_train_step refuses K = 2
+    microbatches of 3 rows over "data": DTensor cannot flatten blocks of
+    unequal size in the model's first product, whatever the family."""
+    from repro_torch.models import moe
+
+    jparams, x, cot, _ = _uneven_case()
+    got = sharded_steps["uneven"]
+    assert got["rows"] == [32, 64]
+    arch = get_reduced("granite-moe-3b-a800m")
+    p = {k: v[0].requires_grad_()
+         for k, v in params_from_numpy(jparams, device="cpu")["layers"]["moe"].items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    with torch_ranks._Drops() as drops:
+        y = moe.moe_block(p, xt, top_k=arch.top_k, capacity_factor=1.25)
+        aux = moe.aux_load_balance_loss(p, xt, top_k=arch.top_k)
+    assert drops.n > 0
+    loss = (y * torch.from_numpy(cot)).sum() + aux
+    want = dict(zip(["x", *p], torch.autograd.grad(loss, [xt, *p.values()])))
+    want["y"] = y
+    for k, w in want.items():
+        w = w.detach().numpy()
+        g = got["y"] if k == "y" else got["grads"][k]
+        assert np.abs(g - w).max() <= PORT_TOL * np.abs(w).max(), k
+    assert got["aux"] == pytest.approx(float(aux.detach()), rel=PORT_TOL)
+    assert got["loss"] == pytest.approx(float(loss.detach()), rel=PORT_TOL)
+    assert got["refused"] == "2 microbatches of 3 rows do not split over ('data',) (2 ranks)"
+
+
+def test_the_kept_mask_is_the_global_programs(sharded_steps):
+    """(4, 1) mesh: no rank's own assignments to any expert exceed C, but
+    the global count of one does, so a capacity applied per rank would keep
+    every assignment; the global dispatch keeps exactly the (token, expert)
+    pairs the unsharded ``global_route`` keeps."""
+    from repro_torch.models import moe
+
+    router, x, top_k, cf = _kept_case()
+    got = sharded_steps["kept"]
+    C = got["C"]
+    counts = np.asarray(got["counts"])
+    assert counts.max() <= C < counts.sum(0).max()
+    xt = torch.from_numpy(x).reshape(-1, x.shape[-1])
+    _, e_sorted, _, pos, t_sorted, _, c = moe.global_route(torch.from_numpy(router), xt, top_k,
+                                                           cf, xt.shape[0])
+    kept = pos < c
+    want = sorted(zip(t_sorted[kept].tolist(), e_sorted[kept].tolist()))
+    assert c == C and len(want) < xt.shape[0] * top_k
+    assert got["pairs"] == want
+
+
 def test_a_sharded_mamba2_state_round_trips_through_a_checkpoint(sharded_steps):
-    got = sharded_steps["ckpt"]
+    got = sharded_steps[("ckpt", "mamba2-370m")]
     assert got["same_placements"] and got["equal"] and got["leaves"] > 0
+
+
+def test_a_sharded_granite_state_round_trips_through_a_checkpoint(sharded_steps):
+    """The expert leaves lie over "data" (E) and "model" (2F, F); the router
+    and the rest as the rules place them."""
+    got = sharded_steps[("ckpt", "granite-moe-3b-a800m")]
+    assert got["same_placements"] and got["equal"] and got["leaves"] > 0
+    assert got["expert_placements"] == [(sharding.Shard(1), sharding.Shard(3)),
+                                        (sharding.Shard(1), sharding.Shard(2))]
 
 
 def test_k1_takes_the_sharded_q_k_views_in_place(sharded_steps):

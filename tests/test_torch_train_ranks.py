@@ -8,6 +8,9 @@ arrays are the one-process run's within 1e-4 of each leaf's largest element:
 FSDP sums each grad over the ranks in another order, and AdamW's first steps
 scale every element's grad to about one, so an element whose grad is near
 zero carries that rounding into its update (1.8e-5 of 0.19 was read).
+The same for ``--arch granite-moe-3b-a800m --reduced`` (its experts over
+"data", the MoE dispatch's capacity from the global batch): the losses equal
+the one-process run's.
 """
 import json
 import os
@@ -80,3 +83,24 @@ def test_driver_under_torchrun_matches_one_process(tmp_path, small_eta, capsys):
                 x, y = a[k].astype(np.float64), b[k].astype(np.float64)
                 assert np.abs(x - y).max() <= CKPT_TOL * (np.abs(y).max() + 1e-30), k
     assert sorted(os.listdir(ranks_ckpt)) == ["step_00000003", "step_00000006"]
+
+
+def test_moe_driver_under_torchrun_matches_one_process(capsys):
+    """``--arch granite-moe-3b-a800m --reduced`` on 2 gloo ranks: its 8
+    experts over "data" of 2, the dispatch's capacity from the global batch.
+    The losses equal the one-process run's (1e-5 relative on the result
+    line, every printed step's to its 4 decimals)."""
+    argv = ["--arch", "granite-moe-3b-a800m", "--reduced", "--steps", "6", "--batch", "8",
+            "--seq", "32", "--device", "cpu", "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "repro_torch.launch.train", *argv],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = res.stdout.splitlines()
+    (result,) = [json.loads(x) for x in out if x.startswith('{"first_loss"')]
+    one = driver.main(argv)
+    for k in ("first_loss", "last_loss"):
+        assert abs(result[k] - one[k]) <= TOL * one[k], k
+    assert _steps(out) == _steps(capsys.readouterr().out.splitlines())

@@ -99,18 +99,66 @@ def _grads(arch, cfg, params, batch):
     return whole, placed
 
 
-def train_step_program(rank, world, out, cases, order_cases, ckpt_dir=None):
-    """On a (2, 2) data x model mesh with FSDP: per case (arch name, params,
-    tokens), one make_train_step step, then one of K = 2 microbatches with
-    batch_axes; the inputs K1 was handed, each with what K1's ``_plan`` made
-    of it; the loss's grads at the first step's params (``_grads``). Then
-    the shards the ranks hold of an arange under each (mesh shape, axes,
-    spec) of ``order_cases``, by rank; and, with ``ckpt_dir``, the mamba2
-    case's state after its step saved there and restored with its
-    placements (``_ckpt_round_trip``). Rank 0 saves the results."""
-    import torch.distributed as dist
+def _arch(name, opts):
+    """The reduced config of ``name`` with ``opts["arch"]``'s fields replaced."""
+    import dataclasses
 
     from repro_torch.configs import get_reduced
+
+    return dataclasses.replace(get_reduced(name), **opts.get("arch", {}))
+
+
+class _Drops:
+    """While active, counts the assignments ``moe.global_route`` drops on
+    this rank (its position among all assignments to its expert at C or
+    past it), and records the token counts it was handed (``rows``)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.real, self.n, self.rows = moe, moe.global_route, 0, set()
+
+        def route(*args, **kwargs):
+            out = self.real(*args, **kwargs)
+            self.n += int((out[3] >= out[6]).sum())
+            self.rows.add(args[1].shape[0])
+            return out
+
+        moe.global_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.global_route = self.real
+
+
+def _global_drops(mesh, n: int) -> int:
+    """The drops of the ranks of "model" index 0 summed: the ranks of one
+    "model" group route the same tokens."""
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (mesh.get_local_rank("model"), n))
+    return sum(k for m, k in every if m == 0)
+
+
+def train_step_program(rank, world, out, cases, order_cases, ckpt_dir=None, kept_case=None,
+                       uneven_case=None):
+    """On a (2, 2) data x model mesh with FSDP (``opts["fsdp"]`` False: without):
+    per case (arch name, params, tokens[, opts]), one make_train_step step,
+    then one of K = 2 microbatches with batch_axes; the inputs K1 was handed,
+    each with what K1's ``_plan`` made of it; the loss's grads at the first
+    step's params (``_grads``) and, for the moe family, the assignments
+    their forward dropped over all ranks. ``opts``: "label" (the results'
+    key, default the name), "arch" (fields of the reduced config to replace)
+    and "fsdp". Then the shards the ranks hold of an arange under each (mesh
+    shape, axes, spec) of ``order_cases``, by rank; with ``ckpt_dir``, the
+    mamba2 and granite cases' states after a step saved there and restored
+    with their placements (``_ckpt_round_trip``); with ``kept_case``, the
+    global dispatch on a (4, 1) mesh (``_kept_on_ranks``); with
+    ``uneven_case``, granite's MoE block on rows the data ranks hold unequal
+    blocks of (``_uneven_moe_on_ranks``). Rank 0 saves the results."""
+    import torch.distributed as dist
+
     from repro_torch.kernels import ops, rmsnorm
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.lm import ModelCfg
@@ -130,13 +178,18 @@ def train_step_program(rank, world, out, cases, order_cases, ckpt_dir=None):
 
     ops.rmsnorm_fwd = recording
     mesh = make_mesh((2, 2), ("data", "model"), "cpu")
-    plan = make_plan(mesh, fsdp=True)
     cfg = ModelCfg(dtype=torch.float32)  # impl "cuda": the plain versions on the CPU
     results = {}
-    for name, params_np, tokens in cases:
-        arch = get_reduced(name)
+    for name, params_np, tokens, *more in cases:
+        opts = more[0] if more else {}
+        label = opts.get("label", name)
+        arch = _arch(name, opts)
+        plan = make_plan(mesh, fsdp=opts.get("fsdp", True))
         params, batch = _placed(arch, plan, params_np, tokens)
-        results[(name, "grads")] = _grads(arch, cfg, params, batch)
+        with _Drops() as drops:
+            results[(label, "grads")] = _grads(arch, cfg, params, batch)
+        if arch.family == "moe":
+            results[(label, "drops")] = _global_drops(mesh, drops.n)
         for K in (1, 2):
             seen.clear()
             step = make_train_step(arch, cfg, TrainStepCfg(num_microbatches=K,
@@ -145,9 +198,10 @@ def train_step_program(rank, world, out, cases, order_cases, ckpt_dir=None):
             opt = adamw_init(params)
             placed = {k: v.placements for k, v in _flat(params).items()}
             params, opt, m = step(params, opt, batch)
-            results[(name, K)] = {
+            results[(label, K)] = {
                 "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                 "params": _full(params), "norm_inputs": list(seen),
+                "aux_loss": float(m["aux_loss"]) if "aux_loss" in m else None,
                 "kept_placements": all(
                     v.placements == placed[k] == _flat(opt.mu)[k].placements
                     == _flat(opt.nu)[k].placements for k, v in _flat(params).items()),
@@ -162,17 +216,94 @@ def train_step_program(rank, world, out, cases, order_cases, ckpt_dir=None):
         shards.append(every)
     results["shards"] = shards
     if ckpt_dir is not None:
-        name, params_np, tokens = next(c for c in cases if c[0] == "mamba2-370m")
-        results["ckpt"] = _ckpt_round_trip(get_reduced(name), cfg, plan, params_np, tokens,
-                                           ckpt_dir)
+        plan = make_plan(mesh, fsdp=True)
+        for name, params_np, tokens, *more in cases:
+            if name in ("mamba2-370m", "granite-moe-3b-a800m") and not more:
+                results[("ckpt", name)] = _ckpt_round_trip(
+                    _arch(name, {}), cfg, plan, params_np, tokens, f"{ckpt_dir}/{name}")
+    if kept_case is not None:
+        results["kept"] = _kept_on_ranks(*kept_case)
+    if uneven_case is not None:
+        results["uneven"] = _uneven_moe_on_ranks(mesh, make_plan(mesh, fsdp=True), cfg,
+                                                 *uneven_case)
     if rank == 0:
         torch.save(results, out)
+
+
+def _kept_on_ranks(router_np, x_np, top_k, capacity_factor) -> dict:
+    """On a (4, 1) data x model mesh, each rank's block of the rows of x (B,
+    S, d) through ``moe.global_route``: the (token, expert) pairs it keeps,
+    the tokens numbered in the global order, and its own assignments to each
+    expert; every rank's, with C."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import batch_groups
+
+    mesh = make_mesh((4, 1), ("data", "model"), "cpu")
+    rank = mesh.get_local_rank("data")
+    B, S, d = x_np.shape
+    rows = B // 4
+    xt = torch.from_numpy(x_np[rank * rows:(rank + 1) * rows]).reshape(-1, d)
+    router = torch.from_numpy(router_np)
+    _, e_sorted, _, pos, t_sorted, _, C = moe.global_route(
+        router, xt, top_k, capacity_factor, B * S, batch_groups(mesh))
+    kept = pos < C
+    pairs = sorted(zip((t_sorted[kept] + rank * rows * S).tolist(), e_sorted[kept].tolist()))
+    counts = moe.expert_counts(e_sorted, router.shape[-1]).tolist()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (pairs, counts))
+    return {"pairs": sorted(p for ps, _ in every for p in ps),
+            "counts": [c for _, c in every], "C": C}
+
+
+def _uneven_moe_on_ranks(mesh, plan, cfg, params_np, x_np, cot_np, tokens) -> dict:
+    """Reduced granite's layer-0 MoE block and aux loss on the (2, 2) mesh,
+    x (3, S, d) over "data" as blocks of 2 and 1 rows: the output, the loss
+    ``sum(y * cot) + aux`` and its grads made whole, and the token counts
+    the ranks' dispatch was handed. Then K = 2 microbatches of ``tokens``'s
+    6 rows through make_train_step: the ValueError it raises, or None."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm, moe
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import TrainStepCfg, make_train_step
+
+    arch = get_reduced("granite-moe-3b-a800m")
+    params, batch = _placed(arch, plan, params_np, tokens)
+    p = {k: v.detach().requires_grad_()
+         for k, v in lm._layer(params["layers"], 0)["moe"].items()}
+    rows = (Shard(0), Replicate())
+    x = distribute_tensor(torch.from_numpy(x_np), mesh, rows).requires_grad_()
+    with _Drops() as drops:
+        y = moe.moe_block(p, x, top_k=arch.top_k, capacity_factor=1.25)
+        aux = moe.aux_load_balance_loss(p, x, top_k=arch.top_k)
+    loss = (y * distribute_tensor(torch.from_numpy(cot_np), mesh, rows)).sum() + aux
+    names = ["x", *p]
+    grads = torch.autograd.grad(loss, [x, *p.values()])
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, drops.rows)
+    step = make_train_step(arch, cfg, TrainStepCfg(num_microbatches=2,
+                                                   batch_axes=plan.batch_axes))
+    try:
+        step(params, adamw_init(params), batch)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return {"y": y.full_tensor().detach().numpy(), "loss": float(loss.detach().full_tensor()),
+            "aux": float(aux.detach().full_tensor()),
+            "grads": {k: g.full_tensor().numpy() for k, g in zip(names, grads)},
+            "rows": sorted(set().union(*every)), "refused": refused}
 
 
 def _ckpt_round_trip(arch, cfg, plan, params_np, tokens, ckpt_dir) -> dict:
     """One step's params and AdamW state as DTensors through
     ``CheckpointManager.save`` and ``restore(shardings=)`` onto the same
-    placements: whether every rank's local shards came back equal."""
+    placements: whether every rank's local shards came back equal, and the
+    restored expert leaves' placements (moe)."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import CheckpointManager
@@ -198,8 +329,11 @@ def _ckpt_round_trip(arch, cfg, plan, params_np, tokens, ckpt_dir) -> dict:
                 for got, want in pairs for k in want)
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, (same, equal))
+    restored = _flat(state["params"])
     return {"same_placements": all(s for s, _ in every), "equal": all(e for _, e in every),
-            "leaves": sum(len(want) for _, want in pairs)}
+            "leaves": sum(len(want) for _, want in pairs),
+            "expert_placements": [tuple(restored[k].placements)
+                                  for k in ("layers/moe/wi", "layers/moe/wo") if k in restored]}
 
 
 def elastic_program(rank, world, out, ckpt_dir, params_np, token_batches):
@@ -407,11 +541,11 @@ def cached_program(rank, world, out, mesh_shape, cases, chunk_case):
             shards.append(every)
         results["chunk"] = {"shards": shards, "placements": tuple(caches["k"].placements)}
 
-        moe = get_reduced("granite-moe-3b-a800m")
-        moe_params = lm.init_params(moe, torch.Generator().manual_seed(0), torch.float32, "cpu")
-        moe_params = distribute(moe_params, named(plan, param_specs(moe, plan, moe_params)))
+        vlm = get_reduced("pixtral-12b")
+        vlm_params = lm.init_params(vlm, torch.Generator().manual_seed(0), torch.float32, "cpu")
+        vlm_params = distribute(vlm_params, named(plan, param_specs(vlm, plan, vlm_params)))
         try:
-            lm.prefill(moe_params, moe, cfg, lm.init_caches(moe, cfg, 2, 16, device="cpu"),
+            lm.prefill(vlm_params, vlm, cfg, lm.init_caches(vlm, cfg, 2, 16, device="cpu"),
                        tokens(torch.zeros((2, 4), dtype=torch.long)))
             results["unsharded_family"] = None
         except NotImplementedError as e:
