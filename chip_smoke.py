@@ -90,9 +90,15 @@ Phases, each reported on its own lines; any failure exits non-zero:
                and the peak memory of each run, in a {"shard": ...} JSON
                line; the same for mamba2-370m (2 of 48 layers, B=1 S=256)
                and hymba-1.5b (2 of 32 layers, B=1 S=2048, past its window:
-               the banded attention), four steps each, K1 and K3 on each
+               the banded attention), four steps and two, K1 and K3 on each
                rank's shards through local_apply, in a {"shard_ssm": ...}
-               JSON line;
+               JSON line; granite-moe-3b-a800m (4 of 32 layers) with FSDP and
+               without, in a {"shard_moe": ...} line; whisper-tiny at full
+               size (B=4, 1500 frames beside 448 tokens) and pixtral-12b at
+               full width and 2 of its 40 layers (B=1, 1024 patch embeddings
+               in front of 512 tokens), four steps each, their stub inputs
+               placed as the tokens, every leaf bit for bit, in a
+               {"shard_stub": ...} line;
                pipeline_apply at one stage against the sequential stack; a
                save at (1, 1) restored through restore(shardings=) with
                placements; the train driver under torchrun --nproc-per-node 1
@@ -105,8 +111,13 @@ Phases, each reported on its own lines; any failure exits non-zero:
                on the DTensor path; the same for mamba2-370m and hymba-1.5b
                at full depth (4 x 128 + 32, and hymba 2 x 1024 + 8, whose
                prompt fills its ring of 1024 and whose decode steps wrap
-               it); (b) lower_cell of phase 9's cells (qwen3-8b's and
-               mamba2-370m's) on fake CUDA tensors against the same step on
+               it), granite-moe and llama4-scout, whisper-tiny at full depth
+               (4 x 32 + 32, its frames encoded by init_caches on the DTensor
+               params into a cache placed as cache_specs places it) and
+               pixtral-12b at full width and depth (2 x (1024 + 128) + 32,
+               its patch embeddings placed as the tokens); (b) lower_cell of
+               phase 9's cells (qwen3-8b's, mamba2-370m's, granite's and
+               whisper's) on fake CUDA tensors against the same step on
                the card under the same op accountant (mamba2's scan there
                the real loop of 256 steps, which the dry-run counts in
                three): FLOPs equal, the predicted per-device memory within
@@ -118,7 +129,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
                prefill_32k and decode_32k on 16x16 and train_4k on 2x16x16,
                the other dense archs' serve cells on 16x16, mamba2-370m's
                and hymba-1.5b's 16 cells at all four shapes on both
-               meshes), each a `python -m repro_torch.launch.dryrun` process
+               meshes, the moe archs' cells, whisper-tiny's six, pixtral-12b's
+               four serve cells, and qwen3-8b's decode_32k with --opt
+               dense_decode over its cache split over T), each a
+               `python -m repro_torch.launch.dryrun` process
                at the lowest priority (the train cells start with the
                script) on fake CUDA tensors and a fake process group of 256
                or 512 ranks, all `ok`; a {"dryrun": ...} JSON line;
@@ -131,6 +145,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
                shapes; a JSON line with one entry per kernel, and a last JSON
                line with the device.
 It imports nothing of the JAX package and never falls back to the CPU.
+One card is one rank: what needs more than one, such as dense decode
+attention over a KV cache split over T on "model" and a microbatch the batch
+axes do not divide, is held on gloo ranks on the CPU only
+(tests/test_torch_sharded_serve.py, tests/test_torch_sharding.py).
 """
 from __future__ import annotations
 
@@ -2417,7 +2435,9 @@ SHARD_DRIVER_STEPS = 20
 # the ssm and hybrid families on DTensors: name -> (layers, (B, S)); mamba2
 # as phase 6's mamba2 step, hymba past its window of 1024 (the banded path)
 SHARD_SSM_CELLS = {"mamba2-370m": (2, (1, 256)), "hymba-1.5b": (2, (1, 2048))}
-SHARD_SSM_STEPS = 4
+# steps a run: hymba's at S=2048 take 4.2-7.9 s each on an H100 80GB HBM3
+# at 700 W, so it takes 2, which keeps the whole script under 1000 s there
+SHARD_SSM_STEPS = {"mamba2-370m": 4, "hymba-1.5b": 2}
 # the moe family on DTensors: granite-moe-3b-a800m at full width and 4 of its
 # 32 layers (phase 6's cut), TRAIN_BS, at the default capacity factor
 # 1.25 (the step drops assignments). Its dispatch sums each token's k expert
@@ -2425,6 +2445,14 @@ SHARD_SSM_STEPS = 4
 # for bit, leaf for leaf.
 SHARD_MOE_LAYERS = 4
 SHARD_MOE_STEPS = 4
+# the encdec and vlm families on DTensors: name -> (layers or None for all,
+# (B, text S)); whisper-tiny at full size as phase 4 runs it (1500 frames
+# beside 448 tokens), pixtral-12b at full width and 2 of its 40 layers, its
+# 1024 patch embeddings in front of 512 tokens (f32 params and AdamW state:
+# 22.5 GB; a run's peak 36.1 GB on an H100 80GB HBM3, so the plain run's
+# final state and the DTensor run fit the card together)
+SHARD_STUB_CELLS = {"whisper-tiny": (None, WHISPER_BS), "pixtral-12b": (2, PIXTRAL_BS)}
+SHARD_STUB_STEPS = 4
 
 
 def _one_rank_group(dev):
@@ -2442,14 +2470,14 @@ def _one_rank_group(dev):
 def _shard_vs_plain(dev, mesh, counters, arch, B: int, S: int, steps: int,
                     per_step: dict, without_fsdp: bool = False) -> dict:
     """``steps`` make_train_step steps of ``arch`` (bf16) with params, AdamW
-    state and batch as DTensors on the (1, 1) mesh with FSDP, against the
-    same steps on plain tensors from the same params: the losses and every
-    leaf, the kernels' launches of each run against ``per_step`` a step, the
-    wall ms of each step and the peak memory. Returns the runs' (label,
-    launches, launches by shape), their rows and the comparison; with
-    ``without_fsdp``, also a third run on the plan without FSDP against the
-    same plain run ("no_fsdp": its leaves equal, its launches and its
-    step ms)."""
+    state and batch (the tokens and the family's stub inputs) as DTensors on
+    the (1, 1) mesh with FSDP, against the same steps on plain tensors from
+    the same params: the losses and every leaf, the kernels' launches of
+    each run against ``per_step`` a step, the wall ms of each step and the
+    peak memory. Returns the runs' (label, launches, launches by shape),
+    their rows and the comparison; with ``without_fsdp``, also a third run
+    on the plan without FSDP against the same plain run ("no_fsdp": its
+    leaves equal, its launches and its step ms)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.models import lm
@@ -2478,7 +2506,8 @@ def _shard_vs_plain(dev, mesh, counters, arch, B: int, S: int, steps: int,
         reset_counts(counters)
         for i in range(steps):
             g = torch.Generator(device=dev).manual_seed(200 + i)
-            batch = {"tokens": torch.randint(0, arch.vocab, (B, S), device=dev, generator=g)}
+            batch = {"tokens": torch.randint(0, arch.vocab, (B, S), device=dev, generator=g),
+                     **stub_inputs(arch, B, dev, 300 + i)}
             if sharded:
                 batch = distribute(batch, named(plan, batch_spec(plan, batch)))
             torch.cuda.synchronize()
@@ -2575,7 +2604,7 @@ def shard_steps_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, d
 
 
 def shard_ssm_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, dict]]:
-    """The ssm and hybrid families on DTensors: SHARD_SSM_STEPS steps of
+    """The ssm and hybrid families on DTensors: SHARD_SSM_STEPS' steps of
     mamba2-370m and hymba-1.5b (full width, SHARD_SSM_CELLS' layers, B and
     S) against plain tensors (``_shard_vs_plain``): K1 and K3 on each rank's
     shards (through local_apply), hymba's attention past its window through
@@ -2589,7 +2618,7 @@ def shard_ssm_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, dic
         flash = L if arch.sliding_window == 0 or S <= arch.sliding_window else 0
         per_step = {"rmsnorm_fwd": norms, "flash_attention_fwd": 0 if arch.is_attention_free
                     else flash, "ssd_scan_fwd": L}
-        res = _shard_vs_plain(dev, mesh, counters, arch, B, S, SHARD_SSM_STEPS, per_step)
+        res = _shard_vs_plain(dev, mesh, counters, arch, B, S, SHARD_SSM_STEPS[name], per_step)
         runs += res["runs"]
         rows.append(_shard_row(card, arch, B, S, res))
     print(json.dumps({"shard_ssm": rows}), flush=True)
@@ -2624,6 +2653,40 @@ def shard_moe_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, dic
     row["without_fsdp"] = whole
     print(json.dumps({"shard_moe": row}), flush=True)
     return res["runs"]
+
+
+def shard_stub_phase(dev, mesh, counters, card: str) -> list[tuple[str, dict, dict]]:
+    """The encdec and vlm families on DTensors: SHARD_STUB_STEPS steps of
+    whisper-tiny and pixtral-12b (SHARD_STUB_CELLS) against plain tensors
+    (``_shard_vs_plain``), their stub inputs placed by batch_spec as the
+    tokens: K1 on every norm (whisper's encoder, decoder and ln_cross), K2 on
+    the self-attention (whisper's encoder not causal), through local_apply;
+    whisper's cross-attention through flash_xla_train on each rank's heads.
+    Every leaf of params, mu and nu bit for bit; a {"shard_stub": ...} JSON
+    line."""
+    from repro_torch.configs import get_arch
+
+    runs, rows = [], []
+    for name, (L, (B, S)) in SHARD_STUB_CELLS.items():
+        arch = get_arch(name)
+        if L is not None:
+            arch = dataclasses.replace(arch, num_layers=L)
+        L = arch.num_layers
+        if arch.family == "encdec":  # ln1, ln2 an encoder layer; ln1, ln_cross, ln2 a decoder one
+            E = arch.encoder_layers
+            per_step = {"rmsnorm_fwd": 2 * E + 1 + 3 * L + 1, "flash_attention_fwd": E + L,
+                        "ssd_scan_fwd": 0}
+        else:
+            per_step = {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": L, "ssd_scan_fwd": 0}
+        res = _shard_vs_plain(dev, mesh, counters, arch, B, S, SHARD_STUB_STEPS, per_step)
+        log("shard", f"{arch.name} DTensor vs plain: {res['leaves_equal']} of {res['leaves']} "
+            f"leaves bit for bit (all required)")
+        check(res["leaves_equal"] == res["leaves"],
+              f"the {arch.name} DTensor step is not bit for bit the plain one")
+        runs += res["runs"]
+        rows.append(_shard_row(card, arch, B, S, res))
+    print(json.dumps({"shard_stub": rows}), flush=True)
+    return runs
 
 
 def shard_pipeline_phase(dev) -> None:
@@ -2744,6 +2807,7 @@ def shard_phase(dev, counters, card: str) -> list[tuple[str, dict, dict]]:
         runs = shard_steps_phase(dev, mesh, counters, card)
         runs += shard_ssm_phase(dev, mesh, counters, card)
         runs += shard_moe_phase(dev, mesh, counters, card)
+        runs += shard_stub_phase(dev, mesh, counters, card)
         shard_pipeline_phase(dev)
         shard_restore_phase(dev, mesh)
     finally:
@@ -2805,6 +2869,21 @@ MOE_ARCHS = ("granite-moe-3b-a800m", "llama4-scout-17b-a16e")
 DRYRUN_EARLY_CELLS += tuple(("granite-moe-3b-a800m", "train_4k", p) for p in ("single", "multi"))
 DRYRUN_LATE_CELLS += tuple((a, s, p) for a in MOE_ARCHS for s in ("prefill_32k", "decode_32k")
                            for p in ("single", "multi"))
+# (a) the encdec and vlm archs at full depth: (name, B, prompt, new, max_len);
+# whisper's frames encoded into the cache, pixtral's 1024 patch embeddings in
+# front of each prompt (phase 5's runs)
+DRYRUN_STUB_SERVE = (("whisper-tiny", 4, WHISPER_SERVE["P"], 32, WHISPER_SERVE["max_len"]),
+                     ("pixtral-12b", PIXTRAL_SERVE["B"], PIXTRAL_SERVE["P"], 32,
+                      PIXTRAL_SERVE["max_len"]))
+# (c) whisper's six cells (its train cells start with the script), pixtral's
+# four serve cells (its train_4k cells, 40 layers at d=5120, trace for minutes
+# each: PERF.md has them from a run of the CLI), and qwen3-8b's decode_32k
+# with dense decode attention over its cache split over T (8 kv heads on
+# "model" of 16); a fourth entry is the --opt (and the artifact's tag)
+DRYRUN_EARLY_CELLS += tuple(("whisper-tiny", "train_4k", p) for p in ("single", "multi"))
+DRYRUN_LATE_CELLS += tuple((a, s, p) for a in ("whisper-tiny", "pixtral-12b")
+                           for s in ("prefill_32k", "decode_32k") for p in ("single", "multi"))
+DRYRUN_LATE_CELLS += (("qwen3-8b", "decode_32k", "single", "dense_decode"),)
 DRYRUN_CELL_TIMEOUT_S = 1000
 DRYRUN_OUT = pathlib.Path(__file__).resolve().parent / "build" / "dryrun_smoke"
 
@@ -2820,12 +2899,14 @@ def start_dryrun_cells(cells, procs: list) -> None:
         shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
         DRYRUN_OUT.mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
-    for arch, shape, pods in cells:
-        logf = DRYRUN_OUT / f"{arch}__{shape}__{pods}.log"
+    for arch, shape, pods, *opt in cells:
+        logf = DRYRUN_OUT / f"{'__'.join((arch, shape, pods, *opt))}.log"
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
                shape, "--pods", pods, "--out", str(DRYRUN_OUT)]
+        for o in opt:
+            cmd += ["--opt", o, "--tag", o]
         with open(logf, "w") as f:
-            procs.append(((arch, shape, pods), subprocess.Popen(
+            procs.append(((arch, shape, pods, *opt), subprocess.Popen(
                 cmd, cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT,
                 preexec_fn=lambda: os.nice(19)), logf, time.perf_counter()))
 
@@ -2837,11 +2918,11 @@ def stop_dryrun_cells(procs) -> None:
             proc.wait()
 
 
-def _greedy(params, arch, cfg, caches, prompts, N: int, place=None):
-    """Prefill and N greedy decode steps through lm.prefill / decode_step;
-    place(tokens) lays a token batch out as the params are (DTensors).
-    Returns the prefill logits (whole), the (B, P + N) tokens and the decode
-    steps' wall ms."""
+def _greedy(params, arch, cfg, caches, prompts, N: int, place=None, frontend=None):
+    """Prefill (behind ``frontend``, already placed, where given) and N
+    greedy decode steps through lm.prefill / decode_step; place(tokens) lays
+    a token batch out as the params are (DTensors). Returns the prefill
+    logits (whole), the (B, P + N) tokens and the decode steps' wall ms."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.models import lm
@@ -2850,8 +2931,8 @@ def _greedy(params, arch, cfg, caches, prompts, N: int, place=None):
         return x.full_tensor() if isinstance(x, DTensor) else x
 
     place = place or (lambda t: t)
-    P = prompts.shape[1]
-    logits, _ = lm.prefill(params, arch, cfg, caches, place(prompts))
+    P = prompts.shape[1] + (0 if frontend is None else frontend.shape[1])
+    logits, _ = lm.prefill(params, arch, cfg, caches, place(prompts), frontend=frontend)
     first = whole(logits).clone()
     seq, ms = [prompts], []
     nxt = first[:, -1].argmax(-1, keepdim=True)
@@ -2867,16 +2948,21 @@ def _greedy(params, arch, cfg, caches, prompts, N: int, place=None):
 
 
 def _serve_vs_plain(dev, mesh, counters, arch, B: int, P: int, N: int, T: int, seed: int,
-                    per_forward: dict) -> tuple[tuple, dict]:
+                    per_forward: dict, cache_pass: dict | None = None) -> tuple[tuple, dict]:
     """Prefill + N greedy steps of P-token prompts (cache of T) in bf16 with
     params, caches and tokens as DTensors on the (1, 1) mesh (the cached path
     on DTensors, the kernels through local_apply) against the same run on
     plain tensors: tokens equal, prefill logits bit for bit, each run's
-    launches (N + 1) x ``per_forward``. Returns the DTensor run's (label,
-    launches, by shape) and a row for the JSON line."""
+    launches (N + 1) x ``per_forward`` plus ``cache_pass``'s. The family's
+    stub inputs: whisper's frames encoded into the cache by init_caches (on
+    DTensor params, over frames placed by batch_spec: a cache it places as
+    cache_specs does; ``cache_pass``, the encoder's launches), pixtral's
+    patch embeddings in front of each prompt (placed by batch_spec). Returns
+    the DTensor run's (label, launches, by shape) and a row for the JSON
+    line."""
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import (batch_spec, cache_specs, distribute, make_plan,
-                                               named, param_specs)
+                                               named, param_specs, placements)
 
     cfg = _serve_cfg(arch, torch.bfloat16)  # moe: capacity factor MOE_SERVE_CAPACITY
     plan = make_plan(mesh, fsdp=True)
@@ -2884,29 +2970,38 @@ def _serve_vs_plain(dev, mesh, counters, arch, B: int, P: int, N: int, T: int, s
                             dev)
     prompts = torch.as_tensor(np.random.default_rng(seed - 5).integers(0, arch.vocab,
                                                                        size=(B, P)), device=dev)
-    expect = {k: (N + 1) * v for k, v in per_forward.items()}
+    stub = stub_inputs(arch, B, dev, seed)
+    feats, front = stub.get("enc_features"), stub.get("frontend")
+    expect = {k: (N + 1) * v + (cache_pass or {}).get(k, 0) for k, v in per_forward.items()}
 
     reset_counts(counters)
-    want_logits, want, plain_ms = _greedy(params, arch, cfg,
-                                          lm.init_caches(arch, cfg, B, T, device=dev), prompts, N)
+    caches = lm.init_caches(arch, cfg, B, T, device=dev, enc_features=feats, params=params)
+    want_logits, want, plain_ms = _greedy(params, arch, cfg, caches, prompts, N,
+                                          frontend=front)
     plain_counts, _ = read_counts(counters)
+    del caches
     dparams = distribute(params, named(plan, param_specs(arch, plan, params)))
     del params
-    caches = lm.init_caches(arch, cfg, B, T, device=dev)
-    dcaches = distribute(caches, named(plan, cache_specs(arch, plan, caches)))
-    del caches
 
-    def place(tokens):
-        return distribute({"tokens": tokens}, named(plan, batch_spec(plan, {"tokens": tokens})))[
-            "tokens"]
+    def place(tokens, name="tokens"):
+        return distribute({name: tokens}, named(plan, batch_spec(plan, {name: tokens})))[name]
 
     reset_counts(counters)
-    got_logits, got, dt_ms = _greedy(dparams, arch, cfg, dcaches, prompts, N, place)
+    # on DTensor params init_caches places every leaf (whisper's frames
+    # encoded on them) as cache_specs does
+    dcaches = lm.init_caches(arch, cfg, B, T, params=dparams,
+                             enc_features=None if feats is None else place(feats, "enc_features"))
+    specs = cache_specs(arch, plan, dcaches)
+    check(all(tuple(c.placements) == placements(mesh, specs[k]) for k, c in dcaches.items()),
+          f"{arch.name}: init_caches on DTensor params placed a leaf elsewhere than cache_specs")
+    got_logits, got, dt_ms = _greedy(dparams, arch, cfg, dcaches, prompts, N, place,
+                                     None if front is None else place(front, "frontend"))
     counts, shapes = read_counts(counters)
     same_logits = torch.equal(got_logits, want_logits)
     same_tokens = torch.equal(got, want)
     med = {"plain": statistics.median(plain_ms), "dtensor": statistics.median(dt_ms)}
     ring = (f", a ring of {min(T, arch.sliding_window)} slots" if arch.sliding_window else "")
+    ring += "".join(f", {k} {tuple(v.shape)}" for k, v in stub.items())
     log("dryrun", f"(a) {arch.name} serve B={B} prompt={P} new={N} max_len={T}{ring}, bf16: "
         f"DTensor params, caches and tokens on the (1, 1) mesh against plain tensors: tokens "
         f"equal {same_tokens}, prefill logits equal bit for bit {same_logits}; median decode "
@@ -2960,6 +3055,22 @@ def dryrun_serve_phase(dev, mesh, counters) -> tuple[list, dict]:
         runs.append(run)
         rows.append(dict(r, layers=L, capacity_factor=MOE_SERVE_CAPACITY))
     row["moe"] = rows
+    rows = []
+    for name, B, P, N, T in DRYRUN_STUB_SERVE:
+        arch = get_arch(name)
+        L = arch.num_layers
+        if arch.family == "encdec":  # ln1, ln_cross, ln2 a layer; the encoder's pass once
+            E = arch.encoder_layers
+            per_forward = {"rmsnorm_fwd": 3 * L + 1, "flash_attention_fwd": 0, "ssd_scan_fwd": 0}
+            cache_pass = {"rmsnorm_fwd": 2 * E + 1, "flash_attention_fwd": E}
+        else:
+            per_forward = {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": 0, "ssd_scan_fwd": 0}
+            cache_pass = None
+        run, r = _serve_vs_plain(dev, mesh, counters, arch, B, P, N, T, 11, per_forward,
+                                 cache_pass)
+        runs.append(run)
+        rows.append(r)
+    row["stub"] = rows
     return runs, row
 
 
@@ -2992,6 +3103,15 @@ def _mamba2_cell():
 def _granite_cell():
     """Phase 9's granite cell."""
     return _train_cell("granite-moe-3b-a800m", SHARD_MOE_LAYERS, TRAIN_BS)
+
+
+def _whisper_cell():
+    """Phase 9's whisper cell: all 4 + 4 layers, 1500 frames beside 448
+    tokens."""
+    from repro_torch.configs import get_arch
+
+    return _train_cell("whisper-tiny", get_arch("whisper-tiny").num_layers,
+                       SHARD_STUB_CELLS["whisper-tiny"][1])
 
 
 def _decode_cell():
@@ -3036,8 +3156,8 @@ def dryrun_train_phase(dev, mesh, counters, rep: dict, cell=None,
                                                        batch_axes=plan.batch_axes))
         tokens = torch.randint(0, arch.vocab, (B, S), device=dev,
                                generator=torch.Generator(device=dev).manual_seed(200))
-        batch = distribute({"tokens": tokens.int()}, named(plan, batch_spec(plan, {
-            "tokens": tokens})))
+        batch = {"tokens": tokens.int(), **stub_inputs(arch, B, dev, 201)}  # bf16, as the specs
+        batch = distribute(batch, named(plan, batch_spec(plan, batch)))
         torch.cuda.reset_peak_memory_stats()
         reset_counts(counters)
         acc = OpAccountant()
@@ -3104,8 +3224,7 @@ def dryrun_decode_phase(dev, mesh, rep: dict) -> dict:
 
     from repro_torch.launch.op_account import OpAccountant
     from repro_torch.models import lm
-    from repro_torch.parallel.sharding import (batch_spec, cache_specs, distribute, make_plan,
-                                               named, param_specs)
+    from repro_torch.parallel.sharding import batch_spec, distribute, make_plan, named, param_specs
 
     arch, shape = _decode_cell()
     B, T = shape.global_batch, shape.seq_len
@@ -3117,8 +3236,7 @@ def dryrun_decode_phase(dev, mesh, rep: dict) -> dict:
     params = lm.init_params(arch, torch.Generator(device=dev).manual_seed(12), torch.bfloat16,
                             dev)
     params = distribute(params, named(plan, param_specs(arch, plan, params)))
-    caches = lm.init_caches(arch, cfg, B, T, device=dev)
-    caches = distribute(caches, named(plan, cache_specs(arch, plan, caches)))
+    caches = lm.init_caches(arch, cfg, B, T, params=params)  # placed by cache_specs
     tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
     tok = distribute({"tokens": tok}, named(plan, batch_spec(plan, {"tokens": tok})))["tokens"]
     pos = rep["position"]
@@ -3165,7 +3283,7 @@ def dryrun_cells_phase(procs) -> list[dict]:
     artifact; prints the JAX dry-run's summary line of each and its trace's
     wall seconds."""
     cells = []
-    for (arch, shape, pods), proc, logf, t0 in procs:
+    for (arch, shape, pods, *opt), proc, logf, t0 in procs:
         try:
             rc = proc.wait(timeout=max(DRYRUN_CELL_TIMEOUT_S - (time.perf_counter() - t0), 1))
         except subprocess.TimeoutExpired:
@@ -3181,6 +3299,7 @@ def dryrun_cells_phase(procs) -> list[dict]:
         if not rep.get("ok"):
             print(text[-4000:], file=sys.stderr)
         summary = [x for x in text.splitlines() if x.startswith("  ok ")]
+        mesh += "".join(f" --opt {o}" for o in opt)
         log("dryrun", f"(c) {arch} {shape} {mesh}: exit {rc}, {wall:.1f} s since it started "
             f"(process start and import included); " + (summary[0].strip() if summary
                                                         else "no summary line"))
@@ -3207,6 +3326,7 @@ def dryrun_phase(dev, counters, card: str, procs: list) -> list[tuple[str, dict,
     train_rep = _dryrun_cell(*_train_cell(), microbatch_rows=TRAIN_BS[0])
     mamba_rep = _dryrun_cell(*_mamba2_cell(), microbatch_rows=SHARD_SSM_CELLS["mamba2-370m"][1][0])
     granite_rep = _dryrun_cell(*_granite_cell(), microbatch_rows=TRAIN_BS[0])
+    whisper_rep = _dryrun_cell(*_whisper_cell(), microbatch_rows=WHISPER_BS[0])
     decode_rep = _dryrun_cell(*_decode_cell())
     mesh = _one_rank_group(dev)
     try:
@@ -3223,6 +3343,13 @@ def dryrun_phase(dev, counters, card: str, procs: list) -> list[tuple[str, dict,
             dev, mesh, counters, granite_rep, _granite_cell(),
             {"rmsnorm_fwd": 4 * L + 1, "flash_attention_fwd": 2 * L, "ssd_scan_fwd": 0})
         runs += more
+        whisper = _whisper_cell()[0]
+        L, E = whisper.num_layers, whisper.encoder_layers
+        more, train_whisper = dryrun_train_phase(  # each layer's norms and attention twice
+            dev, mesh, counters, whisper_rep, _whisper_cell(),
+            {"rmsnorm_fwd": 2 * 2 * E + 1 + 2 * 3 * L + 1, "flash_attention_fwd": 2 * (E + L),
+             "ssd_scan_fwd": 0})
+        runs += more
         decode = dryrun_decode_phase(dev, mesh, decode_rep)
     finally:
         dist.destroy_process_group()
@@ -3230,6 +3357,7 @@ def dryrun_phase(dev, counters, card: str, procs: list) -> list[tuple[str, dict,
     cells = dryrun_cells_phase(procs)
     print(json.dumps({"dryrun": {"card": card, "serve": serve, "train": train,
                                  "train_mamba2": train_mamba, "train_granite": train_granite,
+                                 "train_whisper": train_whisper,
                                  "decode": decode, "cells": cells}}), flush=True)
     log("dryrun", f"done in {time.perf_counter() - t0:.1f} s")
     return runs

@@ -49,7 +49,6 @@ from repro_torch.core.arch import ASSIGNED_SHAPES, InputShape, ModelArch
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.op_account import OpAccountant
 from repro_torch.launch.specs import decode_specs, prefill_specs, train_batch_specs
-from repro_torch.models import lm
 from repro_torch.models.lm import ModelCfg, decode_step, forward_cached, init_params
 from repro_torch.parallel.sharding import (MeshShape, _contiguous_stride, batch_spec,
                                            cache_specs, make_plan, param_specs, placements)
@@ -76,9 +75,6 @@ def _mesh_from_arg(mesh_arg: str | None, multi_pod: bool) -> MeshShape:
 def cell_applicable(arch: ModelArch, shape: InputShape) -> tuple[bool, str]:
     if shape.name == "long_500k" and not arch.supports_long_context:
         return False, "full-attention arch: 500k dense decode skipped (DESIGN.md §4)"
-    if arch.family not in lm.SHARDED_FAMILIES:
-        return False, (f"the port shards the {', '.join(lm.SHARDED_FAMILIES)} families only; "
-                       f"the {arch.family} family waits on ROADMAP Queue 1 item 9")
     return True, ""
 
 
@@ -246,12 +242,17 @@ def lower_cell(
                 arch, shape, cfg, dev)
             caches = _placed(dmesh, specs["caches"],
                              cache_specs(arch, plan, specs["caches"]))
-            tokens = _placed(dmesh, specs["tokens"],
-                             batch_spec(plan, {"tokens": specs["tokens"]})["tokens"])
-            args = (params, caches, tokens)
+            # the prefill's frontend (vlm) beside the tokens; an encdec
+            # model's frames are not read (its cross K/V are in the caches),
+            # and JAX's jit drops them
+            inputs = {k: specs[k] for k in ("tokens", "frontend") if k in specs}
+            inputs = _placed(dmesh, inputs, batch_spec(plan, inputs))
+            tokens, frontend = inputs["tokens"], inputs.get("frontend")
+            args = (params, caches, inputs)
             if shape.kind == "prefill":
                 def run():
-                    return forward_cached(params, arch, cfg, caches, tokens, 0)
+                    return forward_cached(params, arch, cfg, caches, tokens, 0,
+                                          frontend=frontend)
             else:
                 position = specs["position"]
                 report["position"] = position

@@ -19,22 +19,24 @@ place instead of being returned as new arrays.
 
 Sharded (``repro_torch.parallel``): the full-sequence forward and its loss
 take params and a batch of DTensors, placed by ``param_specs`` and
-``batch_spec``, for the families of ``SHARDED_FAMILIES`` (dense, moe, ssm
-and hybrid). DTensor's propagation inserts the collectives; the layer carry is
-pinned by ``constrain_batch_sharding`` where the JAX package pins it,
+``batch_spec``, for every family; the stub inputs (an encdec model's frames,
+a vlm model's frontend embeddings) lie over the batch axes as the tokens do.
+DTensor's propagation inserts the collectives; the layer carry (the
+encoder's too) is pinned by ``constrain_batch_sharding`` where the JAX
+package pins it,
 ``ModelCfg.act_shard`` pins the activations it pins, and the logits are made
 whole over "model" before the loss. The kernels, the sliding window's banded
 attention and the Mamba-2 mixer's conv and scan run on each rank's shards
-through ``local_apply`` (``ops``, ``models/ssm.py``), as does the MoE
-block, whose dispatch keeps the global capacity and drops of the unsharded
+through ``local_apply`` (``ops``, ``models/ssm.py``; the cross-attention on
+each rank's q heads), as does the MoE block, whose dispatch keeps the global capacity and drops of the unsharded
 program (``models/moe.py``); the aux loss takes its means over the global
 tokens and comes back, with the loss, as a plain tensor. The cached path
 (prefill and decode) takes params, caches and tokens as DTensors too, placed
 by ``param_specs``, ``cache_specs`` and ``batch_spec``: the KV cache, a ring
-included, over its heads or its sequence (``_sharded_cached_attention``), the
-conv and state caches written in place on each rank's shard; an MoE layer's
-capacity there comes from the chunk's global B x S. The encdec and vlm
-families refuse DTensors.
+included, over its heads or its sequence (``_sharded_cached_attention``,
+dense decode attention too), the conv and state caches written in place on
+each rank's shard, an encdec model's cross K/V placed by ``init_caches``; an
+MoE layer's capacity there comes from the chunk's global B x S.
 """
 from __future__ import annotations
 
@@ -119,21 +121,12 @@ REMATS = ("none", "selective", "full")
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-# the families whose full-sequence forward and cached path take DTensors
-# (ROADMAP lists what the others need)
-SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(arch: ModelArch) -> None:
     if arch.family not in FAMILIES:
         raise ValueError(f"{arch.name}: unknown family {arch.family!r}; the families are "
                          f"{', '.join(FAMILIES)}")
-
-
-def _check_sharded(arch: ModelArch, params: dict) -> None:
-    if isinstance(params["embed"], DTensor) and arch.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(f"{arch.name}: the {arch.family} family takes no DTensor; "
-                                  f"the port shards {', '.join(SHARDED_FAMILIES)}")
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +292,35 @@ def _dense_cached_attention(q, k, v, start_pos: int, *, ring: bool = False) -> t
     return out.reshape(B, H, S, D).to(q.dtype)
 
 
+def _dense_cached_attention_over_t(q, k, v, start_pos: int, t0: int, T: int, group, *,
+                                   ring: bool = False) -> torch.Tensor:
+    """``_dense_cached_attention`` on one rank's part of a cache split over T
+    on "model": k/v hold the global slots t0 .. t0 + T_l - 1 of T, q every
+    query. The mask is taken at those global slots (none once a ring has
+    wrapped). One softmax over the parts: the global max of the logits (an
+    all-reduce ``max`` over ``group``), the exps' global sum (a second), the
+    probabilities normalised and cast to v's dtype as on one rank, the local
+    products summed over the parts (a third). The probabilities are the
+    unsharded ones up to the f32 order of the sum; a part whose slots are all
+    masked adds exps of 0."""
+    import torch.distributed._functional_collectives as funcol
+
+    B, H, S, D = q.shape
+    Hkv, T_l = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, S, D)
+    logits = torch.einsum("bhgsd,bhtd->bhgst", qg.float(), k.float()) / (D ** 0.5)
+    if not (ring and start_pos + S - 1 >= T):
+        qpos = start_pos + torch.arange(S, device=q.device)
+        slots = t0 + torch.arange(T_l, device=q.device)
+        logits = torch.where(slots[None, :] <= qpos[:, None], logits, -1e30)
+    top = funcol.all_reduce(logits.amax(dim=-1, keepdim=True), "max", group)
+    e = torch.exp(logits - top)
+    probs = e / funcol.all_reduce(e.sum(dim=-1, keepdim=True), "sum", group)
+    out = torch.einsum("bhgst,bhtd->bhgsd", probs.to(v.dtype).float(), v.float())
+    out = funcol.all_reduce(out, "sum", group)
+    return out.reshape(B, H, S, D).to(q.dtype)
+
+
 def _write_cache(cfg: ModelCfg, cache: dict, k: torch.Tensor, v: torch.Tensor,
                  idx: int) -> None:
     """k/v (B, Hkv', S, D) into the layer's cache views at slots idx .. idx +
@@ -435,8 +457,10 @@ def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v, window: int =
     and each rank writes its slots of the last T positions, rolled into
     place.
 
-    The KV-cache options run on each rank's shards as on a plain cache, but
-    for ``decode_dense_attn`` with the cache split over T, which is refused."""
+    The KV-cache options run on each rank's shards as on a plain cache;
+    ``decode_dense_attn`` over a cache split over T runs the masked product
+    on each rank's part of T at its global slots, and one softmax over the
+    parts (``_dense_cached_attention_over_t``)."""
     import torch.distributed._functional_collectives as funcol
 
     from repro_torch.kernels.ops import _kv_heads_of
@@ -456,10 +480,6 @@ def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v, window: int =
                          f"{T}-slot KV cache at slot {idx}")
     wrapped = bool(window) and start + S - 1 >= T
     dense = cfg.decode_dense_attn and S <= 16 and not ring_prefill
-    if layout == "seq" and dense:
-        raise NotImplementedError("decode_dense_attn: the KV cache is split over its "
-                                  "sequence on \"model\"; the dense product over it is not "
-                                  "ported")
     split_q = layout == "heads" or ((layout == "whole" or ring_prefill) and tp > 1
                                     and H % tp == 0)
     q_pl, kv_pl = [], []
@@ -508,13 +528,16 @@ def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v, window: int =
                 return _dense_cached_attention(q, k_read, v_read, start, ring=bool(window))
             return flash_xla(q, k_read, v_read, q_start=start, kv_valid_len=start + S,
                              ring=bool(window), causal=True)
+        group = mesh.get_group(MODEL_AXIS)
+        if dense:
+            return _dense_cached_attention_over_t(q, k_read, v_read, start, t0, T, group,
+                                                  ring=bool(window))
         if wrapped:  # every slot of the ring is live
             out, lse = flash_xla_lse(q, k_read, v_read, q_start=0, kv_valid_len=T_l,
                                      causal=False)
         else:
             out, lse = flash_xla_lse(q, k_read, v_read, q_start=start - t0,
                                      kv_valid_len=min(max(start + S - t0, 0), T_l))
-        group = mesh.get_group(MODEL_AXIS)
         w = torch.exp(lse - funcol.all_reduce(lse, "max", group))
         both = funcol.all_reduce(torch.cat([out * w[..., None], w[..., None]], dim=-1),
                                  "sum", group)
@@ -531,9 +554,12 @@ def _cross_sublayer(p: dict, h: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.
     the zero keys that fill T_enc up to whole 512-key blocks."""
     B, S, _ = h.shape
     H, D = arch.heads, arch.head_dim
-    q = (h @ p["wq"]).reshape(B, S, H, D).transpose(1, 2)
+    # sharded: as the self-attention's products (``_attn_sublayer``); each
+    # rank then attends with its q heads (``ops._sharded_heads``)
+    q = whole_over_model(h @ gather_fsdp(p["wq"])).reshape(B, S, H, D).transpose(1, 2)
     out = ops.flash_attention(q, enc_k, enc_v, causal=False, impl="xla")
-    return out.transpose(1, 2).reshape(B, S, H * D) @ p["wo"]
+    out = split_over_model(out.transpose(1, 2).reshape(B, S, H * D), -1)
+    return out @ gather_fsdp(p["wo"])
 
 
 def _ssm_sublayer(arch: ModelArch, cfg: ModelCfg, p: dict, x: torch.Tensor,
@@ -646,8 +672,25 @@ def _embed_inputs(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict):
     the batch holds them; and the positions 0 .. F + S - 1."""
     h = _lookup(params["embed"], batch["tokens"]).to(cfg.dtype)
     if arch.frontend_stub and "frontend" in batch:
-        h = torch.cat([batch["frontend"].to(cfg.dtype), h], dim=1)
+        h = _behind_frontend(batch["frontend"], h, cfg)
     return h, torch.arange(h.shape[1], device=h.device)
+
+
+def _check_stub(like, name: str, x) -> None:
+    """A stub input (the frontend, the encoder's frames) is a DTensor, placed
+    by ``batch_spec``, where ``like`` (the tokens' embeddings, the params) is
+    one: a plain one beside DTensors is refused, as plain tokens beside
+    DTensor params are."""
+    if isinstance(x, DTensor) != isinstance(like, DTensor):
+        raise TypeError(f"the tokens and {name} are DTensors or plain tensors together "
+                        f"(batch_spec places both)")
+
+
+def _behind_frontend(frontend, h, cfg: ModelCfg):
+    """The frontend's embeddings (B, F, d) in front of the token embeddings
+    (B, S, d); sharded, both lie over the batch axes (``batch_spec``)."""
+    _check_stub(h, "frontend", frontend)
+    return torch.cat([frontend.to(cfg.dtype), h], dim=1)
 
 
 def _encode(params: dict, arch: ModelArch, cfg: ModelCfg,
@@ -659,6 +702,7 @@ def _encode(params: dict, arch: ModelArch, cfg: ModelCfg,
     layer, as the JAX package pins it."""
     enc = params["encoder"]
     enc_arch = _encoder_arch(arch)
+    _check_stub(params["embed"], "enc_features", features)
     h = features.to(cfg.dtype)
     positions = torch.arange(h.shape[1], device=h.device)
     for i in range(arch.encoder_layers):
@@ -670,12 +714,16 @@ def _encode(params: dict, arch: ModelArch, cfg: ModelCfg,
 def _cross_kv(params: dict, arch: ModelArch,
               enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Each decoder layer's cross K and V from the encoder output through its
-    ``cross.wkv``: two (L, B, Hkv, T_enc, D)."""
+    ``cross.wkv``: two (L, B, Hkv, T_enc, D). Sharded, the packed product is
+    made whole over "model" before its split, as the self-attention's is:
+    its weight grad then comes back split as ``wkv`` is, not whole on every
+    rank."""
     B, T, _ = enc_out.shape
     Hkv, D = arch.kv_heads, arch.head_dim
+    wkv = params["layers"]["cross"]["wkv"]
     ks, vs = [], []
-    for wkv in params["layers"]["cross"]["wkv"]:
-        k, v = (enc_out @ wkv).chunk(2, dim=-1)
+    for i in range(wkv.shape[0]):
+        k, v = whole_over_model(enc_out @ gather_fsdp(wkv[i])).chunk(2, dim=-1)
         ks.append(k.reshape(B, T, Hkv, D).transpose(1, 2))
         vs.append(v.reshape(B, T, Hkv, D).transpose(1, 2))
     return torch.stack(ks), torch.stack(vs)
@@ -688,10 +736,9 @@ def forward_logits(params: dict, arch: ModelArch, cfg: ModelCfg, batch: dict) ->
     F + S, V) logits. Attention goes through the flash-attention kernel
     (through ``banded_flash_xla`` when a sliding window is shorter than S;
     cross-attention through the blockwise "xla" attention), the ssm mixer
-    through the SSD kernel. Params and batch may be DTensors for the dense
-    family (see the module docstring)."""
+    through the SSD kernel. Params and batch may be DTensors (see the module
+    docstring)."""
     _check_family(arch)
-    _check_sharded(arch, params)
     if cfg.cast_params_in_forward:
         params = cast_params(params, cfg.dtype)
     h, positions = _embed_inputs(params, arch, cfg, batch)
@@ -770,9 +817,22 @@ def init_caches(arch: ModelArch, cfg: ModelCfg, batch_size: int, max_len: int,
     encdec, ``{"enc_k", "enc_v"}`` (L, B, Hkv, T_enc, D): the encoder run once
     over ``enc_features`` (B, T_enc, d) with ``params`` (cast to
     ``cfg.dtype`` under ``cast_params_in_forward``), each decoder layer's
-    cross K/V; both are required, a ``ValueError`` otherwise."""
+    cross K/V; both are required, a ``ValueError`` otherwise.
+
+    Sharded: with ``params`` as DTensors (``param_specs``), every leaf comes
+    back as a DTensor on the params' mesh, placed as ``cache_specs`` places
+    it: the KV, conv and state caches as zeros on each rank's shard, and an
+    encdec model's cross K/V from the encoder run on DTensors, over
+    ``enc_features`` placed by ``batch_spec`` (a plain tensor there is
+    refused), redistributed to their placements. That is how a caller gets
+    a sharded encdec cache: the encoder's output lies on the mesh already,
+    so ``distribute`` (which takes whole tensors) has nothing to place.
+    ``device`` is then the mesh's, whatever is passed."""
     _check_family(arch)
-    device = resolve_device(device)
+    mesh = params["embed"].device_mesh if params is not None and isinstance(
+        params["embed"], DTensor) else None
+    # sharded, the zeros are made on each rank's shard (``_placed_caches``)
+    device = torch.device("meta") if mesh is not None else resolve_device(device)
     Ld = arch.num_layers
     caches: dict[str, torch.Tensor] = {}
     if not arch.is_attention_free:
@@ -800,7 +860,28 @@ def init_caches(arch: ModelArch, cfg: ModelCfg, batch_size: int, max_len: int,
         with torch.no_grad():
             enc_out = _encode(params, arch, cfg, enc_features)
             caches["enc_k"], caches["enc_v"] = _cross_kv(params, arch, enc_out)
+    if mesh is not None:
+        caches = _placed_caches(arch, mesh, caches)
     return caches
+
+
+def _placed_caches(arch: ModelArch, mesh, caches: dict) -> dict:
+    """``init_caches``' leaves on ``mesh`` in ``cache_specs``' placements: the
+    zeros (meta tensors here) made on each rank's shard, nothing whole
+    allocated; the cross K/V redistributed."""
+    from torch.distributed.tensor import zeros as dzeros
+
+    from repro_torch.parallel.sharding import cache_specs, make_plan
+
+    specs = cache_specs(arch, make_plan(mesh), caches)
+    out = {}
+    for name, x in caches.items():
+        places = placements(mesh, specs[name])
+        if isinstance(x, DTensor):
+            out[name] = x.redistribute(mesh, places)
+        else:
+            out[name] = dzeros(x.shape, dtype=x.dtype, device_mesh=mesh, placements=places)
+    return out
 
 
 @torch.no_grad()
@@ -816,11 +897,11 @@ def forward_cached(params: dict, arch: ModelArch, cfg: ModelCfg, caches: dict,
     Positions must lie in the KV cache, except in a ring that holds the whole
     window, which serves any position.
 
-    Sharded (``SHARDED_FAMILIES``): params, caches and tokens as DTensors,
-    the logits come back as one. The caches are written in place on each
-    rank's shards (``_sharded_cached_attention``, ``_ssm_sublayer``)."""
+    Sharded: params, caches and tokens (and the frontend) as DTensors,
+    placed by ``param_specs``, ``cache_specs`` and ``batch_spec``; the
+    logits come back as one. The caches are written in place on each rank's
+    shards (``_sharded_cached_attention``, ``_ssm_sublayer``)."""
     _check_family(arch)
-    _check_sharded(arch, params)
     sharded = isinstance(params["embed"], DTensor)
     if sharded and not isinstance(tokens, DTensor):
         raise TypeError("sharded params take the tokens as a DTensor (batch_spec)")
@@ -828,7 +909,7 @@ def forward_cached(params: dict, arch: ModelArch, cfg: ModelCfg, caches: dict,
         params = cast_params(params, cfg.dtype)
     h = _lookup(params["embed"], tokens).to(cfg.dtype)
     if frontend is not None:
-        h = torch.cat([frontend.to(cfg.dtype), h], dim=1)
+        h = _behind_frontend(frontend, h, cfg)
     S = h.shape[1]
     if "k" in caches:
         T = caches["k"].shape[3]

@@ -241,22 +241,18 @@ def moe_block(p: dict, x: torch.Tensor, *, top_k: int,
 
 
 def _rows_over_batch(x):
-    """x with its rows over every batch axis of more than one rank (pinned
-    there where they are not yet), or a NotImplementedError: the dispatch
-    counts each rank's rows once."""
+    """x with its rows pinned over the batch axes of more than one rank
+    where they divide them (``constrain_batch_sharding``), and which of
+    those mesh dims split them: a dim 0 they do not divide (an uneven
+    microbatch) stays whole there, every rank of those dims holding the same
+    rows, which the dispatch then routes as one group (its counts gathered
+    from no other rank)."""
     mesh = x.device_mesh
-
-    def unsplit(x):
-        return [name for name, n, place in zip(mesh.mesh_dim_names, mesh.shape, x.placements)
-                if name in BATCH_AXES and n > 1 and place != Shard(0)]
-
-    if unsplit(x):
+    batch = [name for name, n in zip(mesh.mesh_dim_names, mesh.shape)
+             if name in BATCH_AXES and n > 1]
+    if any(x.placements[mesh.mesh_dim_names.index(a)] != Shard(0) for a in batch):
         x = constrain_batch_sharding(x)
-    if unsplit(x):
-        raise NotImplementedError(
-            f"the sharded MoE dispatch takes the rows split over {unsplit(x)}; a batch of "
-            f"{x.shape[0]} rows is not")
-    return x
+    return x, {a for a in batch if x.placements[mesh.mesh_dim_names.index(a)] == Shard(0)}
 
 
 def _sharded_moe_block(p: dict, x, top_k: int, capacity_factor: float):
@@ -265,14 +261,17 @@ def _sharded_moe_block(p: dict, x, top_k: int, capacity_factor: float):
     "model". C comes from x's global B x S, whatever block of rows each rank
     holds. Grads: x's a partial sum over "model"; the router's and the
     shared expert's partial sums everywhere; the experts' split as they are,
-    partial sums over the batch dims that do not split them."""
-    x = _rows_over_batch(x)
+    partial sums over the batch dims that do not split them. Over a batch
+    dim that does not split x's rows (``_rows_over_batch``) every rank runs
+    the same block on the same rows: x, the weights (the experts gathered
+    whole there) and the output are replicated, and so are their grads."""
+    x, split_rows = _rows_over_batch(x)
     mesh = x.device_mesh
     names = tuple(mesh.mesh_dim_names)
     B, S, d = x.shape
     E = p["router"].shape[-1]
     Fh = p["wo"].shape[1]
-    groups = batch_groups(mesh)
+    groups = [g for g in batch_groups(mesh) if g[0] in split_rows]
     shared = ("shared_wi", "shared_wo") if "shared_wi" in p else ()
     tp = dict(zip(names, mesh.shape)).get(MODEL_AXIS, 1)
     m = mesh.get_local_rank(MODEL_AXIS) if tp > 1 else 0
@@ -280,7 +279,8 @@ def _sharded_moe_block(p: dict, x, top_k: int, capacity_factor: float):
     if tp > 1 and Fh % tp:
         raise NotImplementedError(f"the sharded MoE takes F ({Fh}) split over \"model\" "
                                   f"({tp} ranks)")
-    split = "data" in names and p["wi"].placements[names.index("data")] == Shard(0)
+    split = ("data" in names and p["wi"].placements[names.index("data")] == Shard(0)
+             and (mesh.shape[names.index("data")] == 1 or "data" in split_rows))
 
     # per mesh dim: x, router, wi, wo, shared, y; and the grads of the inputs
     px, pr, pi, po, ps, py = [], [], [], [], [], []
@@ -296,6 +296,9 @@ def _sharded_moe_block(p: dict, x, top_k: int, capacity_factor: float):
                                           f"\"model\", not {wi_p}, {wo_p}")
             places = (Replicate(), Replicate(), Shard(2), Shard(1), Replicate(), Partial())
             grads = (Partial(), Partial(), Shard(2), Shard(1), Partial())
+        elif name in BATCH_AXES and name not in split_rows:
+            places = (Replicate(),) * 6
+            grads = places[:5]
         elif name in BATCH_AXES:
             experts = Shard(0) if name == "data" and split else Replicate()
             places = (Shard(0), Replicate(), experts, experts, Replicate(), Shard(0))
@@ -311,8 +314,7 @@ def _sharded_moe_block(p: dict, x, top_k: int, capacity_factor: float):
 
     data_group = mesh.get_group("data") if split and mesh.shape[names.index("data")] > 1 \
         else None
-    pod_group = (mesh.get_group("pod") if split and "pod" in names
-                 and mesh.shape[names.index("pod")] > 1 else None)
+    pod_group = mesh.get_group("pod") if split and "pod" in split_rows else None
 
     ranks = _Ranks(tuple(groups), (m, tp), model_group, split, data_group, pod_group)
 
@@ -339,11 +341,11 @@ def aux_load_balance_loss(p: dict, x: torch.Tensor, *, top_k: int) -> torch.Tens
     if not isinstance(x, DTensor):
         frac, probs = _aux_means(x, p["router"], top_k, tokens)
         return torch.sum(frac * probs) * E / top_k
-    x = _rows_over_batch(x)
+    x, split = _rows_over_batch(x)
     mesh = x.device_mesh
     px, pr, pm, gr = [], [], [], []  # x, the router, the means, the router's grad
     for name, n, place in zip(mesh.mesh_dim_names, mesh.shape, x.placements):
-        split_rows = name in BATCH_AXES and n > 1
+        split_rows = name in split
         px.append(Shard(0) if split_rows else place if n == 1 else Replicate())
         pr.append(Replicate())
         pm.append(Partial() if split_rows else Replicate())

@@ -82,23 +82,23 @@ def make_train_step(arch: ModelArch, model_cfg: ModelCfg, cfg: TrainStepCfg) -> 
         """The K microbatches of a batch leaf: consecutive row slices. A
         DTensor is reshaped to (K, GB/K, ...) with dim 1 over ``batch_axes``,
         as the JAX step pins it, and its microbatches are the slices of dim 0.
-        A one-row microbatch (one data replica) stays whole: a sharded dim of
-        size 1 is one DTensor's views cannot merge into the next. A
-        microbatch that the batch axes do not divide is refused: its ranks
-        would hold blocks of unequal size, which DTensor cannot flatten in the
-        model's first product."""
+        A microbatch that the batch axes do not divide stays whole over
+        them, every batch rank running all its rows (where the JAX step's
+        constraint leaves GSPMD to place it): its ranks would otherwise hold
+        blocks of unequal size, which DTensor cannot flatten in the model's
+        first product. So does a one-row microbatch (one data replica): a
+        sharded dim of size 1 is one DTensor's views cannot merge into the
+        next."""
         n = x.shape[0] // K
         if not isinstance(x, DTensor):
             return [x[i * n:(i + 1) * n] for i in range(K)]
         y = x.reshape((K, n) + tuple(x.shape[1:]))
         mesh = y.device_mesh
+        ranks = 1
         if cfg.batch_axes:  # a batch axis the mesh lacks is refused here
             pinned = placements(mesh, P(None, cfg.batch_axes, *([None] * (y.dim() - 2))))
             ranks = math.prod(axis_sizes(mesh)[a] for a in cfg.batch_axes)
-            if n > 1 and n % ranks:
-                raise ValueError(f"{K} microbatches of {n} rows do not split over "
-                                 f"{cfg.batch_axes} ({ranks} ranks)")
-        if n == 1:
+        if n == 1 or n % ranks:
             y = y.redistribute(mesh, placements(mesh, P()))
         elif cfg.batch_axes:
             y = y.redistribute(mesh, pinned)

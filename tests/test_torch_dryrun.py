@@ -27,8 +27,8 @@
     ``param_specs``/``cache_specs``/``batch_spec`` give, collectives counted
     and their wire bytes by the JAX formula.
 (i) ``python -m repro_torch.launch.dryrun --device cpu`` writes an artifact
-    that ``report`` renders, and prints a cell of an unsharded family (vlm)
-    as SKIP.
+    that ``report`` renders, and prints a full-attention arch's long_500k
+    cell as SKIP, as the JAX dry-run does.
 (j) The counted SSD scan (``op_account._CountedScan``) on fake tensors
     against the plain loop it stands for (``OpAccountant(count_loops=False)``)
     at S = 3, 4, 8, 17 and 64: FLOPs and HBM bytes equal, forward alone,
@@ -68,6 +68,24 @@
     reduce-scatter over "data", the expert product's all-gather over "model"
     and the products' over "data"; backward, the mirror of each that carries
     a grad.
+(m) (g) and (h) for reduced whisper-tiny and pixtral-12b, with their stub
+    inputs (whisper's frames in train, its cross K/V in the serve cells'
+    caches; pixtral's frontend in train and prefill), on (2, 2) and (1, 4)
+    (where pixtral's 2 kv heads put its cache over T). The one-rank cells'
+    FLOPs equal the JAX count in prefill and decode and lie above it in
+    train by (g)'s gap, one attention product per attention, layer and
+    microbatch: 2 B Hq Sq Tk D over the decoder's self-attention (S x S),
+    whisper's encoder (T x T) and its cross-attention (S x T). Argument
+    bytes equal but for the JAX int32 scalar and what JAX's jit drops as
+    never read: whisper's serve cells read neither the encoder's params nor
+    ``cross.wkv`` (the cross K/V are in the cache). Four ranks: FLOPs per
+    chip x 4 within 1% of the one-rank cell (whisper's cross K/V product
+    made whole over "model" after the product, as the self-attention's, so
+    that no rank makes the whole weight grad), argument bytes the local
+    shards, collectives by the JAX formula. Reduced qwen3-8b's decode under ``--opt dense_decode``:
+    its one-rank cell equals the JAX one, and on (1, 4), where its 2 kv heads
+    put the cache over T, the dense product over each rank's part of T
+    splits it (x 4 within 1%), with three all-reduces over "model" a layer.
 """
 import json
 import math
@@ -316,9 +334,6 @@ def test_lower_cell_refuses_what_it_cannot_trace():
     from repro_torch.core.arch import ASSIGNED_SHAPES
 
     decode = {s.name: s for s in ASSIGNED_SHAPES}["decode_32k"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        dryrun.lower_cell(get_reduced("pixtral-12b"), decode, MeshShape(*MESH_4),
-                          device="cpu")
     with pytest.raises(ValueError, match="unknown --opt"):
         dryrun.lower_cell(get_reduced("qwen3-8b"), decode, MeshShape(*MESH_4), device="cpu",
                           opts=frozenset({"no_such_opt"}))
@@ -348,10 +363,10 @@ def test_the_cli_writes_an_artifact_that_report_renders(tmp_path):
     assert "| qwen3-8b-reduced | decode_32k | 2x2 |" in table
     assert report.summary(cells)["cells_ok"] == 1
 
-    res = _cli("--arch", "pixtral-12b", out=tmp_path)
+    res = _cli("--arch", "pixtral-12b", "--shape", "long_500k", out=tmp_path)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert ("SKIP pixtral-12b x decode_32k: the port shards the dense, moe, ssm, hybrid "
-            "families only" in res.stdout)
+    assert ("SKIP pixtral-12b x long_500k: full-attention arch: 500k dense decode skipped"
+            in res.stdout)
     assert len(report.load_cells(str(tmp_path))) == 1
     assert math.isfinite(report.summary(cells)["worst_fraction"][0])
 
@@ -696,3 +711,158 @@ def test_a_moe_block_runs_each_collective_of_its_dispatch_once(backward):
            ("reduce-scatter", T_r // 2 * k * f32, 2)]  # the gates'
     got = sorted(c[:3] for c in acc.collectives)
     assert got == sorted(fwd + (bwd if backward else [])), got
+
+
+# --- (m) ---------------------------------------------------------------------
+
+STUB_ARCHS = ("whisper-tiny", "pixtral-12b")
+MESH_1x4 = ((1, 4), ("data", "model"))
+DENSE_DECODE = frozenset({"dense_decode"})
+
+
+def _jax_lower(cells):
+    """The JAX lower_cell reports of ``cells`` ((label, name, kind, opts)) on
+    one device (``jax_cells``'s import guard)."""
+    from repro.launch.mesh import make_mesh
+
+    jax.devices()
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun as jdryrun
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+    mesh = make_mesh(*MESH_1)
+    return {(label, kind): jdryrun.lower_cell(jax_reduced(name),
+                                              JaxShape(kind, *CELLS[kind], kind), mesh, opts=opts)
+            for label, name, kind, opts in cells}
+
+
+@pytest.fixture(scope="module")
+def jax_stub_cells():
+    return _jax_lower([(name, name, kind, frozenset()) for name in STUB_ARCHS for kind in CELLS]
+                      + [("qwen3-8b dense", "qwen3-8b", "decode", DENSE_DECODE)])
+
+
+@pytest.fixture(scope="module")
+def port_stub_cells():
+    cells = {(name, mesh, kind): dryrun.lower_cell(get_reduced(name), InputShape(kind, S, B, kind),
+                                                   MeshShape(*mesh), device="cpu")
+             for name in STUB_ARCHS for mesh in (MESH_1, MESH_4, MESH_1x4)
+             for kind, (S, B) in CELLS.items()}
+    S, B = CELLS["decode"]
+    for mesh in (MESH_1, MESH_1x4):
+        cells[("qwen3-8b dense", mesh, "decode")] = dryrun.lower_cell(
+            get_reduced("qwen3-8b"), InputShape("decode", S, B, "decode"), MeshShape(*mesh),
+            device="cpu", opts=DENSE_DECODE)
+    return cells
+
+
+def _serve_unread_bytes(arch) -> int:
+    """What JAX's jit drops from whisper's serve programs as never read: the
+    encoder's params and each layer's ``cross.wkv`` (bf16)."""
+    if arch.family != "encdec":
+        return 0
+    p = lm.init_params(arch, torch.Generator(), torch.bfloat16, device="meta")
+    leaves = [p["layers"]["cross"]["wkv"]]
+    stack = [p["encoder"]]
+    while stack:
+        node = stack.pop()
+        for v in node.values():
+            (stack if isinstance(v, dict) else leaves).append(v)
+    return sum(x.numel() * x.element_size() for x in leaves)
+
+
+def _attention_gap(arch, kind: str, K: int) -> int:
+    """(g)'s gap: one attention product, 2 B Hq Sq Tk D, per attention, layer
+    and microbatch of a train cell (the decoder's self-attention, and
+    whisper's encoder and cross-attention over its T frames)."""
+    if kind != "train":
+        return 0
+    S, B = CELLS[kind]
+    area = arch.num_layers * S * S  # a vlm's frontend and text positions: S in all
+    if arch.family == "encdec":
+        T = arch.encoder_seq
+        area += arch.num_layers * S * T + arch.encoder_layers * T * T
+    return K * 2 * (B // K) * arch.heads * arch.head_dim * area
+
+
+@pytest.mark.parametrize("kind", list(CELLS))
+@pytest.mark.parametrize("name", STUB_ARCHS)
+def test_an_encdec_or_vlm_one_rank_cell_against_the_jax_dry_run(name, kind, jax_stub_cells,
+                                                                port_stub_cells):
+    want, got = jax_stub_cells[(name, kind)], port_stub_cells[(name, MESH_1, kind)]
+    arch = get_reduced(name)
+    assert got["ok"] and got["mesh"] == "1x1"
+    unread = 0 if kind == "train" else _serve_unread_bytes(arch)
+    assert (got["memory"]["argument_bytes"] + JAX_ONLY_ARG_BYTES[kind] - unread
+            == want["memory"]["argument_bytes"])
+    jf, tf = want["roofline"]["flops_per_chip"], got["roofline"]["flops_per_chip"]
+    assert abs(tf - jf) <= FLOP_TOL_JAX * jf, (tf, jf)
+    assert tf - jf == _attention_gap(arch, kind, got.get("num_microbatches", 1))
+    assert got["roofline"]["model_flops_total"] == want["roofline"]["model_flops_total"]
+
+
+def _mesh_bytes(name: str, kind: str, mesh) -> int:
+    """A cell's argument bytes per chip on ``mesh``: each leaf's local shard
+    under the rules (a vlm prefill's frontend beside its tokens)."""
+    arch, (S, B) = get_reduced(name), CELLS[kind]
+    plan = make_plan(MeshShape(*mesh), fsdp=True)
+    cfg = lm.ModelCfg(dtype=torch.bfloat16)
+    shape = InputShape(kind, S, B, kind)
+    if kind == "train":
+        p = lm.init_params(arch, torch.Generator(), torch.float32, device="meta")
+        b = specs.train_batch_specs(arch, shape, cfg)
+        return 3 * _local_bytes(plan, param_specs(arch, plan, p), p) + _local_bytes(
+            plan, batch_spec(plan, b), b)  # params, mu, nu; the batch
+    p = lm.init_params(arch, torch.Generator(), torch.bfloat16, device="meta")
+    s = (specs.prefill_specs if kind == "prefill" else specs.decode_specs)(arch, shape, cfg)
+    b = {k: s[k] for k in ("tokens", "frontend") if k in s}
+    return (_local_bytes(plan, param_specs(arch, plan, p), p)
+            + _local_bytes(plan, cache_specs(arch, plan, s["caches"]), s["caches"])
+            + _local_bytes(plan, batch_spec(plan, b), b))
+
+
+@pytest.mark.parametrize("kind", list(CELLS))
+@pytest.mark.parametrize("mesh", [MESH_4, MESH_1x4], ids=["2x2", "1x4"])
+@pytest.mark.parametrize("name", STUB_ARCHS)
+def test_an_encdec_or_vlm_four_rank_cell_splits_the_one_rank_cell(name, mesh, kind,
+                                                                  port_stub_cells):
+    one, four = port_stub_cells[(name, MESH_1, kind)], port_stub_cells[(name, mesh, kind)]
+    f1, f4 = one["roofline"]["flops_per_chip"], four["roofline"]["flops_per_chip"]
+    assert abs(4 * f4 - f1) <= FLOP_TOL_MESH * f1, (4 * f4, f1)
+    assert four["memory"]["argument_bytes"] == _mesh_bytes(name, kind, mesh)
+    coll = four["collectives"]
+    assert sum(coll["counts"].values()) > 0
+    wire = sum(jrl._wire_bytes(r["op"], r["result_bytes"], r["group_size"])
+               for r in coll["by_group_size"])
+    assert coll["wire_bytes"] == pytest.approx(wire, rel=1e-12)
+    assert four["roofline"]["chips"] == 4 and four["memory"]["fits_h100_80g"]
+
+
+def test_dense_decode_over_a_t_split_cache_splits_its_one_rank_cell(jax_stub_cells,
+                                                                    port_stub_cells):
+    """Reduced qwen3-8b's decode with ``--opt dense_decode``: the one-rank
+    cell's FLOPs equal the JAX cell's (its argument bytes but the position);
+    on (1, 4) the cache lies over T (2 kv heads), each rank's dense product
+    runs over its 16 slots, FLOPs x 4 within 1% of the one-rank cell, and
+    each layer merges its parts with three all-reduces over "model" (the
+    max, the sum of the exps, the outputs) beside the cell's others."""
+    want = jax_stub_cells[("qwen3-8b dense", "decode")]
+    one = port_stub_cells[("qwen3-8b dense", MESH_1, "decode")]
+    four = port_stub_cells[("qwen3-8b dense", MESH_1x4, "decode")]
+    assert one["opts"] == ["dense_decode"] and one["ok"] and four["ok"]
+    jf, f1 = want["roofline"]["flops_per_chip"], one["roofline"]["flops_per_chip"]
+    assert abs(f1 - jf) <= FLOP_TOL_JAX * jf and f1 == jf
+    assert (one["memory"]["argument_bytes"] + JAX_ONLY_ARG_BYTES["decode"]
+            == want["memory"]["argument_bytes"])
+    f4 = four["roofline"]["flops_per_chip"]
+    assert abs(4 * f4 - f1) <= FLOP_TOL_MESH * f1, (4 * f4, f1)
+    plain = dryrun.lower_cell(get_reduced("qwen3-8b"), InputShape("decode", *CELLS["decode"],
+                                                                  "decode"),
+                              MeshShape(*MESH_1x4), device="cpu")
+    extra = four["collectives"]["counts"]["all-reduce"] - plain["collectives"]["counts"].get(
+        "all-reduce", 0)
+    assert extra == get_reduced("qwen3-8b").num_layers  # 3 a layer against the flash merge's 2

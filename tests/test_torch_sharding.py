@@ -42,7 +42,21 @@ against the JAX package's, on the CPU.
     granite state saved from the (2, 2) mesh (experts over "data" and
     "model") restores onto it leaf for leaf. Granite's block on 3 rows over
     "data" of 2 (blocks of 2 and 1 rows) is the unsharded block, output and
-    grads; make_train_step refuses microbatches the batch axes do not divide.
+    grads.
+(g) The encdec and vlm families: reduced whisper-tiny (its encoder over
+    frames, cross-attention on each rank's q heads) and pixtral-12b (a
+    frontend of 8 embeddings in front of the text, the loss over the text
+    positions), their stub inputs placed by ``batch_spec`` as the tokens:
+    the (2, 2) step against the JAX single-device step (1e-4, 1e-3) and the
+    unsharded port (1e-5, K = 1 and 2), every grad leaf within 1e-5, and the
+    weight grads of the attention and cross-attention products handed back
+    split over "model" as their params are. A whisper state (its encoder and
+    cross leaves) saved from the (2, 2) mesh restores onto it leaf for leaf.
+(h) K = 2 microbatches of 3 rows, which "data" of 2 does not divide: each
+    stays whole over "data" (every data rank runs its rows) and the step
+    equals the unsharded step (1e-5) for reduced yi-6b, whisper-tiny and
+    granite-moe-3b-a800m, whose MoE block routes such rows as one group and
+    drops what the unsharded step drops.
 (c) An elastic restart: two steps on (4, 1), a save, a restore onto (2, 2)
     with placements, two more: the loss within 1e-4 of four steps in one
     run; rank 0 alone copies the state to the host; the checkpoint restores
@@ -199,6 +213,8 @@ def test_act_shard_and_batch_axes_are_accepted():
 
 ARCHS = ("yi-6b", "qwen3-8b")
 SSM_ARCHS = ("mamba2-370m", "hymba-1.5b")
+STUB_ARCHS = ("whisper-tiny", "pixtral-12b")
+UNEVEN = ("yi-6b", "whisper-tiny", "granite-moe-3b-a800m")
 # label -> (arch, fields of its reduced config replaced, FSDP)
 MOE_CASES = {
     "granite-moe-3b-a800m": ("granite-moe-3b-a800m", {}, True),  # 8 experts over data 2
@@ -236,9 +252,32 @@ def _case(name, seed=0, B=8, S=None):
     return jarch, jparams, tokens
 
 
+def _extra(name, B=8, seed=0) -> dict:
+    """The family's stub inputs as numpy f32: an encdec model's frames, a vlm
+    model's frontend embeddings in front of the text."""
+    jarch = _arch_of(name)[0]
+    rng = np.random.default_rng(seed + 100)
+    if jarch.family == "encdec":
+        x = {"enc_features": rng.standard_normal((B, jarch.encoder_seq, jarch.hidden))}
+    elif jarch.family == "vlm":
+        x = {"frontend": rng.standard_normal((B, jarch.frontend_seq, jarch.hidden))}
+    else:
+        x = {}
+    return {k: v.astype(np.float32) for k, v in x.items()}
+
+
+def _batch(name, tokens, seed=0) -> dict:
+    """The port's batch: the tokens and the family's stub inputs."""
+    batch = {"tokens": torch.from_numpy(tokens).long()}
+    batch.update({k: torch.from_numpy(v) for k, v in _extra(name, len(tokens), seed).items()})
+    return batch
+
+
 def _rank_case(label):
     name, over, fsdp = MOE_CASES.get(label, (label, {}, True))
     opts = {"label": label, "arch": over, "fsdp": fsdp} if label != name or not fsdp else {}
+    if _extra(label):
+        opts["extra"] = _extra(label)
     return (name, *_case(label)[1:]) + ((opts,) if opts else ())
 
 
@@ -260,20 +299,27 @@ def _kept_case():
 
 def _uneven_case():
     """Reduced granite's params, an input x (3, 32, d) and a cotangent for
-    its MoE block, and a batch of 6 rows."""
-    _, jparams, tokens = _case("granite-moe-3b-a800m", B=6)
+    its MoE block."""
+    _, jparams, _ = _case("granite-moe-3b-a800m")
     rng = np.random.default_rng(11)
     x = rng.standard_normal((3, 32, jax_reduced("granite-moe-3b-a800m").hidden))
-    return jparams, x.astype(np.float32), rng.standard_normal(x.shape).astype(np.float32), tokens
+    return jparams, x.astype(np.float32), rng.standard_normal(x.shape).astype(np.float32)
+
+
+def _uneven_step_case(name):
+    """Params, a batch of 6 rows and its stub inputs: K = 2 microbatches of 3."""
+    _, jparams, tokens = _case(name, B=6)
+    return name, jparams, tokens, _extra(name, B=6)
 
 
 @pytest.fixture(scope="module")
 def sharded_steps(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("steps")
-    cases = [_rank_case(label) for label in ARCHS + SSM_ARCHS + MOE]
+    cases = [_rank_case(label) for label in ARCHS + SSM_ARCHS + MOE + STUB_ARCHS]
     torch_ranks.run_ranks(torch_ranks.train_step_program, 4, tmp, str(tmp / "out.pt"), cases,
                           [(shape, axes, tuple(spec)) for shape, axes, spec in ORDER_CASES],
-                          str(tmp / "ckpt"), _kept_case(), _uneven_case(), timeout=240)
+                          str(tmp / "ckpt"), _kept_case(), _uneven_case(),
+                          [_uneven_step_case(name) for name in UNEVEN], timeout=300)
     return torch.load(tmp / "out.pt", weights_only=False)
 
 
@@ -284,28 +330,31 @@ def _max_err(got: dict, want: dict) -> float:
                for k in w)
 
 
-@pytest.mark.parametrize("name", ARCHS + SSM_ARCHS + MOE)
+@pytest.mark.parametrize("name", ARCHS + SSM_ARCHS + MOE + STUB_ARCHS)
 def test_sharded_step_matches_the_jax_step(name, sharded_steps):
     jarch, jparams, tokens = _case(name)
     step = jax.jit(jstep.make_train_step(jarch, JCFG, jstep.TrainStepCfg()))
-    p1, _, m1 = step(jparams, jopt.adamw_init(jparams), {"tokens": jnp.asarray(tokens)})
+    batch = {"tokens": jnp.asarray(tokens), **{k: jnp.asarray(v)
+                                               for k, v in _extra(name).items()}}
+    p1, _, m1 = step(jparams, jopt.adamw_init(jparams), batch)
     got = sharded_steps[(name, 1)]
     assert abs(got["loss"] - float(m1["loss"])) < LOSS_TOL
     assert _max_err(got["params"], jax.device_get(p1)) < PARAM_TOL
     assert got["kept_placements"]
 
 
-def _port_step(name, K):
-    _, jparams, tokens = _case(name)
+def _port_step(name, K, B=8):
+    _, jparams, tokens = _case(name, B=B)
     arch = _arch_of(name)[1]
     params = params_from_numpy(jparams, device="cpu")
     step = make_train_step(arch, CFG, TrainStepCfg(num_microbatches=K))
-    params, _, m = step(params, adamw_init(params), {"tokens": torch.from_numpy(tokens).long()})
-    return params, m
+    with torch_ranks._Drops() as drops:
+        params, _, m = step(params, adamw_init(params), _batch(name, tokens))
+    return params, dict(m, drops=drops.n)
 
 
 @pytest.mark.parametrize("K", [1, 2], ids=["K1", "K2-batch_axes"])
-@pytest.mark.parametrize("name", ARCHS + SSM_ARCHS + MOE)
+@pytest.mark.parametrize("name", ARCHS + SSM_ARCHS + MOE + STUB_ARCHS)
 def test_sharded_step_matches_the_unsharded_port(name, K, sharded_steps):
     params, m = _port_step(name, K)
     got = sharded_steps[(name, K)]
@@ -335,18 +384,29 @@ def _unsharded_grads(name):
             node = node.setdefault(part, {})
         node[last] = v
     with torch_ranks._Drops() as drops:  # counts in moe.global_route, as on the ranks
-        loss, _ = lm.forward_train(tree, arch, CFG, {"tokens": torch.from_numpy(tokens).long()})
+        loss, _ = lm.forward_train(tree, arch, CFG, _batch(name, tokens))
     return dict(zip(params, torch.autograd.grad(loss, list(params.values())))), drops.n
 
 
-@pytest.mark.parametrize("name", SSM_ARCHS + MOE)
+# the weight grads that must come back split over "model" as their params are
+SPLIT_GRADS = {"moe": ("layers/moe/wi", "layers/moe/wo"),
+               "ssm": ("layers/ssm/in_proj", "layers/ssm/conv_w", "layers/ssm/out_proj"),
+               "encdec": ("layers/attn/wqkv", "layers/attn/wo", "layers/cross/wq",
+                          "layers/cross/wkv", "layers/cross/wo", "encoder/layers/attn/wqkv",
+                          "encoder/layers/attn/wo"),
+               "vlm": ("layers/attn/wqkv", "layers/attn/wo", "layers/mlp/wi", "layers/mlp/wo")}
+SPLIT_GRADS["hybrid"] = SPLIT_GRADS["ssm"]
+
+
+@pytest.mark.parametrize("name", SSM_ARCHS + MOE + STUB_ARCHS)
 def test_sharded_grads_match_the_unsharded_port(name, sharded_steps):
     """Every grad leaf of the loss at the first step's params, made whole,
     within 1e-5 of the unsharded port's (relative to the leaf's largest);
-    the weight grads of in_proj, conv_w and out_proj (ssm, hybrid) and of
-    the experts' wi and wo (moe) come back from the backward split over
-    "model" as their params are (no rank computes the whole weight grad),
-    over "data" split as their params are or partial sums."""
+    the weight grads of in_proj, conv_w and out_proj (ssm, hybrid), of the
+    experts' wi and wo (moe), and of the attention's and cross-attention's
+    products (encdec, vlm) come back from the backward split over "model"
+    as their params are (no rank computes the whole weight grad), over
+    "data" split as their params are or partial sums."""
     from torch.distributed.tensor import Partial
 
     want, _ = _unsharded_grads(name)
@@ -355,10 +415,8 @@ def test_sharded_grads_match_the_unsharded_port(name, sharded_steps):
         w = w.numpy()
         rel = np.abs(got[k] - w).max() / (np.abs(w).max() + 1e-30)
         assert rel <= PORT_TOL, (k, rel)
-    leaves = (("moe/wi", "moe/wo") if _arch_of(name)[1].family == "moe"
-              else ("ssm/in_proj", "ssm/conv_w", "ssm/out_proj"))
-    for leaf in leaves:
-        grad, param = placed[f"layers/{leaf}"]
+    for leaf in SPLIT_GRADS[_arch_of(name)[1].family]:
+        grad, param = placed[leaf]
         data, model = 0, 1  # the mesh's dims
         assert grad[model] == param[model] and param[model].is_shard(), (leaf, grad, param)
         assert grad[data] in (param[data], Partial()), (leaf, grad, param)
@@ -392,12 +450,14 @@ def test_an_uneven_block_of_rows_keeps_the_global_capacity(sharded_steps):
     of 2: the data ranks hold 2 and 1 rows (64 and 32 tokens). C comes from
     x's 96 tokens and the aux loss's means run over them, so the output, the
     aux loss, ``sum(y * cot) + aux`` and every grad are the unsharded
-    block's (1e-5), where that block drops. make_train_step refuses K = 2
-    microbatches of 3 rows over "data": DTensor cannot flatten blocks of
-    unequal size in the model's first product, whatever the family."""
+    block's (1e-5), where that block drops. make_train_step, which cannot
+    hand the model such blocks (DTensor cannot flatten blocks of unequal
+    size in the model's first product, whatever the family), keeps K = 2
+    microbatches of 3 rows whole over "data", and its step equals the
+    unsharded step."""
     from repro_torch.models import moe
 
-    jparams, x, cot, _ = _uneven_case()
+    jparams, x, cot = _uneven_case()
     got = sharded_steps["uneven"]
     assert got["rows"] == [32, 64]
     arch = get_reduced("granite-moe-3b-a800m")
@@ -417,7 +477,28 @@ def test_an_uneven_block_of_rows_keeps_the_global_capacity(sharded_steps):
         assert np.abs(g - w).max() <= PORT_TOL * np.abs(w).max(), k
     assert got["aux"] == pytest.approx(float(aux.detach()), rel=PORT_TOL)
     assert got["loss"] == pytest.approx(float(loss.detach()), rel=PORT_TOL)
-    assert got["refused"] == "2 microbatches of 3 rows do not split over ('data',) (2 ranks)"
+    # make_train_step runs K = 2 microbatches of 3 rows whole over "data"
+    _same_as_the_unsharded_step("granite-moe-3b-a800m", sharded_steps)
+
+
+def _same_as_the_unsharded_step(name, sharded_steps):
+    """The (2, 2) step of K = 2 microbatches of 3 rows against the unsharded
+    port's step (loss and every param, 1e-5 relative); the moe block drops
+    what the unsharded block drops."""
+    params, m = _port_step(name, 2, B=6)
+    got = sharded_steps[("uneven", name)]
+    assert abs(got["loss"] - float(m["loss"])) <= PORT_TOL * abs(float(m["loss"]))
+    for k, w in ((k, v.numpy()) for k, v in _flat(params).items()):
+        rel = np.abs(got["params"][k] - w).max() / (np.abs(w).max() + 1e-30)
+        assert rel <= PORT_TOL, (k, rel)
+    if _arch_of(name)[1].family == "moe":  # each rank routes every row of a microbatch
+        assert m["drops"] > 0 and got["drops"] == m["drops"]
+        assert got["rows"] == [3 * 32]
+
+
+@pytest.mark.parametrize("name", UNEVEN)
+def test_an_uneven_microbatch_equals_the_unsharded_step(name, sharded_steps):
+    _same_as_the_unsharded_step(name, sharded_steps)
 
 
 def test_the_kept_mask_is_the_global_programs(sharded_steps):
@@ -444,6 +525,14 @@ def test_the_kept_mask_is_the_global_programs(sharded_steps):
 def test_a_sharded_mamba2_state_round_trips_through_a_checkpoint(sharded_steps):
     got = sharded_steps[("ckpt", "mamba2-370m")]
     assert got["same_placements"] and got["equal"] and got["leaves"] > 0
+
+
+def test_a_sharded_whisper_state_round_trips_through_a_checkpoint(sharded_steps):
+    """whisper's state, its encoder and cross subtrees among the leaves."""
+    got = sharded_steps[("ckpt", "whisper-tiny")]
+    assert got["same_placements"] and got["equal"] and got["leaves"] > 0
+    assert {"encoder/layers/attn/wqkv", "encoder/final_norm", "layers/cross/wkv",
+            "layers/ln_cross"} <= set(got["names"])
 
 
 def test_a_sharded_granite_state_round_trips_through_a_checkpoint(sharded_steps):

@@ -444,20 +444,37 @@ def one_rank_mesh():
 
 def test_train_step_refuses_sharding_knobs(one_rank_mesh):
     """``batch_axes`` is taken, as the JAX package's; a batch axis the mesh
-    lacks, and a family that the port does not shard, are refused."""
+    lacks is refused. Every family is sharded: pixtral-12b's step (its
+    frontend placed by ``batch_spec`` beside the tokens) runs on the
+    one-rank mesh, K = 2 with ``batch_axes``, and equals the plain step."""
+    from torch.distributed.tensor import DTensor
+
     from repro_torch.parallel.sharding import batch_spec, distribute, make_plan, named, param_specs
 
     assert TrainStepCfg(batch_axes=("data",)).batch_axes == ("data",)
     plan = make_plan(one_rank_mesh)
-    for name, cfg, err in (("qwen3-8b", TrainStepCfg(num_microbatches=2, batch_axes=("pod",)),
-                            ValueError),
-                           ("pixtral-12b", TrainStepCfg(), NotImplementedError)):
+    for name, cfg in (("qwen3-8b", TrainStepCfg(num_microbatches=2, batch_axes=("pod",))),
+                      ("pixtral-12b", TrainStepCfg(num_microbatches=2, batch_axes=("data",)))):
         _, arch, _, params, toks = _setup(name, B=2, S=8)
-        params = distribute(params, named(plan, param_specs(arch, plan, params)))
         batch = {"tokens": torch.from_numpy(toks).long()}
-        batch = distribute(batch, named(plan, batch_spec(plan, batch)))
-        with pytest.raises(err):
-            make_train_step(arch, CFG, cfg)(params, adamw_init(params), batch)
+        if arch.frontend_stub:
+            batch["frontend"] = torch.randn((2, arch.frontend_seq, arch.hidden),
+                                            generator=torch.Generator().manual_seed(1))
+        placed = distribute(params, named(plan, param_specs(arch, plan, params)))
+        placed_batch = distribute(batch, named(plan, batch_spec(plan, batch)))
+        step = make_train_step(arch, CFG, cfg)
+        if name == "qwen3-8b":
+            with pytest.raises(ValueError):
+                step(placed, adamw_init(placed), placed_batch)
+            continue
+        # the steps update in place, and a one-rank shard may be the leaf itself
+        want, _, m = step(_clone(params), adamw_init(params), batch)
+        got, _, mg = step(placed, adamw_init(placed), placed_batch)
+        assert float(mg["loss"]) == pytest.approx(float(m["loss"]), rel=1e-6)
+        for k, w in _flat(want).items():
+            g = _flat(got)[k]
+            assert isinstance(g, DTensor)
+            torch.testing.assert_close(g.full_tensor(), w, rtol=0, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,11 @@ FSDP sums each grad over the ranks in another order, and AdamW's first steps
 scale every element's grad to about one, so an element whose grad is near
 zero carries that rounding into its update (1.8e-5 of 0.19 was read).
 The same for ``--arch granite-moe-3b-a800m --reduced`` (its experts over
-"data", the MoE dispatch's capacity from the global batch): the losses equal
-the one-process run's.
+"data", the MoE dispatch's capacity from the global batch), and for
+``--arch whisper-tiny`` and ``--arch pixtral-12b --reduced``, whose stub
+inputs (frames, frontend embeddings) each rank draws from the step and
+places by ``batch_spec`` as the tokens: the losses equal the one-process
+run's.
 """
 import json
 import os
@@ -90,7 +93,18 @@ def test_moe_driver_under_torchrun_matches_one_process(capsys):
     experts over "data" of 2, the dispatch's capacity from the global batch.
     The losses equal the one-process run's (1e-5 relative on the result
     line, every printed step's to its 4 decimals)."""
-    argv = ["--arch", "granite-moe-3b-a800m", "--reduced", "--steps", "6", "--batch", "8",
+    _matches_one_process("granite-moe-3b-a800m", capsys)
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "pixtral-12b"])
+def test_stub_input_drivers_under_torchrun_match_one_process(arch, capsys):
+    """The encdec and vlm families on 2 gloo ranks, their stub inputs over
+    "data" as the tokens: the losses equal the one-process run's."""
+    _matches_one_process(arch, capsys)
+
+
+def _matches_one_process(arch: str, capsys):
+    argv = ["--arch", arch, "--reduced", "--steps", "6", "--batch", "8",
             "--seq", "32", "--device", "cpu", "--log-every", "1"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
     res = subprocess.run(

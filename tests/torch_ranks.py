@@ -60,15 +60,24 @@ def _flat(tree, prefix=""):
     return {prefix[:-1]: tree}
 
 
-def _placed(arch, plan, params_np, tokens):
-    """The params (from numpy) and a token batch as DTensors on ``plan``."""
+def _placed(arch, plan, params_np, tokens, extra=None):
+    """The params (from numpy) and a batch of tokens and ``extra``'s stub
+    inputs (numpy: an encdec model's ``enc_features``, a vlm model's
+    ``frontend``) as DTensors on ``plan``."""
+    from repro_torch.parallel.sharding import batch_spec, distribute, named
+
+    params = _placed_params(arch, plan, params_np)
+    batch = {"tokens": torch.from_numpy(tokens).long()}
+    batch.update({k: torch.from_numpy(v) for k, v in (extra or {}).items()})
+    return params, distribute(batch, named(plan, batch_spec(plan, batch)))
+
+
+def _placed_params(arch, plan, params_np):
     from repro_torch.models.convert import params_from_numpy
-    from repro_torch.parallel.sharding import batch_spec, distribute, named, param_specs
+    from repro_torch.parallel.sharding import distribute, named, param_specs
 
     params = params_from_numpy(params_np, device="cpu")
-    params = distribute(params, named(plan, param_specs(arch, plan, params)))
-    batch = {"tokens": torch.from_numpy(tokens).long()}
-    return params, distribute(batch, named(plan, batch_spec(plan, batch)))
+    return distribute(params, named(plan, param_specs(arch, plan, params)))
 
 
 def _full(tree) -> dict:
@@ -142,21 +151,25 @@ def _global_drops(mesh, n: int) -> int:
 
 
 def train_step_program(rank, world, out, cases, order_cases, ckpt_dir=None, kept_case=None,
-                       uneven_case=None):
+                       uneven_case=None, uneven_steps=()):
     """On a (2, 2) data x model mesh with FSDP (``opts["fsdp"]`` False: without):
     per case (arch name, params, tokens[, opts]), one make_train_step step,
     then one of K = 2 microbatches with batch_axes; the inputs K1 was handed,
     each with what K1's ``_plan`` made of it; the loss's grads at the first
     step's params (``_grads``) and, for the moe family, the assignments
     their forward dropped over all ranks. ``opts``: "label" (the results'
-    key, default the name), "arch" (fields of the reduced config to replace)
-    and "fsdp". Then the shards the ranks hold of an arange under each (mesh
-    shape, axes, spec) of ``order_cases``, by rank; with ``ckpt_dir``, the
-    mamba2 and granite cases' states after a step saved there and restored
-    with their placements (``_ckpt_round_trip``); with ``kept_case``, the
-    global dispatch on a (4, 1) mesh (``_kept_on_ranks``); with
-    ``uneven_case``, granite's MoE block on rows the data ranks hold unequal
-    blocks of (``_uneven_moe_on_ranks``). Rank 0 saves the results."""
+    key, default the name), "arch" (fields of the reduced config to replace),
+    "fsdp" and "extra" (the stub inputs, numpy, placed as the tokens). Then
+    the shards the ranks hold of an arange under each (mesh shape, axes,
+    spec) of ``order_cases``, by rank; with ``ckpt_dir``, the mamba2 and
+    granite cases' states after a step saved there and restored with their
+    placements, and whisper's (its encoder and cross leaves among them)
+    (``_ckpt_round_trip``); with ``kept_case``, the global dispatch on a (4,
+    1) mesh (``_kept_on_ranks``); with ``uneven_case``, granite's MoE block
+    on rows the data ranks hold unequal blocks of (``_uneven_moe_on_ranks``);
+    per ``uneven_steps`` entry (arch name, params, tokens, extra), one step
+    of K = 2 microbatches that "data" does not divide (``_uneven_step``).
+    Rank 0 saves the results."""
     import torch.distributed as dist
 
     from repro_torch.kernels import ops, rmsnorm
@@ -185,7 +198,8 @@ def train_step_program(rank, world, out, cases, order_cases, ckpt_dir=None, kept
         label = opts.get("label", name)
         arch = _arch(name, opts)
         plan = make_plan(mesh, fsdp=opts.get("fsdp", True))
-        params, batch = _placed(arch, plan, params_np, tokens)
+        extra = opts.get("extra")
+        params, batch = _placed(arch, plan, params_np, tokens, extra)
         with _Drops() as drops:
             results[(label, "grads")] = _grads(arch, cfg, params, batch)
         if arch.family == "moe":
@@ -194,7 +208,7 @@ def train_step_program(rank, world, out, cases, order_cases, ckpt_dir=None, kept
             seen.clear()
             step = make_train_step(arch, cfg, TrainStepCfg(num_microbatches=K,
                                                            batch_axes=plan.batch_axes))
-            params, batch = _placed(arch, plan, params_np, tokens)
+            params, batch = _placed(arch, plan, params_np, tokens, extra)
             opt = adamw_init(params)
             placed = {k: v.placements for k, v in _flat(params).items()}
             params, opt, m = step(params, opt, batch)
@@ -218,14 +232,20 @@ def train_step_program(rank, world, out, cases, order_cases, ckpt_dir=None, kept
     if ckpt_dir is not None:
         plan = make_plan(mesh, fsdp=True)
         for name, params_np, tokens, *more in cases:
-            if name in ("mamba2-370m", "granite-moe-3b-a800m") and not more:
+            opts = more[0] if more else {}
+            if name in ("mamba2-370m", "granite-moe-3b-a800m", "whisper-tiny") and set(
+                    opts) <= {"extra"}:
                 results[("ckpt", name)] = _ckpt_round_trip(
-                    _arch(name, {}), cfg, plan, params_np, tokens, f"{ckpt_dir}/{name}")
+                    _arch(name, {}), cfg, plan, params_np, tokens, f"{ckpt_dir}/{name}",
+                    opts.get("extra"))
     if kept_case is not None:
         results["kept"] = _kept_on_ranks(*kept_case)
     if uneven_case is not None:
         results["uneven"] = _uneven_moe_on_ranks(mesh, make_plan(mesh, fsdp=True), cfg,
                                                  *uneven_case)
+    for name, params_np, tokens, extra in uneven_steps:
+        results[("uneven", name)] = _uneven_step(make_plan(mesh, fsdp=True), cfg, name,
+                                                 params_np, tokens, extra)
     if rank == 0:
         torch.save(results, out)
 
@@ -258,22 +278,38 @@ def _kept_on_ranks(router_np, x_np, top_k, capacity_factor) -> dict:
             "counts": [c for _, c in every], "C": C}
 
 
-def _uneven_moe_on_ranks(mesh, plan, cfg, params_np, x_np, cot_np, tokens) -> dict:
+def _uneven_step(plan, cfg, name, params_np, tokens, extra) -> dict:
+    """One make_train_step step of K = 2 microbatches of ``tokens``'s rows
+    (6: 3 a microbatch, which "data" of 2 does not divide) with batch_axes:
+    the loss, the params made whole, and the assignments this rank's MoE
+    dispatch dropped and the token counts it was handed (every rank routes
+    all rows of such a microbatch)."""
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import TrainStepCfg, make_train_step
+
+    arch = _arch(name, {})
+    params, batch = _placed(arch, plan, params_np, tokens, extra)
+    step = make_train_step(arch, cfg, TrainStepCfg(num_microbatches=2,
+                                                   batch_axes=plan.batch_axes))
+    with _Drops() as drops:
+        params, _, m = step(params, adamw_init(params), batch)
+    return {"loss": float(m["loss"]), "params": _full(params), "drops": drops.n,
+            "rows": sorted(drops.rows)}
+
+
+def _uneven_moe_on_ranks(mesh, plan, cfg, params_np, x_np, cot_np) -> dict:
     """Reduced granite's layer-0 MoE block and aux loss on the (2, 2) mesh,
     x (3, S, d) over "data" as blocks of 2 and 1 rows: the output, the loss
     ``sum(y * cot) + aux`` and its grads made whole, and the token counts
-    the ranks' dispatch was handed. Then K = 2 microbatches of ``tokens``'s
-    6 rows through make_train_step: the ValueError it raises, or None."""
+    the ranks' dispatch was handed."""
     import torch.distributed as dist
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch.configs import get_reduced
     from repro_torch.models import lm, moe
-    from repro_torch.train.optimizer import adamw_init
-    from repro_torch.train.train_step import TrainStepCfg, make_train_step
 
     arch = get_reduced("granite-moe-3b-a800m")
-    params, batch = _placed(arch, plan, params_np, tokens)
+    params = _placed_params(arch, plan, params_np)
     p = {k: v.detach().requires_grad_()
          for k, v in lm._layer(params["layers"], 0)["moe"].items()}
     rows = (Shard(0), Replicate())
@@ -286,24 +322,17 @@ def _uneven_moe_on_ranks(mesh, plan, cfg, params_np, x_np, cot_np, tokens) -> di
     grads = torch.autograd.grad(loss, [x, *p.values()])
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, drops.rows)
-    step = make_train_step(arch, cfg, TrainStepCfg(num_microbatches=2,
-                                                   batch_axes=plan.batch_axes))
-    try:
-        step(params, adamw_init(params), batch)
-        refused = None
-    except ValueError as e:
-        refused = str(e)
     return {"y": y.full_tensor().detach().numpy(), "loss": float(loss.detach().full_tensor()),
             "aux": float(aux.detach().full_tensor()),
             "grads": {k: g.full_tensor().numpy() for k, g in zip(names, grads)},
-            "rows": sorted(set().union(*every)), "refused": refused}
+            "rows": sorted(set().union(*every))}
 
 
-def _ckpt_round_trip(arch, cfg, plan, params_np, tokens, ckpt_dir) -> dict:
+def _ckpt_round_trip(arch, cfg, plan, params_np, tokens, ckpt_dir, extra=None) -> dict:
     """One step's params and AdamW state as DTensors through
     ``CheckpointManager.save`` and ``restore(shardings=)`` onto the same
-    placements: whether every rank's local shards came back equal, and the
-    restored expert leaves' placements (moe)."""
+    placements: whether every rank's local shards came back equal, the
+    restored expert leaves' placements (moe) and the restored leaves' names."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import CheckpointManager
@@ -312,7 +341,7 @@ def _ckpt_round_trip(arch, cfg, plan, params_np, tokens, ckpt_dir) -> dict:
     from repro_torch.train import TrainStepCfg, adamw_init, make_train_step
 
     step = make_train_step(arch, cfg, TrainStepCfg(batch_axes=plan.batch_axes))
-    params, batch = _placed(arch, plan, params_np, tokens)
+    params, batch = _placed(arch, plan, params_np, tokens, extra)
     params, opt, _ = step(params, adamw_init(params), batch)
     mgr = CheckpointManager(ckpt_dir)
     mgr.save(1, {"params": params, "opt": opt}, blocking=True)
@@ -333,7 +362,8 @@ def _ckpt_round_trip(arch, cfg, plan, params_np, tokens, ckpt_dir) -> dict:
     return {"same_placements": all(s for s, _ in every), "equal": all(e for _, e in every),
             "leaves": sum(len(want) for _, want in pairs),
             "expert_placements": [tuple(restored[k].placements)
-                                  for k in ("layers/moe/wi", "layers/moe/wo") if k in restored]}
+                                  for k in ("layers/moe/wi", "layers/moe/wo") if k in restored],
+            "names": sorted(restored)}
 
 
 def elastic_program(rank, world, out, ckpt_dir, params_np, token_batches):
@@ -476,47 +506,57 @@ def cached_program(rank, world, out, mesh_shape, cases, chunk_case):
     """On a ``mesh_shape`` data x model mesh with FSDP, params, caches and
     tokens as DTensors placed by param_specs, cache_specs and batch_spec.
     Per case (label, arch name, params, prompts, new tokens N, max_len,
-    ModelCfg options): the prefill and N greedy decode steps, each step's
-    logits made whole, the tokens, and the caches' placements; or the error
-    the cached path raised. Then, where given, chunk_case (params, P0, C,
-    max_len, tokens) for reduced yi-6b: a prefill of P0 tokens and a chunk
-    of C more from position P0, each rank's local k shard after each; and
-    the error a family the port does not shard raises. Rank 0 saves the
+    ModelCfg options[, stub inputs]): the prefill and N greedy decode steps,
+    each step's logits made whole, the tokens, and the caches' placements;
+    or the error the cached path raised. The stub inputs (numpy, placed by
+    batch_spec): an encdec model's ``enc_features``, which ``init_caches``
+    encodes on the DTensor params into a cache it places itself, and a vlm
+    model's ``frontend``, in front of the prompts (decode then starts at F +
+    P). Then, where given, chunk_case (params, P0, C, max_len, tokens) for
+    reduced yi-6b: a prefill of P0 tokens and a chunk of C more from position
+    P0, each rank's local k shard after each; and reduced pixtral-12b's
+    prefill of 4 tokens behind a frontend of its F from ``init_params`` and
+    ``torch.randn`` of seed 0, its logits made whole. Rank 0 saves the
     results."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_reduced
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import lm
-    from repro_torch.models.convert import params_from_numpy
-    from repro_torch.parallel.sharding import (batch_spec, cache_specs, distribute, make_plan,
-                                               named, param_specs)
+    from repro_torch.parallel.sharding import batch_spec, distribute, make_plan, named, param_specs
 
     plan = make_plan(make_mesh(mesh_shape, ("data", "model"), "cpu"), fsdp=True)
 
-    def placed(arch, cfg, params_np, B, T):
-        params = params_from_numpy(params_np, device="cpu")
-        params = distribute(params, named(plan, param_specs(arch, plan, params)))
-        caches = lm.init_caches(arch, cfg, B, T, device="cpu")
-        return params, distribute(caches, named(plan, cache_specs(arch, plan, caches)))
+    def place(**xs):
+        xs = {k: torch.as_tensor(v) for k, v in xs.items()}
+        return distribute(xs, named(plan, batch_spec(plan, xs)))
 
     def tokens(t):
-        t = torch.as_tensor(t).long()
-        return distribute({"tokens": t}, named(plan, batch_spec(plan, {"tokens": t})))["tokens"]
+        return place(tokens=torch.as_tensor(t).long())["tokens"]
+
+    def caches_for(arch, cfg, params, B, T, extra):
+        """On DTensor params init_caches places every leaf, an encdec model's
+        cross K/V from its frames encoded on them."""
+        feats = place(**extra)["enc_features"] if "enc_features" in extra else None
+        return lm.init_caches(arch, cfg, B, T, params=params, enc_features=feats)
 
     results = {}
-    for label, name, params_np, prompts, N, T, opts in cases:
+    for label, name, params_np, prompts, N, T, opts, *more in cases:
+        extra = more[0] if more else {}
         arch = get_reduced(name)
         cfg = lm.ModelCfg(dtype=torch.float32, **opts)
-        params, caches = placed(arch, cfg, params_np, prompts.shape[0], T)
+        params = _placed_params(arch, plan, params_np)
+        caches = caches_for(arch, cfg, params, prompts.shape[0], T, extra)
+        frontend = place(**extra)["frontend"] if "frontend" in extra else None
+        F = 0 if frontend is None else frontend.shape[1]
         try:
-            logits, _ = lm.prefill(params, arch, cfg, caches, tokens(prompts))
+            logits, _ = lm.prefill(params, arch, cfg, caches, tokens(prompts), frontend=frontend)
             steps = [logits.full_tensor().numpy()]
             nxt = logits.full_tensor()[:, -1].argmax(-1, keepdim=True)
             seq = [torch.as_tensor(prompts).long(), nxt]
             for i in range(N):
                 logits, _ = lm.decode_step(params, arch, cfg, caches, tokens(nxt),
-                                           prompts.shape[1] + i)
+                                           F + prompts.shape[1] + i)
                 steps.append(logits.full_tensor().numpy())
                 nxt = logits.full_tensor()[:, -1].argmax(-1, keepdim=True)
                 seq.append(nxt)
@@ -529,7 +569,8 @@ def cached_program(rank, world, out, mesh_shape, cases, chunk_case):
         params_np, P0, C, T, toks = chunk_case
         arch = get_reduced("yi-6b")
         cfg = lm.ModelCfg(dtype=torch.float32)
-        params, caches = placed(arch, cfg, params_np, toks.shape[0], T)
+        params = _placed_params(arch, plan, params_np)
+        caches = caches_for(arch, cfg, params, toks.shape[0], T, {})
         shards = []
         lm.prefill(params, arch, cfg, caches, tokens(toks[:, :P0]))
         for start, chunk in ((None, None), (P0, toks[:, P0:P0 + C])):
@@ -544,11 +585,12 @@ def cached_program(rank, world, out, mesh_shape, cases, chunk_case):
         vlm = get_reduced("pixtral-12b")
         vlm_params = lm.init_params(vlm, torch.Generator().manual_seed(0), torch.float32, "cpu")
         vlm_params = distribute(vlm_params, named(plan, param_specs(vlm, plan, vlm_params)))
-        try:
-            lm.prefill(vlm_params, vlm, cfg, lm.init_caches(vlm, cfg, 2, 16, device="cpu"),
-                       tokens(torch.zeros((2, 4), dtype=torch.long)))
-            results["unsharded_family"] = None
-        except NotImplementedError as e:
-            results["unsharded_family"] = str(e)
+        front = torch.randn((2, vlm.frontend_seq, vlm.hidden),
+                            generator=torch.Generator().manual_seed(0))
+        logits, _ = lm.prefill(vlm_params, vlm, cfg,
+                               caches_for(vlm, cfg, vlm_params, 2, 16, {}),
+                               tokens(torch.zeros((2, 4), dtype=torch.long)),
+                               frontend=place(frontend=front)["frontend"])
+        results["vlm_prefill"] = logits.full_tensor().numpy()
     if rank == 0:
         torch.save(results, out)
