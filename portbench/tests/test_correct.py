@@ -1,0 +1,67 @@
+"""``correct`` comes out false for the control and for each fault the cells
+can have, under the cells' own limits, while a sound run at the same small
+size passes them: whole runs on the CPU (the look for a card skipped), with
+the timed path broken underneath."""
+import pytest
+import torch
+
+from portbench.drivers import serve, train
+from portbench.harness import faults, runtime as rt
+from portbench.harness.compare import train_numbers, verdict
+from portbench.harness.traffic import sample, serve_prompts, train_pool
+from portbench.harness.weights import make_weights
+from portbench.tests.cells import DENSE, WIDER, serve_cell, train_cell
+
+CPU = torch.device("cpu")
+SEED = 2 ** 31 + 101
+TRAIN = [(DENSE, "train.yi-6b.s2048")]
+
+
+@pytest.mark.parametrize("config,cell", TRAIN, ids=["dense"])
+@pytest.mark.parametrize("fault", [None, *faults.TRAIN])
+def test_train_run(config, cell, fault):
+    c = train_cell(config, checks=cell)
+    if fault is None:
+        out = train.run(c, SEED, 0.2, False, CPU, rt.now())
+    else:
+        with faults.TRAIN[fault]():
+            out = train.run(c, SEED, 0.2, False, CPU, rt.now())
+    ok, checks = verdict(out["numbers"], c.checks)
+    assert ok == (fault is None), checks
+
+
+@pytest.mark.parametrize("config,cell", TRAIN, ids=["dense"])
+def test_train_control(config, cell):
+    c = train_cell(config, checks=cell)
+    tokens = [b["tokens"] for b in train_pool(c.mix, c.shape.vocab, SEED, CPU)[:3]]
+    want = train.reference(c, SEED, tokens, CPU)
+    got = train.reference(c, SEED, tokens, CPU, prec="fp8")
+    ok, checks = verdict(train_numbers(got, want), c.checks)
+    assert not ok, checks
+
+
+@pytest.mark.parametrize("fault", [None, *faults.SERVE])
+def test_serve_run(fault):
+    c = serve_cell()
+    if fault is None:
+        out = serve.run(c, SEED, 0.2, False, CPU, rt.now())
+    else:
+        with faults.SERVE[fault]():
+            out = serve.run(c, SEED, 0.2, False, CPU, rt.now())
+    ok, checks = verdict(out["numbers"], c.checks)
+    assert ok == (fault is None), checks
+
+
+def test_serve_control():
+    # the fp8 control's widest gap grows with depth and width: at 2 layers of
+    # 64 it can read under the cell's limit, at 8 of 256 it reads 0.37-0.46
+    c = serve_cell(config=WIDER, prompt_len=128, new_tokens=8, max_len=136, batch=4)
+    eng = serve.engine(c, make_weights(c.shape, SEED, torch.float32, CPU,
+                                       c.mix.get("query_key_noise")), CPU)
+    tokens = eng.generate(serve_prompts(c.mix, c.shape.vocab, SEED, 1),
+                          max_new_tokens=c.mix["new_tokens"]).tokens
+    tokens = tokens[sample(SEED, tokens.shape[0], c.mix["check_requests"])]
+    got, ctl = serve.served_gap(c, SEED, tokens, CPU, control=True)
+    assert verdict({"logit_gap": got}, c.checks)[0]
+    ok, checks = verdict({"logit_gap": ctl}, c.checks)
+    assert not ok, checks
