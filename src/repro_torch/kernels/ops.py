@@ -38,6 +38,7 @@ from typing import Optional
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch import spans
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
@@ -80,7 +81,8 @@ class _FlashAttention(torch.autograd.Function):
         def plain(q, k, v):
             return ref.attention(q, k, v, causal=ctx.causal, sm_scale=ctx.sm_scale)
 
-        return (*_plain_vjp(ctx, plain, g), None, None)
+        with spans.span("attn.backward", device=g.is_cuda):
+            return (*_plain_vjp(ctx, plain, g), None, None)
 
 
 class _RMSNorm(torch.autograd.Function):

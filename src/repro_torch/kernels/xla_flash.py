@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import spans
+
 _NEG = -1e30
 
 
@@ -121,10 +123,27 @@ def flash_xla_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     return _FlashXlaTrain.apply(q, k, v, causal, sm_scale, block)
 
 
+def _live_pairs(q_start: int, S: int, T: int, valid: int, causal: bool) -> int:
+    """The (query, key) pairs ``_flash_xla_parts``'s mask leaves for one
+    head, the ring not wrapped: query ``q_start + i`` sees the slots ``j <
+    min(valid, T)`` and, when causal, ``j <= q_start + i``."""
+    cap = max(0, min(valid, T))
+    if not causal:
+        return S * cap
+
+    def upto(n):  # sum over x = 1 .. n of min(x, cap)
+        n = max(n, 0)
+        return n * (n + 1) // 2 if n <= cap else cap * (cap + 1) // 2 + (n - cap) * cap
+
+    return upto(q_start + S) - upto(q_start)
+
+
 def _flash_xla_parts(q, k, v, q_start, kv_valid_len, ring, causal, sm_scale, block):
     """``flash_xla``'s online softmax: the normalised f32 output ``(B, Hkv,
     g, S, D)``, the running max m and the sum l ``(B, Hkv, g, S)``, l = 1
-    where no key was live."""
+    where no key was live. Counts the pairs it scores, every query against
+    every key slot (``attn.pairs_scored``), and those its mask leaves
+    (``attn.pairs_live``; all once a ring has wrapped)."""
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -133,6 +152,10 @@ def _flash_xla_parts(q, k, v, q_start, kv_valid_len, ring, causal, sm_scale, blo
         q_start = T - S
     valid = T if kv_valid_len is None else kv_valid_len
     wrapped = ring and q_start + S - 1 >= T
+    if spans.counting():
+        spans.count("attn.pairs_scored", B * Hq * S * T)
+        spans.count("attn.pairs_live",
+                    B * Hq * (S * T if wrapped else _live_pairs(q_start, S, T, valid, causal)))
     qf = q.float().reshape(B, Hkv, group, S, D)
     qpos = q_start + torch.arange(S, device=q.device)
 

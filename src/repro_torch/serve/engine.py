@@ -3,12 +3,12 @@ temperature (counterpart of ``repro/serve/engine.py``)."""
 from __future__ import annotations
 
 import dataclasses
-import time
+import itertools
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.core.arch import ModelArch
 from repro_torch.models import lm
 from repro_torch.models.lm import ModelCfg
@@ -19,14 +19,15 @@ class GenerateResult:
     tokens: np.ndarray  # (B, prompt + generated)
     prompt_len: int
     # wall time per decode step (seconds, one per generated token), each
-    # ending in a device synchronise on the card
+    # ending in a device synchronise on the card: the intervals of the
+    # ``serve.decode_step`` spans
     step_times: tuple = ()
     # leading step_times entries that absorbed first-call set-up (1 on the
     # first generate at a given batch size, 0 once the engine is warm);
     # consumers drop these
     warmup_steps: int = 0
     # seconds, synchronised like step_times: the cache's build (an encdec
-    # model's encoder pass) and the prefill
+    # model's encoder pass) and the prefill, the ``serve.prefill`` span
     prefill_time: float = 0.0
 
 
@@ -42,6 +43,7 @@ class ServeEngine:
         self.arch, self.cfg, self.params = arch, cfg, params
         self.max_len = max_len
         self._warm_batches: set[int] = set()
+        self._calls = itertools.count()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -73,37 +75,37 @@ class ServeEngine:
         if frontend is not None:
             frontend = torch.as_tensor(frontend, device=self.device)
         toks = torch.as_tensor(np.asarray(prompts), device=self.device).long()
-        t0 = time.perf_counter()
-        caches = lm.init_caches(self.arch, self.cfg, B, self.max_len,
-                                enc_features=enc_features, params=self.params,
-                                device=self.device)
-        logits, caches = lm.prefill(self.params, self.arch, self.cfg, caches, toks,
-                                    frontend=frontend)
-        self._sync()
-        prefill_time = time.perf_counter() - t0
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        out = [toks]
-        last = logits[:, -1, :]
-        pos = S + frontend_len
-        warmup = 0 if B in self._warm_batches else min(1, max_new_tokens)
-        step_times = []
-        for i in range(max_new_tokens):
-            t0 = time.perf_counter()
-            if temperature > 0:
-                probs = torch.softmax(last.float() / temperature, dim=-1)
-                nxt = torch.multinomial(probs, 1, generator=gen)
-            else:
-                nxt = torch.argmax(last, dim=-1, keepdim=True)
-            out.append(nxt)
-            logits, caches = lm.decode_step(self.params, self.arch, self.cfg, caches,
-                                            nxt, pos + i)
+        with spans.span("serve.generate", ident=next(self._calls)):
+            with spans.timed("serve.prefill") as prefill:
+                caches = lm.init_caches(self.arch, self.cfg, B, self.max_len,
+                                        enc_features=enc_features, params=self.params,
+                                        device=self.device)
+                logits, caches = lm.prefill(self.params, self.arch, self.cfg, caches, toks,
+                                            frontend=frontend)
+                self._sync()
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            out = [toks]
             last = logits[:, -1, :]
-            self._sync()
-            step_times.append(time.perf_counter() - t0)
+            pos = S + frontend_len
+            warmup = 0 if B in self._warm_batches else min(1, max_new_tokens)
+            step_times = []
+            for i in range(max_new_tokens):
+                with spans.timed("serve.decode_step") as step:
+                    if temperature > 0:
+                        probs = torch.softmax(last.float() / temperature, dim=-1)
+                        nxt = torch.multinomial(probs, 1, generator=gen)
+                    else:
+                        nxt = torch.argmax(last, dim=-1, keepdim=True)
+                    out.append(nxt)
+                    logits, caches = lm.decode_step(self.params, self.arch, self.cfg, caches,
+                                                    nxt, pos + i)
+                    last = logits[:, -1, :]
+                    self._sync()
+                step_times.append(step.seconds)
+            tokens = torch.cat(out, dim=1).cpu().numpy()
         if max_new_tokens > 0:
             self._warm_batches.add(B)
         return GenerateResult(
-            tokens=torch.cat(out, dim=1).cpu().numpy(), prompt_len=S,
-            step_times=tuple(step_times), warmup_steps=warmup,
-            prefill_time=prefill_time,
+            tokens=tokens, prompt_len=S, step_times=tuple(step_times), warmup_steps=warmup,
+            prefill_time=prefill.seconds,
         )

@@ -15,12 +15,14 @@ AdamW.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Callable
 
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import spans
 from repro_torch.core.arch import ModelArch
 from repro_torch.models.lm import ModelCfg, cast_params, forward_train
 from repro_torch.parallel.sharding import P, axis_sizes, placements
@@ -69,13 +71,17 @@ def make_train_step(arch: ModelArch, model_cfg: ModelCfg, cfg: TrainStepCfg) -> 
     lr = cosine_schedule(cfg.base_lr, cfg.warmup_steps, cfg.total_steps)
     fwd_cfg = (dataclasses.replace(model_cfg, cast_params_in_forward=False)
                if cfg.pre_cast else model_cfg)
+    steps = itertools.count()
 
     def value_and_grad(fwd_params: dict, batch: dict):
         inputs = [t.detach().requires_grad_() for t in _leaves(fwd_params)]
-        loss, metrics = forward_train(_unflatten(fwd_params, iter(inputs)), arch, fwd_cfg,
-                                      batch)
-        grads = [g.redistribute(t.device_mesh, t.placements) if isinstance(g, DTensor) else g
-                 for g, t in zip(torch.autograd.grad(loss, inputs), inputs)]
+        on_card = batch["tokens"].is_cuda
+        with spans.span("train.forward", device=on_card):
+            loss, metrics = forward_train(_unflatten(fwd_params, iter(inputs)), arch, fwd_cfg,
+                                          batch)
+        with spans.span("train.backward", device=on_card):
+            grads = [g.redistribute(t.device_mesh, t.placements) if isinstance(g, DTensor)
+                     else g for g, t in zip(torch.autograd.grad(loss, inputs), inputs)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def split(x, K: int):
@@ -105,6 +111,10 @@ def make_train_step(arch: ModelArch, model_cfg: ModelCfg, cfg: TrainStepCfg) -> 
         return [y[i] for i in range(K)]
 
     def train_step(params: dict, opt_state: OptState, batch: dict):
+        with spans.span("train.step", ident=next(steps)):
+            return one_step(params, opt_state, batch)
+
+    def one_step(params: dict, opt_state: OptState, batch: dict):
         K = cfg.num_microbatches
         if cfg.pre_cast:
             with torch.no_grad():
@@ -131,9 +141,11 @@ def make_train_step(arch: ModelArch, model_cfg: ModelCfg, cfg: TrainStepCfg) -> 
             del g_sum
             loss = l_sum / K
             metrics = {"loss": loss}
-        params, opt_state, opt_metrics = adamw_update(
-            params, _unflatten(params, iter(grads)), opt_state,
-            lr=lr, weight_decay=cfg.weight_decay, clip_norm=cfg.clip_norm)
+        # through the module's global, which the benchmark's train driver wraps
+        with spans.span("train.optimizer", device=batch["tokens"].is_cuda):
+            params, opt_state, opt_metrics = adamw_update(
+                params, _unflatten(params, iter(grads)), opt_state,
+                lr=lr, weight_decay=cfg.weight_decay, clip_norm=cfg.clip_norm)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
