@@ -19,7 +19,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
                in place; an unaligned view is refused; flash attention also at
                the forward shapes of hymba, granite, whisper's encoder (not
                causal, T = 1500) and pixtral (head size 160), with the path
-               each dtype took), timed beside its plain version,
+               each dtype took, and at the serve cell's cached shapes: a
+               prefill of 16 x 4080 tokens, decode steps at q_offset 4080
+               and 4095, a chunk whose T is off the 64-key grid, on a
+               4096-slot cache), timed beside its plain version,
                its bound and a library call where one exists. Each time is
                given twice: `ms`, the device time per call (the durations of
                the CUDA kernels that torch.profiler records over N calls,
@@ -39,7 +42,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
                window (banded_flash_xla: K2 must not launch), granite's share
                of dropped assignments at capacity factor 1.25;
   5. serve   - per model, ServeEngine.generate, checked against teacher
-               forcing, and the device's busy share while decoding (whisper
+               forcing (the cached attention over a plain cache through K2,
+               once a layer a cached forward), and the device's busy share
+               while decoding (whisper
                with its frames encoded into the cache, pixtral with 1024
                patch embeddings in front of each prompt, so decode starts at
                position 1152); hymba also with a 1024-token prompt whose
@@ -107,8 +112,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
                (a) qwen3-8b at full width and depth served (4 prompts x 128
                + 32 greedy tokens) with params, caches and tokens as DTensors
                on a (1, 1) mesh over the one-rank NCCL group, against plain
-               tensors: tokens equal, prefill logits bit for bit, K1 launched
-               on the DTensor path; the same for mamba2-370m and hymba-1.5b
+               tensors: tokens equal, prefill logits bit for bit, K1 and K2
+               launched on the DTensor path; the same for mamba2-370m and hymba-1.5b
                at full depth (4 x 128 + 32, and hymba 2 x 1024 + 8, whose
                prompt fills its ring of 1024 and whose decode steps wrap
                it), granite-moe and llama4-scout, whisper-tiny at full depth
@@ -184,6 +189,15 @@ L2_BYTES = 50 * 2 ** 20
 # differ in the last bits can fall on either side of a bf16 rounding midpoint.
 # f32: 2e-5, as the JAX tests.
 TOL = {torch.bfloat16: (2e-2, 2.0 ** -7), torch.float32: (2e-5, 0.0)}
+# K2 at the serve cell's cached shapes against its plain version, both
+# rounded to bf16: one bf16 ulp of the value (2^-7 of it) plus
+# CACHED_RMS_TOL of the output row's RMS. A row over thousands of keys has
+# an RMS near sqrt(e / T) ~ 0.026, about TOL's atol, which a P.V tile of 64
+# keys dropped would pass (~0.47 of the RMS at decode). Emulating K2's
+# rounding (bf16 probabilities, f32 accumulation) on the CPU reads at most
+# 0.029 of the RMS at these shapes; an H100 read 4.9e-4 (decode) and 9.8e-4
+# (chunk) absolute.
+CACHED_RMS_TOL = 0.05
 # lse is f32 from either input type: log(T) plus the row max, below 20 here;
 # sums of up to 1024 terms in another order differ by a few f32 ulps of it.
 LSE_TOL = 1e-4
@@ -631,6 +645,77 @@ FLASH_MODEL_SHAPES = {"hymba": (2, 25, 5, 1024, 1024, 64, True),
                       "pixtral": (1, 32, 8, 1536, 1536, 160, True)}
 
 
+# K2 as the cached path hands it the serve cell's operands (16 requests of
+# 4080 tokens, yi-6b's 32 q and 4 kv heads of 128, a cache of 4096 slots): q
+# a head-transposed view of the projection, k/v the layer's cache cut to the
+# written slots T = q_offset + S. (B, Hq, Hkv, S, q_offset, D)
+FLASH_SERVE_SLOTS = 4096
+FLASH_SERVE_CASES = {"prefill": (16, 32, 4, 4080, 0, 128),
+                     "decode": (16, 32, 4, 1, 4080, 128),
+                     "decode_last_slot": (16, 32, 4, 1, 4095, 128),
+                     "chunk": (16, 32, 4, 500, 3000, 128)}  # T = 3500, off the 64-key grid
+
+
+def _cached_operands(B, Hq, Hkv, S, off, D, g, dev, dtype=torch.bfloat16):
+    q = torch.randn(B, S, Hq, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+    k, v = (torch.randn(B, Hkv, FLASH_SERVE_SLOTS, D, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k[:, :, :off + S], v[:, :, :off + S]
+
+
+def flash_serve_phase(dev, g) -> dict:
+    """K2 against its plain version at FLASH_SERVE_CASES in bf16 (within
+    CACHED_RMS_TOL of each row's RMS), the plain version one request at a
+    time (its f32 scores of the whole prefill would take 34 GB); the prefill
+    and the first decode step timed beside their bounds (operations: the
+    causal pairs)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, scored_pairs
+
+    dtype = torch.bfloat16
+    for name, (B, Hq, Hkv, S, off, D) in FLASH_SERVE_CASES.items():
+        q, k, v = _cached_operands(B, Hq, Hkv, S, off, D, g, dev)
+        out, lse = flash_attention_fwd(q, k, v, causal=True, q_offset=off)
+        e = e_rms = e_lse = 0.0
+        ok = True
+        for b in range(B):
+            out_r, lse_r = ref.flash_attention_fwd_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                                       causal=True, q_offset=off)
+            want = out_r.float()
+            rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+            diff = (out[b:b + 1].float() - want).abs()
+            e, e_rms = max(e, float(diff.max())), max(e_rms, float((diff / rms).max()))
+            ok = ok and bool((diff <= TOL[dtype][1] * want.abs() + CACHED_RMS_TOL * rms).all())
+            e_lse = max(e_lse, float((lse[b:b + 1] - lse_r).abs().max()))
+            del out_r, lse_r, want, rms, diff
+        log("kernels", f"flash bf16 cached {name} B={B} Hq={Hq} Hkv={Hkv} S={S} q_offset={off} "
+            f"T={off + S} (of {FLASH_SERVE_SLOTS} slots) D={D}: out_err={e:.3e} "
+            f"out_err/row_rms={e_rms:.4f} (bound 2^-7 |out| + {CACHED_RMS_TOL} row_rms) "
+            f"lse_err={e_lse:.3e}")
+        check(ok and e_lse <= LSE_TOL, f"flash bf16 cached {name} out {e} ({e_rms} of the "
+              f"row RMS) lse {e_lse}")
+        del q, k, v, out, lse
+    t = {}
+    for name in ("prefill", "decode"):
+        B, Hq, Hkv, S, off, D = FLASH_SERVE_CASES[name]
+        T = off + S
+        nbytes = (2 * B * Hq * S * D + 2 * B * Hkv * T * D) * 2 + B * Hq * S * 4
+        pairs = S * off + S * (S + 1) // 2
+        ops = 4.0 * B * Hq * D * pairs
+        sets = copies(lambda: _cached_operands(B, Hq, Hkv, S, off, D, g, dev), nbytes)
+        t |= _times(f"serve_{name}_", lambda q, k, v: flash_attention_fwd(
+            q, k, v, causal=True, q_offset=off), sets)
+        del sets
+        bms, by = bound_ms(nbytes, ops, dtype)
+        ms = t[f"serve_{name}_ms"]
+        t |= {f"serve_{name}_bound_ms": bms, f"serve_{name}_bound_by": by}
+        log("kernels", f"flash timing bf16 cached {name} {(B, Hq, Hkv, S, T, D)} q_offset={off}: "
+            f"kernel {ms:.4f} ms (call {t[f'serve_{name}_call_ms']:.4f}), bound {bms:.4f} ms "
+            f"({by}); {ops / ms / 1e9:.2f} TFLOP/s, bound / kernel {bms / ms:.3f}; live pairs "
+            f"{pairs / scored_pairs(S, T, off):.4f} of those scored")
+    return t
+
+
 def flash_phase(dev) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels._build import load_kernels
@@ -687,10 +772,10 @@ def flash_phase(dev) -> dict:
         else:
             raise SmokeFailure("an unaligned bf16 view was launched")
     check(flash_attention_fwd.launches == before, "an unaligned launch was counted")
+    t = flash_serve_phase(dev, g)
 
     dtype = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    t = {}
     for name, (B, Hq, Hkv, S, T, D, causal) in (("", cases[0]), *(
             (f"{m}_", shape) for m, shape in FLASH_MODEL_SHAPES.items())):
         nbytes = (2 * B * Hq * S * D + 2 * B * Hkv * T * D) * 2 + B * Hq * S * 4
@@ -1435,7 +1520,8 @@ def granite_extra(dev, arch, params, counters, res, decode_ms) -> list:
 # decoder's self-attention through K2; cross-attention through
 # flash_xla_train, as the JAX package pins it. ServeEngine builds the cache
 # with one encoder pass (WHISPER_CACHE_PASS); each cached forward then runs
-# the decoder's norms and attention through flash_xla (K1 only). Forward at
+# the decoder's norms through K1 and its self-attention over the cache through
+# K2, the cross-attention through flash_xla_train. Forward at
 # B=4: 1500 frames and 448 text tokens (the decoder's context); serve 4 x 32
 # + 32.
 WHISPER_BS = (4, 448)
@@ -1450,9 +1536,9 @@ PIXTRAL_F32_LAYERS = 4
 
 # the serve driver at its defaults: reduced qwen3-8b (2 layers with q/k
 # norms, f32), 4 prompts of 16 tokens, 24 new ones: 25 cached forwards of 4 x
-# 2 + 1 K1 launches
+# 2 + 1 K1 launches and 2 K2 launches (f32, on the CUDA cores)
 SERVE_DRIVER_ARGV = ["--arch", "qwen3-8b"]
-SERVE_DRIVER_LAUNCHES = {"rmsnorm_fwd": 25 * (4 * 2 + 1), "flash_attention_fwd": 0,
+SERVE_DRIVER_LAUNCHES = {"rmsnorm_fwd": 25 * (4 * 2 + 1), "flash_attention_fwd": 25 * 2,
                          "ssd_scan_fwd": 0}
 
 
@@ -3030,8 +3116,8 @@ def dryrun_serve_phase(dev, mesh, counters) -> tuple[list, dict]:
     from repro_torch.configs import get_arch
 
     arch = get_arch("qwen3-8b")
-    per_forward = {"rmsnorm_fwd": 4 * arch.num_layers + 1, "flash_attention_fwd": 0,
-                   "ssd_scan_fwd": 0}
+    per_forward = {"rmsnorm_fwd": 4 * arch.num_layers + 1,
+                   "flash_attention_fwd": arch.num_layers, "ssd_scan_fwd": 0}
     run, row = _serve_vs_plain(dev, mesh, counters, arch, *(DRYRUN_SERVE[k] for k in (
         "B", "P", "N", "max_len")), 11, per_forward)
     runs, rows = [run], []
@@ -3039,7 +3125,8 @@ def dryrun_serve_phase(dev, mesh, counters) -> tuple[list, dict]:
         arch = get_arch(name)
         L = arch.num_layers
         # the cached path scans with the plain version (the JAX package's
-        # impl="xla" there) and attends through flash_xla: K1 alone
+        # impl="xla" there) and attends over hymba's ring through flash_xla:
+        # K1 alone
         per_forward = {"rmsnorm_fwd": L + 1 if arch.family == "ssm" else 2 * L + 1,
                        "flash_attention_fwd": 0, "ssd_scan_fwd": 0}
         run, r = _serve_vs_plain(dev, mesh, counters, arch, B, P, N, T, 11, per_forward)
@@ -3049,8 +3136,8 @@ def dryrun_serve_phase(dev, mesh, counters) -> tuple[list, dict]:
     rows = []
     for name, L, B, P, N, T in DRYRUN_MOE_SERVE:
         arch = dataclasses.replace(get_arch(name), num_layers=L)
-        # the cached path attends through flash_xla: K1 on ln1, ln2, the final norm
-        per_forward = {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": 0, "ssd_scan_fwd": 0}
+        # K1 on ln1, ln2, the final norm; K2 over the cache once a layer
+        per_forward = {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": L, "ssd_scan_fwd": 0}
         run, r = _serve_vs_plain(dev, mesh, counters, arch, B, P, N, T, 11, per_forward)
         runs.append(run)
         rows.append(dict(r, layers=L, capacity_factor=MOE_SERVE_CAPACITY))
@@ -3061,10 +3148,10 @@ def dryrun_serve_phase(dev, mesh, counters) -> tuple[list, dict]:
         L = arch.num_layers
         if arch.family == "encdec":  # ln1, ln_cross, ln2 a layer; the encoder's pass once
             E = arch.encoder_layers
-            per_forward = {"rmsnorm_fwd": 3 * L + 1, "flash_attention_fwd": 0, "ssd_scan_fwd": 0}
+            per_forward = {"rmsnorm_fwd": 3 * L + 1, "flash_attention_fwd": L, "ssd_scan_fwd": 0}
             cache_pass = {"rmsnorm_fwd": 2 * E + 1, "flash_attention_fwd": E}
         else:
-            per_forward = {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": 0, "ssd_scan_fwd": 0}
+            per_forward = {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": L, "ssd_scan_fwd": 0}
             cache_pass = None
         run, r = _serve_vs_plain(dev, mesh, counters, arch, B, P, N, T, 11, per_forward,
                                  cache_pass)
@@ -3407,6 +3494,9 @@ def _main(dev, t_start: float, procs) -> int:
     with torch.inference_mode():
         entries = [rmsnorm_phase(dev), flash_phase(dev), ssd_phase(dev)]
     log("kernels", f"done at {time.perf_counter() - t_start:.1f} s")
+    # each model's cached forwards (prefill, decode steps) attend over a
+    # plain cache through K2 once a layer, except a ring's (hymba) and the
+    # ssm family's, which has no attention
 
     qwen, mamba = get_arch("qwen3-8b"), get_arch("mamba2-370m")
     hymba, granite = get_arch("hymba-1.5b"), get_arch("granite-moe-3b-a800m")
@@ -3415,7 +3505,7 @@ def _main(dev, t_start: float, procs) -> int:
         dev, "qwen3-8b", counters,
         {"rmsnorm_fwd": 4 * qwen.num_layers + 1, "flash_attention_fwd": qwen.num_layers,
          "ssd_scan_fwd": 0},
-        {"rmsnorm_fwd": 4 * qwen.num_layers + 1, "flash_attention_fwd": 0,
+        {"rmsnorm_fwd": 4 * qwen.num_layers + 1, "flash_attention_fwd": qwen.num_layers,
          "ssd_scan_fwd": 0},
         main_bs=(2, 512), compare_bs=(2, 512))
     log("serve", f"qwen3-8b done at {time.perf_counter() - t_start:.1f} s")
@@ -3444,7 +3534,7 @@ def _main(dev, t_start: float, procs) -> int:
         dev, "granite-moe-3b-a800m", counters,
         {"rmsnorm_fwd": 2 * granite.num_layers + 1, "flash_attention_fwd": granite.num_layers,
          "ssd_scan_fwd": 0},
-        {"rmsnorm_fwd": 2 * granite.num_layers + 1, "flash_attention_fwd": 0,
+        {"rmsnorm_fwd": 2 * granite.num_layers + 1, "flash_attention_fwd": granite.num_layers,
          "ssd_scan_fwd": 0},
         main_bs=(2, 512), compare_bs=(2, 512), extra=granite_extra)
     log("serve", f"granite-moe-3b-a800m done at {time.perf_counter() - t_start:.1f} s")
@@ -3454,7 +3544,7 @@ def _main(dev, t_start: float, procs) -> int:
         dev, "whisper-tiny", counters,
         {"rmsnorm_fwd": 2 * enc_L + 1 + 3 * L + 1, "flash_attention_fwd": enc_L + L,
          "ssd_scan_fwd": 0},
-        {"rmsnorm_fwd": 3 * L + 1, "flash_attention_fwd": 0, "ssd_scan_fwd": 0},
+        {"rmsnorm_fwd": 3 * L + 1, "flash_attention_fwd": L, "ssd_scan_fwd": 0},
         main_bs=WHISPER_BS, compare_bs=WHISPER_BS, serve=WHISPER_SERVE,
         cache_pass={"rmsnorm_fwd": 2 * enc_L + 1, "flash_attention_fwd": enc_L})
     log("serve", f"whisper-tiny done at {time.perf_counter() - t_start:.1f} s")
@@ -3462,7 +3552,7 @@ def _main(dev, t_start: float, procs) -> int:
         dev, "pixtral-12b", counters,
         {"rmsnorm_fwd": 2 * pixtral.num_layers + 1, "flash_attention_fwd": pixtral.num_layers,
          "ssd_scan_fwd": 0},
-        {"rmsnorm_fwd": 2 * pixtral.num_layers + 1, "flash_attention_fwd": 0,
+        {"rmsnorm_fwd": 2 * pixtral.num_layers + 1, "flash_attention_fwd": pixtral.num_layers,
          "ssd_scan_fwd": 0},
         main_bs=PIXTRAL_BS, compare_bs=PIXTRAL_BS, serve=PIXTRAL_SERVE,
         f32_layers=PIXTRAL_F32_LAYERS)

@@ -16,7 +16,16 @@ import torch
 from repro_torch.kernels import ref
 
 HEAD_DIMS = (16, 24, 32, 64, 80, 128, 160)
+BQ = 64  # query rows of one block, in either kernel
 _ALIGN_BYTES = 16  # the bf16 kernel copies rows in 16-byte chunks
+
+
+def scored_pairs(S: int, T: int, q_offset: int) -> int:
+    """The (query, key) pairs the causal kernel scores for one head: each
+    tile of ``BQ`` query rows against the keys before its ``kv_end``, the
+    last row's position + 1 (``key_tiles`` in flash_attention.cu); the
+    columns of the last key tile past ``kv_end`` are masked, not counted."""
+    return sum(min(BQ, S - q0) * min(T, q_offset + min(q0 + BQ, S)) for q0 in range(0, S, BQ))
 
 
 def _plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:

@@ -6,11 +6,14 @@ reader finds them):
 
   * ``flash_xla_train`` - the training path's ``impl="xla"`` attention: a
     forward over KV blocks with a blockwise-recompute backward;
-  * ``flash_xla``       - the serving path's attention against a (partially
-    filled) KV cache: ``q_start`` places the queries, ``kv_valid_len`` hides
-    the cache slots not written yet, ``ring`` marks a sliding-window cache
-    that wraps around; ``flash_xla_lse`` gives its output over one part of
-    the keys with its log-sum-exp, for a cache split over its sequence;
+  * ``flash_xla``       - attention against a (partially filled) KV cache:
+    ``q_start`` places the queries, ``kv_valid_len`` hides the cache slots
+    not written yet, ``ring`` marks a sliding-window cache that wraps around;
+    ``flash_xla_lse`` gives its output over one part of the keys with its
+    log-sum-exp, for a cache split over its sequence. The serving path takes
+    it for a ring, an int8 cache, the ``"xla"`` and ``"torch"`` impls and a
+    sharded cache split over its sequence; any other cache goes to the flash
+    kernel (``models/lm.py`` ``_flash_cached_attention``);
   * ``banded_flash_xla`` - causal sliding-window attention over Q blocks,
     each against the ``window + block_q`` keys it can see, with a
     blockwise-recompute backward.
@@ -123,7 +126,7 @@ def flash_xla_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     return _FlashXlaTrain.apply(q, k, v, causal, sm_scale, block)
 
 
-def _live_pairs(q_start: int, S: int, T: int, valid: int, causal: bool) -> int:
+def live_pairs(q_start: int, S: int, T: int, valid: int, causal: bool) -> int:
     """The (query, key) pairs ``_flash_xla_parts``'s mask leaves for one
     head, the ring not wrapped: query ``q_start + i`` sees the slots ``j <
     min(valid, T)`` and, when causal, ``j <= q_start + i``."""
@@ -155,7 +158,7 @@ def _flash_xla_parts(q, k, v, q_start, kv_valid_len, ring, causal, sm_scale, blo
     if spans.counting():
         spans.count("attn.pairs_scored", B * Hq * S * T)
         spans.count("attn.pairs_live",
-                    B * Hq * (S * T if wrapped else _live_pairs(q_start, S, T, valid, causal)))
+                    B * Hq * (S * T if wrapped else live_pairs(q_start, S, T, valid, causal)))
     qf = q.float().reshape(B, Hkv, group, S, D)
     qpos = q_start + torch.arange(S, device=q.device)
 

@@ -6,7 +6,11 @@ patch embeddings in front of the text, pixtral): the full-sequence forward
 and its training loss (with the MoE aux loss), and the cached serving path
 with the JAX package's KV-cache options. A sliding-window model keeps a ring
 KV cache of the window and runs its full-sequence attention through
-``banded_flash_xla`` once the sequence is longer than the window.
+``banded_flash_xla`` once the sequence is longer than the window. The cached
+path attends over a cache that is neither a ring nor int8 through the flash
+kernel under the ``"cuda"`` impl, as the full-sequence path does; a ring, an
+int8 cache and the ``"xla"`` and ``"torch"`` impls go through ``flash_xla``,
+as does a sharded cache split over its sequence.
 
 Same layouts as the JAX package at the public functions: params are the same
 nested dict, each per-layer leaf stacked on a leading L axis with the same
@@ -48,10 +52,11 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.core.arch import ModelArch
 from repro_torch.kernels import ops
-from repro_torch.kernels.xla_flash import banded_flash_xla, flash_xla, flash_xla_lse
+from repro_torch.kernels.flash_attention import flash_attention_fwd, scored_pairs
+from repro_torch.kernels.xla_flash import banded_flash_xla, flash_xla, flash_xla_lse, live_pairs
 from repro_torch.models import layers as L
 from repro_torch.models.moe import aux_load_balance_loss, moe_block
 from repro_torch.models.ssm import CONV_K, ssm_block, ssm_dims
@@ -337,6 +342,29 @@ def _write_cache(cfg: ModelCfg, cache: dict, k: torch.Tensor, v: torch.Tensor,
         cache[name][:, :, slots] = x.to(cache[name].dtype)
 
 
+def _takes_flash_kernel(cfg: ModelCfg, window: int) -> bool:
+    """Whether a cached call attends through the flash kernel: the ``"cuda"``
+    impl over a cache that is neither a ring (``window``) nor int8. The
+    kernel's wrapper refuses operands it lacks, as on the full-sequence
+    path."""
+    return cfg.attn_impl == "cuda" and not window and not cfg.kv_cache_quant
+
+
+def _flash_cached_attention(q, k, v, start: int) -> torch.Tensor:
+    """q ``(B, H, S, D)`` at positions ``start .. start + S - 1`` over the
+    cache's written slots ``0 .. start + S - 1`` through the flash kernel,
+    causal at ``q_offset=start``: ``flash_xla``'s mask with ``kv_valid_len =
+    start + S``, the unwritten slots not passed. Counts the pairs the kernel
+    scores (``attn.pairs_scored``) and the causal ones (``attn.pairs_live``)."""
+    B, H, S, _ = q.shape
+    T = start + S
+    if spans.counting():
+        spans.count("attn.pairs_scored", B * H * scored_pairs(S, T, start))
+        spans.count("attn.pairs_live", B * H * live_pairs(start, S, T, T, True))
+    out, _ = flash_attention_fwd(q, k[:, :, :T], v[:, :, :T], causal=True, q_offset=start)
+    return out
+
+
 def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
                    arch: ModelArch, cfg: ModelCfg, cache: Optional[dict],
                    causal: bool = True) -> torch.Tensor:
@@ -350,7 +378,14 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
     attends through ``banded_flash_xla`` and keeps the last T positions;
     shorter chunks are written at ``start % T`` and must not cross the end of
     the ring (the JAX package clamps such a slice, or drops the rows of such
-    a scatter: a different answer, refused here)."""
+    a scatter: a different answer, refused here).
+
+    A cached call attends after its rows are written: through the flash
+    kernel over the written slots where ``_takes_flash_kernel`` holds, the
+    prefill, a chunk and a decode step alike; ``decode_dense_attn`` at S <= 16
+    through one masked product; every other cache through ``flash_xla`` (a
+    ring, an int8 cache, the ``"xla"`` and ``"torch"`` impls). A sharded
+    cache takes the same routes in ``_sharded_cached_attention``."""
     B, S, _ = h.shape
     H, Hkv, D = arch.heads, arch.kv_heads, arch.head_dim
     window = arch.sliding_window or 0
@@ -401,6 +436,8 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
                 k_read, v_read = cache["k"], cache["v"]
             if cfg.decode_dense_attn and S <= 16:
                 out = _dense_cached_attention(q, k_read, v_read, start, ring=bool(window))
+            elif _takes_flash_kernel(cfg, window):
+                out = _flash_cached_attention(q, k_read, v_read, start)
             else:
                 out = flash_xla(q, k_read, v_read, q_start=start, kv_valid_len=start + S,
                                 ring=bool(window), causal=True)
@@ -457,6 +494,9 @@ def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v, window: int =
     and each rank writes its slots of the last T positions, rolled into
     place.
 
+    Over its heads or whole, each rank attends as on a plain cache: through
+    the flash kernel where ``_takes_flash_kernel`` holds, else through
+    ``flash_xla``. Split over T, each part goes through ``flash_xla_lse``.
     The KV-cache options run on each rank's shards as on a plain cache;
     ``decode_dense_attn`` over a cache split over T runs the masked product
     on each rank's part of T at its global slots, and one softmax over the
@@ -526,6 +566,8 @@ def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v, window: int =
         if layout != "seq":
             if dense:
                 return _dense_cached_attention(q, k_read, v_read, start, ring=bool(window))
+            if _takes_flash_kernel(cfg, window):
+                return _flash_cached_attention(q, k_read, v_read, start)
             return flash_xla(q, k_read, v_read, q_start=start, kv_valid_len=start + S,
                              ring=bool(window), causal=True)
         group = mesh.get_group(MODEL_AXIS)

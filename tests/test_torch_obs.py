@@ -1,7 +1,8 @@
 """The port's spans and counts (``repro_torch.spans``) on the CPU: off, they
 record nothing; under the profiler they nest, lie on the trace's clock and
-carry their counts; and the engine's, the train step's and ``flash_xla``'s
-record what the benchmark's readers take from them."""
+carry their counts; and the engine's, the train step's, the flash kernel's
+cached route's and ``flash_xla``'s record what the benchmark's readers take
+from them."""
 import contextlib
 import threading
 import time
@@ -151,9 +152,10 @@ def test_engine_spans_are_its_timings(profiled):
     assert r.step_times == tuple(s.dur_ns / 1e9 for s in steps)
     assert prefill.end_ns <= steps[0].start_ns and all(
         a.end_ns <= b.start_ns for a, b in zip(steps, steps[1:]))
-    # the prefill's attention through flash_xla: 7 causal queries over 24 slots
-    B, H, S, T = 2, ARCH.heads, 7, 24
-    assert prefill.counts == {"attn.pairs_scored": ARCH.num_layers * B * H * S * T,
+    # the prefill's attention through the flash kernel: 7 causal queries, one
+    # tile of rows scored against the 7 written slots of the 24
+    B, H, S = 2, ARCH.heads, 7
+    assert prefill.counts == {"attn.pairs_scored": ARCH.num_layers * B * H * S * S,
                               "attn.pairs_live": ARCH.num_layers * B * H * S * (S + 1) // 2}
     assert steps[1].counts["attn.pairs_live"] == ARCH.num_layers * B * H * (S + 2)
 

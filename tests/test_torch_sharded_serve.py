@@ -234,6 +234,36 @@ def test_the_cache_lies_over_model_as_cache_specs_place_it(label, dim, ranks):
     assert ranks[label]["placements"]["k"] == (Shard(1), Shard(dim))
 
 
+def _run_of(label, ranks, ranks_1x4):
+    """(arch name, decode steps, ModelCfg options, the ranks' run) of a case
+    of CASES, SSM_CASES or STUB_CASES."""
+    if label in CASES:
+        name, opts = CASES[label]
+        return name, N, opts, ranks[label]
+    if label in SSM_CASES:
+        name, _, n, run, opts = _ssm_run(label, ranks, ranks_1x4)
+        return name, n, opts, run
+    name, _, run = _stub_run(label, ranks, ranks_1x4)
+    return name, N, {}, run
+
+
+@pytest.mark.parametrize("label", list(CASES) + list(SSM_CASES) + list(STUB_CASES))
+def test_each_rank_attends_as_a_plain_cache_would(label, ranks, ranks_1x4):
+    """A KV cache over its heads or whole takes the flash kernel once a
+    layer in every cached forward, as a plain cache does (the prefill alone
+    under dense decode); a ring, an int8 cache and a cache over its
+    sequence never reach it."""
+    from torch.distributed.tensor import Shard
+
+    name, n, opts, run = _run_of(label, ranks, ranks_1x4)
+    arch = get_reduced(name)
+    k = run["placements"].get("k")  # (data, model)
+    flash = (k is not None and k[1] != Shard(3) and not arch.sliding_window
+             and not opts.get("kv_cache_quant"))
+    forwards = 1 + (0 if opts.get("decode_dense_attn") else n)
+    assert run["kernel_calls"] == (arch.num_layers * forwards if flash else 0)
+
+
 def test_a_chunk_across_a_shard_boundary_lands_in_both_shards(ranks):
     """Slots 30..33 of a 64-slot cache split at 32: the "model" rank 0 takes
     30 and 31, rank 1 takes 32 and 33, each equal to the unsharded cache."""

@@ -507,8 +507,9 @@ def cached_program(rank, world, out, mesh_shape, cases, chunk_case):
     tokens as DTensors placed by param_specs, cache_specs and batch_spec.
     Per case (label, arch name, params, prompts, new tokens N, max_len,
     ModelCfg options[, stub inputs]): the prefill and N greedy decode steps,
-    each step's logits made whole, the tokens, and the caches' placements;
-    or the error the cached path raised. The stub inputs (numpy, placed by
+    each step's logits made whole, the tokens, the caches' placements and
+    the cached path's calls of the flash kernel; or the error the cached
+    path raised. The stub inputs (numpy, placed by
     batch_spec): an encdec model's ``enc_features``, which ``init_caches``
     encodes on the DTensor params into a cache it places itself, and a vlm
     model's ``frontend``, in front of the prompts (decode then starts at F +
@@ -540,6 +541,14 @@ def cached_program(rank, world, out, mesh_shape, cases, chunk_case):
         feats = place(**extra)["enc_features"] if "enc_features" in extra else None
         return lm.init_caches(arch, cfg, B, T, params=params, enc_features=feats)
 
+    kernel_calls = [0]
+    kernel = lm.flash_attention_fwd
+
+    def counted(*args, **kw):
+        kernel_calls[0] += 1
+        return kernel(*args, **kw)
+
+    lm.flash_attention_fwd = counted  # the cached path's flash-kernel route
     results = {}
     for label, name, params_np, prompts, N, T, opts, *more in cases:
         extra = more[0] if more else {}
@@ -549,6 +558,7 @@ def cached_program(rank, world, out, mesh_shape, cases, chunk_case):
         caches = caches_for(arch, cfg, params, prompts.shape[0], T, extra)
         frontend = place(**extra)["frontend"] if "frontend" in extra else None
         F = 0 if frontend is None else frontend.shape[1]
+        kernel_calls[0] = 0
         try:
             logits, _ = lm.prefill(params, arch, cfg, caches, tokens(prompts), frontend=frontend)
             steps = [logits.full_tensor().numpy()]
@@ -561,7 +571,8 @@ def cached_program(rank, world, out, mesh_shape, cases, chunk_case):
                 nxt = logits.full_tensor()[:, -1].argmax(-1, keepdim=True)
                 seq.append(nxt)
             results[label] = {"logits": steps, "tokens": torch.cat(seq[:-1], 1).numpy(),
-                              "placements": {k: tuple(v.placements) for k, v in caches.items()}}
+                              "placements": {k: tuple(v.placements) for k, v in caches.items()},
+                              "kernel_calls": kernel_calls[0]}
         except NotImplementedError as e:
             results[label] = {"error": str(e)}
 
