@@ -7,14 +7,18 @@ at the cell's own size, in one process:
     program's place (the upper readings);
   * the cell's faults (``harness/faults.py``) on as many: for a train cell,
     half of each batch left out (the loss a mean over the rest) and the state
-    returned unchanged; for a serve cell, a decode step's token altered, the
-    KV cache left unwritten by decode, and decode's attention left out.
+    returned unchanged, and for a mixture of experts each assignment
+    computed by the next expert, gates of 1 / k and the router's top k
+    reversed; for a serve cell, a decode step's token altered, the KV cache
+    left unwritten by decode, and decode's attention left out.
 
     python3 portbench/calibrate.py --workload <name> --seeds 11 12 ... [--control 3]
 
-Prints one JSON line of readings a seed. Training needs no window; a serve
-cell's readings come from one batch of the cell's load a seed (the same
-prompts under each fault), as many requests judged as a run judges.
+Prints one JSON line of readings a seed. Training needs no window; a
+mixture of experts' reference takes the experts that each run (the
+program's, or a fault's) chose, the control the program's. A serve cell's
+readings come from one batch of the cell's load a seed (the same prompts
+under each fault), as many requests judged as a run judges.
 """
 from __future__ import annotations
 
@@ -39,23 +43,24 @@ def train_seed(cell, step, seed: int, device, control: bool) -> dict:
 
     batches = train_pool(dict(cell.mix, pool=cell.mix["check_steps"]), cell.shape.vocab, seed,
                          device)
-    prog = train.first_steps(cell, step, seed, batches, device)[2]
+    runs = {"program": train.first_steps(cell, step, seed, batches, device)[2]}
     rt.free(device)
-    out = {}
     if control:
-        for name, fault in faults.TRAIN.items():
+        for name, fault in faults.train_faults(cell.shape).items():
             with fault():
-                got = train.first_steps(cell, step, seed, batches, device)[2]
+                runs[name] = train.first_steps(cell, step, seed, batches, device)[2]
             rt.free(device)
-            out[name] = got
     tokens = [b["tokens"] for b in batches]
-    ref = train.reference(cell, seed, tokens, device)
-    row = {"program": _numbers(train_numbers(prog, ref))}
-    for name, got in out.items():
-        row[name] = _numbers(train_numbers(got, ref))
+    routes = runs["program"]["routes"]
+    ref = train.reference(cell, seed, tokens, device, routes)
+    row = {}
+    for name, got in runs.items():
+        want = ref if not cell.shape.experts or name == "program" else train.reference(
+            cell, seed, tokens, device, got["routes"])
+        row[name] = _numbers(train_numbers(got, want))
     if control:
         row["control"] = _numbers(train_numbers(
-            train.reference(cell, seed, tokens, device, prec="fp8"), ref))
+            train.reference(cell, seed, tokens, device, routes, prec="fp8"), ref))
     return row
 
 

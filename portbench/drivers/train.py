@@ -3,10 +3,12 @@ made from the seed.
 
 Set-up builds one train step with its params and AdamW state and drives it
 through the mix's ``check_steps`` first steps (also its warm-up), on batches
-whose rows all differ. The same objects then run the window: whole steps,
-each ended by a device synchronise, until ``seconds`` have passed. The check
-follows the first steps with the plain reference once the window has
-closed, the program's state is freed and the peak memory read.
+whose rows all differ, recording the experts that a mixture of experts
+chose in them. The same objects then run the window, the program untouched:
+whole steps, each ended by a device synchronise, until ``seconds`` have
+passed. The check follows the first steps with the plain reference once the
+window has closed, the program's state is freed and the peak memory read;
+the reference takes the recorded experts (``harness/compare.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from portbench.harness.compare import train_numbers
 from portbench.harness.traffic import train_pool
 from portbench.harness.weights import leaves, make_leaf, make_weights
 from portbench.refs import lm as ref
+from portbench.refs.moe import Routing
 
 
 def program(cell):
@@ -36,49 +39,40 @@ def program(cell):
     if any(defaults[k] != opt[k] for k in defaults):
         raise ValueError(f"the port's AdamW runs {defaults}, the mix states {opt}")
     rt.check_port_constants(s)
-    model_cfg = ModelCfg(dtype=rt.DTYPES[mix["compute_dtype"]], remat=mix["remat"])
+    if s.experts and mix["remat"] != "none":
+        raise ValueError("the record of the experts chosen holds one call of moe.select a "
+                         "layer and step: remat none only")
+    model_cfg = ModelCfg(dtype=rt.DTYPES[mix["compute_dtype"]], remat=mix["remat"],
+                         **rt.moe_options(s, mix))
     step_cfg = TrainStepCfg(num_microbatches=mix["microbatches"], base_lr=opt["base_lr"],
                             warmup_steps=opt["warmup_steps"], total_steps=opt["total_steps"],
                             weight_decay=opt["weight_decay"], clip_norm=opt["clip_norm"])
     return make_train_step(rt.port_arch(s), model_cfg, step_cfg)
 
 
-class Spans:
-    """CUDA events at each step's start and around the port's
-    ``adamw_update``, which the step looks up in its module at each call: the
-    forward + backward is start to the optimizer's entry."""
+@contextlib.contextmanager
+def recorded_routes(s):
+    """While open, the experts (T, k) that each call of the port's
+    ``moe.select`` chose, in the order of the calls: one a layer and step
+    (nothing for a dense model)."""
+    calls = []
+    if not s.experts:
+        yield calls
+        return
+    from repro_torch.models import moe
 
-    def __init__(self):
-        self.rows = []
+    real = moe.select
 
-    def __enter__(self):
-        from repro_torch.train import train_step
+    def select(p, xt, top_k):
+        gates, experts = real(p, xt, top_k)
+        calls.append(experts.detach().to(torch.int32))
+        return gates, experts
 
-        self._module, self._real = train_step, train_step.adamw_update
-
-        def timed(*args, **kwargs):
-            enter, leave = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            enter.record()
-            out = self._real(*args, **kwargs)
-            leave.record()
-            self.rows[-1] += [enter, leave]
-            return out
-
-        train_step.adamw_update = timed
-        return self
-
-    def start(self):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.rows.append([ev])
-
-    def __exit__(self, *exc):
-        self._module.adamw_update = self._real
-
-    def read(self) -> dict:
-        done = [r for r in self.rows if len(r) == 3]
-        return {"fwd_bwd_ms": [a.elapsed_time(b) for a, b, _ in done],
-                "optimizer_ms": [b.elapsed_time(c) for _, b, c in done]}
+    moe.select = select
+    try:
+        yield calls
+    finally:
+        moe.select = real
 
 
 def first_steps(cell, step, seed: int, batches: list, device):
@@ -86,7 +80,7 @@ def first_steps(cell, step, seed: int, batches: list, device):
     the program's ``step``: ``(params, opt, readings)``, the readings being
     each step's loss, each leaf's norm of the first step's clipped gradient
     (from AdamW's first moment, (1 - b1) x that gradient) and of its change
-    over the steps."""
+    over the steps, and the experts chosen (``routes``)."""
     from repro_torch.train import adamw_init
 
     s, f32, b1 = cell.shape, torch.float32, cell.mix["optimizer"]["b1"]
@@ -94,11 +88,12 @@ def first_steps(cell, step, seed: int, batches: list, device):
     params = make_weights(s, seed, f32, device, qk)
     opt = adamw_init(params)
     prog = {"losses": [], "grad_norms": {}, "change_norms": {}}
-    for i, batch in enumerate(batches):
-        params, opt, metrics = step(params, opt, batch)
-        prog["losses"].append(float(metrics["loss"]))
-        if i == 0:
-            prog["grad_norms"] = {p: rt.norm(m) / (1 - b1) for p, m in leaves(opt.mu)}
+    with recorded_routes(s) as prog["routes"]:
+        for i, batch in enumerate(batches):
+            params, opt, metrics = step(params, opt, batch)
+            prog["losses"].append(float(metrics["loss"]))
+            if i == 0:
+                prog["grad_norms"] = {p: rt.norm(m) / (1 - b1) for p, m in leaves(opt.mu)}
     prog["change_norms"] = {p: rt.norm(x - make_leaf(s, seed, p, f32, device, qk))
                             for p, x in leaves(params)}
     return params, opt, prog
@@ -116,36 +111,35 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float) ->
     state = {"params": params, "opt": opt, "i": n_check}
     del params, opt
 
-    def one_step(spans=None):
-        if spans is not None:
-            spans.start()
+    def one_step():
         state["params"], state["opt"], m = step(state["params"], state["opt"],
                                                 pool[state["i"] % len(pool)])
         state["i"] += 1
         rt.sync(device)
         return float(m["loss"])
 
-    spans = Spans() if trace else None
     steps = failed = 0
     t0 = rt.now()
-    with spans or contextlib.nullcontext():
-        while True:
-            failed += not math.isfinite(one_step(spans))
-            steps += 1
-            if rt.now() - t0 >= seconds:
-                break
-        wall = rt.now() - t0
+    while True:
+        failed += not math.isfinite(one_step())
+        steps += 1
+        if rt.now() - t0 >= seconds:
+            break
+    wall = rt.now() - t0
     memory_peak = rt.memory_peak(device)
     tokens = mix["batch"] * mix["seq"]
     record = {"kind": "train", "shape": cell.shape, "mix": mix, "window_s": wall, "steps": steps,
               "tokens": tokens * steps}
-    out = {"setup_s": setup_s, "train_tokens_per_s": tokens * steps / wall,
+    # a mixture's step follows its routing, which the seed's weights and the
+    # steps' updates set: its rate spreads wider across seeds than a dense
+    # model's, and is held to a bound of its own
+    rate = "moe_train_tokens_per_s" if cell.shape.experts else "train_tokens_per_s"
+    out = {"setup_s": setup_s, rate: tokens * steps / wall,
            "attempted": steps, "failed": failed, "memory_peak_bytes": memory_peak,
            "record": record}
     if trace:
         from portbench.harness.trace import profile_agreeing
 
-        record["spans"] = spans.read()
         record["trace"] = profile_agreeing(one_step, mix["profile_steps"],
                                            lambda: rt.sync(device), rt.launch_counters)
 
@@ -153,19 +147,40 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float) ->
     del state, pool, step
     rt.free(device)
     t_ref = rt.now()
-    out["numbers"] = train_numbers(prog, reference(cell, seed, check, device))
+    out["numbers"] = train_numbers(prog, reference(cell, seed, check, device, prog["routes"]))
     out["reference_s"] = rt.now() - t_ref
     return out
 
 
-def reference(cell, seed: int, batches: list, device, prec: str = "float32") -> dict:
+def replayed(s, batches: list, routes: list):
+    """``routes``, the experts a run chose a call, as each step's list of
+    each layer's; None where they do not fit one call a layer and step of
+    (B x S, k) experts."""
+    L, steps = s.layers, len(batches)
+    if len(routes) != L * steps or any(
+            r.shape != (batches[0].numel(), s.top_k) for r in routes):
+        return None
+    return [routes[t * L:(t + 1) * L] for t in range(steps)]
+
+
+def reference(cell, seed: int, batches: list, device, routes=(), prec: str = "float32") -> dict:
     """The reference's first steps from the seed's weights: its losses, first
-    gradient norms and change norms by leaf (``prec="fp8"``: the control)."""
-    s, qk = cell.shape, cell.mix.get("query_key_noise")
+    gradient norms and change norms by leaf (``prec="fp8"``: the control). A
+    mixture of experts takes the experts of ``routes`` (a run's record) and
+    reads its own routing against them (``route``); a record that does not
+    fit reads an infinite ``route_gap``, the reference then routing
+    itself."""
+    s, mix, qk = cell.shape, cell.mix, cell.mix.get("query_key_noise")
+    routing = given = None
+    if s.experts:
+        given = replayed(s, batches, routes)
+        routing = Routing(mix["capacity_factor"], mix["moe_aux_weight"], given)
     ref.exact()
     w = make_weights(s, seed, torch.float32, device, qk)
-    got = ref.train(w, s, batches, cell.mix["optimizer"],
-                    lambda p: make_leaf(s, seed, p, torch.float32, device, qk), prec)
+    got = ref.train(w, s, batches, mix["optimizer"],
+                    lambda p: make_leaf(s, seed, p, torch.float32, device, qk), prec, routing)
     del w
     rt.free(device)
+    if s.experts and given is None:
+        got["route"]["gap"] = math.inf
     return got

@@ -10,6 +10,17 @@ Training (per leaf of the params tree, worst leaf):
   * ``update_gap``: the same of each leaf's change over the first steps.
     Leaves whose reference gradient is under a thousandth of the median
     leaf's move by round-off alone and are left out of it.
+  * of a mixture of experts, whose reference takes the experts the program
+    chose (so that the numbers above see arithmetic only), ``route_gap``:
+    the widest over tokens, layers and steps of the reference's own k-th
+    largest router logit less its logit of the lowest-ranked expert the
+    program chose, over the spread of the token's logits (``refs/moe.py``):
+    0 where the choices agree, a rounding on a near-tie, about 1 for a
+    wrong router; infinite where the program's record of its choices does
+    not fit the steps. Reported beside it and not compared:
+    ``route_differed`` and ``route_dropped``, the shares of token-layers
+    whose chosen experts differ from the reference's own and of assignments
+    past their expert's capacity.
 Serving:
   * ``logit_gap``: the widest gap by which a served token's logit lies below
     the reference's best at its position.
@@ -44,8 +55,12 @@ def train_numbers(prog: dict, ref: dict) -> dict:
     moved = {k for k, v in grads.items() if v >= TINY_GRAD * med}
     grad = leaf_gaps(prog["grad_norms"], grads)
     update = leaf_gaps(prog["change_norms"], ref["change_norms"], moved)
-    return {"loss_gap": loss_gap, "grad_gap": _worst(grad), "update_gap": _worst(update),
-            "_leaves": {"grad": grad, "update": update, "left_out": sorted(set(grads) - moved)}}
+    out = {"loss_gap": loss_gap, "grad_gap": _worst(grad), "update_gap": _worst(update),
+           "_leaves": {"grad": grad, "update": update, "left_out": sorted(set(grads) - moved)}}
+    if "route" in ref:
+        out |= {"route_gap": ref["route"]["gap"], "route_differed": ref["route"]["differed"],
+                "route_dropped": ref["route"]["dropped"]}
+    return out
 
 
 def verdict(numbers: dict, checks: dict) -> tuple[bool, dict]:

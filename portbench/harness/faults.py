@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import contextlib
 
+import torch
+
 
 @contextlib.contextmanager
 def _patched(module, name: str, make):
@@ -41,6 +43,44 @@ def frozen_state():
     return _patched(train_step, "adamw_update", make)
 
 
+def experts_shifted():
+    """Each assignment computed by the next expert, (e + 1) mod E, the
+    routing and the gates left as they are."""
+    from repro_torch.models import moe
+
+    def make(real):
+        def _experts(grouped, wi, wo, *args, **kwargs):
+            return real(grouped, wi.roll(-1, 0), wo.roll(-1, 0), *args, **kwargs)
+        return _experts
+    return _patched(moe, "_experts", make)
+
+
+def gates_uniform():
+    """The router's experts weighed alike, 1 / k each."""
+    from repro_torch.models import moe
+
+    def make(real):
+        def select(p, xt, top_k):
+            gates, experts = real(p, xt, top_k)
+            return torch.full_like(gates, 1.0 / top_k), experts
+        return select
+    return _patched(moe, "select", make)
+
+
+def router_reversed():
+    """The top k of the negated router logits, the gates a softmax over the
+    logits at those experts: a wrong router whose products are sound."""
+    from repro_torch.models import moe
+
+    def make(real):
+        def select(p, xt, top_k):
+            logits = xt.float() @ p["router"].float()
+            experts = torch.topk(-logits, top_k, dim=-1).indices
+            return torch.softmax(logits.gather(-1, experts), dim=-1).to(xt.dtype), experts
+        return select
+    return _patched(moe, "select", make)
+
+
 def token_altered(every: int = 3):
     """The logits of every ``every``-th decode step changed where they are
     made, so that each request's token there is another (token 0)."""
@@ -71,18 +111,30 @@ def cache_unwritten():
     return _patched(lm, "_write_cache", make)
 
 
+@contextlib.contextmanager
 def attention_dropped():
-    """Decode steps whose attention over the KV cache gives zeros."""
+    """Decode steps whose attention over the KV cache gives zeros, on either
+    route: K2 over a plain cache (``_flash_cached_attention``), ``flash_xla``
+    over the others."""
     from repro_torch.models import lm
 
     def make(real):
-        def flash_xla(q, k, v, **kwargs):
-            out = real(q, k, v, **kwargs)
+        def attend(q, *args, **kwargs):
+            out = real(q, *args, **kwargs)
             return out.zero_() if q.shape[2] == 1 else out
-        return flash_xla
-    return _patched(lm, "flash_xla", make)
+        return attend
+    with _patched(lm, "flash_xla", make), _patched(lm, "_flash_cached_attention", make):
+        yield
 
 
 TRAIN = {"half_batch": half_batch, "frozen_state": frozen_state}
+MOE_TRAIN = {"experts_shifted": experts_shifted, "gates_uniform": gates_uniform,
+             "router_reversed": router_reversed}
 SERVE = {"token_altered": token_altered, "cache_unwritten": cache_unwritten,
          "attention_dropped": attention_dropped}
+
+
+def train_faults(s) -> dict:
+    """The faults a train cell of the configuration ``s`` (a ``Shape``) can
+    have: a mixture of experts adds its routing's and its experts'."""
+    return TRAIN | (MOE_TRAIN if s.experts else {})

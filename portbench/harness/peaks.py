@@ -21,10 +21,13 @@ def bound_s(nbytes: float, ops: float, peak_ops: float) -> float:
 
 def matmul_params(s: Shape) -> float:
     """Parameters that a token multiplies: the layers' weight products and
-    the head."""
+    the head. Of a mixture of experts, the router and the ``top_k`` experts
+    the token is routed to; the capacity's padded slots are not model
+    work."""
     d, D = s.hidden, s.head_dim
     attn = d * (s.heads + 2 * s.kv_heads) * D + s.heads * D * d
-    return float(s.layers * (attn + 3 * d * s.ffn) + d * s.vocab)
+    mlp = d * s.experts + s.top_k * 3 * d * s.expert_ffn if s.experts else 3 * d * s.ffn
+    return float(s.layers * (attn + mlp) + d * s.vocab)
 
 
 def causal_pairs(S: int, T: int) -> int:

@@ -36,12 +36,28 @@ def memory_peak(device) -> int:
 
 
 def port_arch(s: Shape):
-    """The port's ``ModelArch`` of a configuration."""
+    """The port's ``ModelArch`` of a configuration: the dense family, or the
+    moe family where it has sparse experts."""
     from repro_torch.core.arch import ModelArch
 
+    if s.experts:
+        return ModelArch(
+            name=s.name, family="moe", num_layers=s.layers, hidden=s.hidden, heads=s.heads,
+            kv_heads=s.kv_heads, ffn=s.expert_ffn, vocab=s.vocab, tie_embeddings=s.tie,
+            num_experts=s.experts, top_k=s.top_k, moe_ffn=s.expert_ffn)
     return ModelArch(
         name=s.name, family="dense", num_layers=s.layers, hidden=s.hidden, heads=s.heads,
         kv_heads=s.kv_heads, ffn=s.ffn, vocab=s.vocab, tie_embeddings=s.tie)
+
+
+def moe_options(s: Shape, mix: dict) -> dict:
+    """The port's ``ModelCfg`` options of a mix that a mixture of experts
+    runs: its capacity factor and load-balancing weight (none for a dense
+    model, whose options stay the port's defaults)."""
+    if not s.experts:
+        return {}
+    return {"capacity_factor": float(mix["capacity_factor"]),
+            "moe_aux_weight": float(mix["moe_aux_weight"])}
 
 
 def check_port_constants(s: Shape) -> None:

@@ -19,9 +19,19 @@ NAME_RE = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}")
 UNIT_RE = re.compile(r"[A-Za-z0-9_/%.\-]{1,16}")
 
 
+# Keys of a published configuration that the port has no option for, with the
+# value at which they change nothing: a file that states another value is not
+# what the port runs, and is refused by name.
+NEUTRAL = {"embedding_multiplier": 1.0, "residual_multiplier": 1.0, "logits_scaling": 1.0,
+           "shared_intermediate_size": 0, "sliding_window": None}
+
+
 @dataclasses.dataclass(frozen=True)
 class Shape:
-    """The sizes and constants of one configuration as the benchmark runs it."""
+    """The sizes and constants of one configuration as the benchmark runs it.
+    A dense model's MLP is ``ffn`` wide; a mixture of experts has no dense
+    MLP (``ffn`` 0) and routes each token to ``top_k`` of ``experts`` SwiGLU
+    experts ``expert_ffn`` wide."""
 
     name: str
     layers: int
@@ -34,6 +44,9 @@ class Shape:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     attn_scale: float = 0.0  # 0: 1 / sqrt(head_dim)
+    experts: int = 0
+    top_k: int = 0
+    expert_ffn: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -45,18 +58,25 @@ class Shape:
 
     @classmethod
     def from_config(cls, cfg: dict) -> "Shape":
-        """A dense llama-architecture configuration; the plain reference has
-        no other."""
-        if int(cfg.get("num_local_experts", 0)):
-            raise ValueError(f"{cfg['name']}: the plain reference runs dense models only")
+        """A llama-architecture configuration, dense or with sparse experts in
+        place of its MLP (``num_local_experts``, ``num_experts_per_tok``, and
+        ``intermediate_size`` as the width of one expert)."""
+        for key, value in NEUTRAL.items():
+            if cfg.get(key, value) != value:
+                raise ValueError(f"{cfg['name']}: the benchmark does not run {key} "
+                                 f"{cfg[key]!r} (only {value!r})")
+        experts = int(cfg.get("num_local_experts", 0))
+        ffn = int(cfg["intermediate_size"])
         return cls(
             name=cfg["name"], layers=int(cfg["num_hidden_layers"]),
             hidden=int(cfg["hidden_size"]), heads=int(cfg["num_attention_heads"]),
-            kv_heads=int(cfg["num_key_value_heads"]), ffn=int(cfg["intermediate_size"]),
+            kv_heads=int(cfg["num_key_value_heads"]), ffn=0 if experts else ffn,
             vocab=int(cfg["vocab_size"]), tie=bool(cfg.get("tie_word_embeddings", False)),
             rope_theta=float(cfg.get("rope_theta", 10000.0)),
             norm_eps=float(cfg.get("rms_norm_eps", 1e-6)),
             attn_scale=float(cfg.get("attention_multiplier", 0.0)),
+            experts=experts, top_k=int(cfg["num_experts_per_tok"]) if experts else 0,
+            expert_ffn=ffn if experts else 0,
         )
 
 

@@ -3,8 +3,10 @@
 The layout is the one the port's LM takes (each per-layer leaf stacked on a
 leading L axis): ``embed`` (V, d), ``lm_head`` (d, V) unless tied,
 ``final_norm`` (d,), and under ``layers``: ``ln1``, ``ln2`` (L, d),
-``attn.wqkv`` (L, d, (H + 2 Hkv) D), ``attn.wo`` (L, H D, d), ``mlp.wi``
-(L, d, 2F) and ``mlp.wo`` (L, F, d).
+``attn.wqkv`` (L, d, (H + 2 Hkv) D), ``attn.wo`` (L, H D, d), and
+``mlp.wi`` (L, d, 2F) and ``mlp.wo`` (L, F, d) for a dense model, or, with E
+experts of width F, ``moe.router`` (L, d, E), ``moe.wi`` (L, E, d, 2F) and
+``moe.wo`` (L, E, F, d) in their place.
 
 Each leaf has a generator of its own, seeded from the run's seed and the
 leaf's index, so that one leaf can be made again alone (the check of a train
@@ -44,9 +46,19 @@ def leaf_specs(s: Shape) -> list[tuple[str, tuple[int, ...], float, bool]]:
         ("layers.ln2", (L, d), 0.1, True),
         ("layers.attn.wqkv", (L, d, (s.heads + 2 * s.kv_heads) * D), fan, False),
         ("layers.attn.wo", (L, s.heads * D, d), out, False),
-        ("layers.mlp.wi", (L, d, 2 * F), fan, False),
-        ("layers.mlp.wo", (L, F, d), F ** -0.5 / (2.0 * L) ** 0.5, False),
     ]
+    if s.experts:  # in the MLP's place; a dense model's leaves keep their indices
+        E, F = s.experts, s.expert_ffn
+        specs += [
+            ("layers.moe.router", (L, d, E), fan, False),
+            ("layers.moe.wi", (L, E, d, 2 * F), fan, False),
+            ("layers.moe.wo", (L, E, F, d), F ** -0.5 / (2.0 * L) ** 0.5, False),
+        ]
+    else:
+        specs += [
+            ("layers.mlp.wi", (L, d, 2 * F), fan, False),
+            ("layers.mlp.wo", (L, F, d), F ** -0.5 / (2.0 * L) ** 0.5, False),
+        ]
     if not s.tie:
         specs.append(("lm_head", (d, s.vocab), fan, False))
     return specs

@@ -1,5 +1,5 @@
-"""A decode step through the KV cache and ``flash_xla``
-(``serve/engine.py``, ``kernels/xla_flash.py``): the median of the window's
+"""A decode step through the KV cache and the cached attention
+(``serve/engine.py``, ``models/lm.py``): the median of the window's
 ``GenerateResult.step_times`` after each batch's warm-up steps, in ms."""
 import statistics
 

@@ -1,9 +1,11 @@
-"""The share of the (query, key) pairs that ``flash_xla`` scores in the
-engine's prefill that its mask leaves live (``kernels/xla_flash.py``: every
-query is scored against every key slot, the causal mask and the unwritten
-slots then hide the rest): the program's ``attn.pairs_live`` over
-``attn.pairs_scored`` under its ``serve.prefill`` spans, in %, in the chosen
-trace."""
+"""The share of the (query, key) pairs that the cached attention scores in
+the engine's prefill that the causal mask leaves live, counted by the route
+that ran: K2 over a plain cache's written slots (``models/lm.py``
+``_flash_cached_attention``: its 64-row tiles up to their last key), or
+``flash_xla`` over the others (``kernels/xla_flash.py``: every query against
+every key slot, the mask and the unwritten slots hiding the rest). The
+program's ``attn.pairs_live`` over ``attn.pairs_scored`` under its
+``serve.prefill`` spans, in %, in the chosen trace."""
 from portbench.harness import program_spans as ps
 
 

@@ -1,8 +1,9 @@
-"""The plain reference of the LMs the benchmark runs: dense, of the llama
+"""The plain reference of the LMs the benchmark runs: of the llama
 architecture (RMSNorm, rotary embedding, grouped-query causal attention,
-SwiGLU), their next-token loss, AdamW with global norm clipping and a
-warm-up + cosine schedule, and the full forward that a served token is
-judged by.
+SwiGLU), dense or with a mixture of experts in the MLP's place
+(``refs/moe.py``), their next-token loss (with the mixture's load-balancing
+term), AdamW with global norm clipping and a warm-up + cosine schedule, and
+the full forward that a served token is judged by.
 
 Plain PyTorch in float32 with TF32 off, from the sizes of a ``Shape`` and a
 dict of weights the benchmark made from the seed. It imports nothing of the
@@ -20,6 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from portbench.refs import moe
 
 FP8_MAX = 448.0  # largest float8 e4m3 value
 
@@ -82,7 +85,9 @@ def mlp(x, wi, wo, q_ops):
     return q_ops(F.silu(gate) * up) @ q_ops(wo)
 
 
-def layer(h, lw: dict, s, positions, q_ops):
+def layer(h, lw: dict, s, positions, q_ops, routed=None):
+    """A layer on h (B, S, d). A mixture of experts takes ``routed``
+    (capacity factor, given experts or None) and returns ``(h, read)``."""
     B, S, _ = h.shape
     H, Hkv, D = s.heads, s.kv_heads, s.head_dim
     x = rmsnorm(h, lw["ln1"], s.norm_eps)
@@ -93,6 +98,9 @@ def layer(h, lw: dict, s, positions, q_ops):
     a = attention(q, k, v, s.scale, q_ops).transpose(1, 2).reshape(B, S, H * D)
     h = h + q_ops(a) @ q_ops(lw["attn"]["wo"])
     x = rmsnorm(h, lw["ln2"], s.norm_eps)
+    if s.experts:
+        y, read = moe.layer(x, lw["moe"], s, q_ops, *routed)
+        return h + y, read
     return h + mlp(x, lw["mlp"]["wi"], lw["mlp"]["wo"], q_ops)
 
 
@@ -102,16 +110,20 @@ def _layer_weights(w: dict, i: int) -> dict:
     return take(w["layers"])
 
 
-def hidden(w: dict, s, tokens, q_ops, remat: bool):
-    """The final norm's output (B, S, d) over ``tokens`` (B, S)."""
+def hidden(w: dict, s, tokens, q_ops, remat: bool, routing: moe.Routing | None = None):
+    """The final norm's output (B, S, d) over ``tokens`` (B, S); a mixture
+    of experts routes by ``routing``, which keeps what each layer read."""
     h = w["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    if s.experts:
+        routing.start_step()
     for i in range(s.layers):
-        lw = _layer_weights(w, i)
-        if remat:
-            h = checkpoint(layer, h, lw, s, positions, q_ops, use_reentrant=False)
-        else:
-            h = layer(h, lw, s, positions, q_ops)
+        args = (h, _layer_weights(w, i), s, positions, q_ops)
+        if s.experts:
+            args += ((routing.capacity_factor, routing.choices(i)),)
+        h = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
+        if s.experts:
+            h, routing.reads[-1][i] = h
     return rmsnorm(h, w["final_norm"], s.norm_eps)
 
 
@@ -119,11 +131,18 @@ def head(w: dict, s):
     return w["embed"].T if s.tie else w["lm_head"]
 
 
-def loss(w: dict, s, tokens, prec: str = "float32") -> torch.Tensor:
-    """Mean next-token cross-entropy (position t predicts token t + 1)."""
+def loss(w: dict, s, tokens, prec: str = "float32",
+         routing: moe.Routing | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy (position t predicts token t + 1); a
+    mixture of experts adds its load-balancing term at ``routing``'s
+    weight."""
     q_ops = _ops(prec)
-    logits = q_ops(hidden(w, s, tokens, q_ops, remat=True)[:, :-1]) @ q_ops(head(w, s))
-    return (torch.logsumexp(logits, -1) - logits.gather(-1, tokens[:, 1:, None])[..., 0]).mean()
+    logits = q_ops(hidden(w, s, tokens, q_ops, True, routing)[:, :-1]) @ q_ops(head(w, s))
+    value = (torch.logsumexp(logits, -1) - logits.gather(-1, tokens[:, 1:, None])[..., 0]).mean()
+    if s.experts and routing.aux_weight:
+        aux = moe.aux_loss(w["embed"][tokens], w["layers"]["moe"]["router"][0], s, q_ops)
+        value = value + routing.aux_weight * aux
+    return value
 
 
 def _leaves(tree, prefix=""):
@@ -142,11 +161,14 @@ def lr_at(step: int, opt: dict) -> float:
     return base * (0.1 + 0.9 * 0.5 * (1 + math.cos(math.pi * frac)))
 
 
-def train(w: dict, s, batches: list, opt: dict, start, prec: str = "float32") -> dict:
+def train(w: dict, s, batches: list, opt: dict, start, prec: str = "float32",
+          routing: moe.Routing | None = None) -> dict:
     """AdamW steps on ``w`` (float32 leaves, updated in place) over
     ``batches`` (token tensors): the losses, each leaf's norm of the first
     step's gradient after clipping, and each leaf's norm of its change over
-    all the steps against ``start(path)``, its value before them."""
+    all the steps against ``start(path)``, its value before them; a mixture
+    of experts also what its layers read of the routing (``route``:
+    ``Routing.summary``)."""
     paths = [p for p, _ in _leaves(w)]
     params = [t for _, t in _leaves(w)]
     mu = [torch.zeros_like(p) for p in params]
@@ -156,7 +178,7 @@ def train(w: dict, s, batches: list, opt: dict, start, prec: str = "float32") ->
     for t, tokens in enumerate(batches, start=1):
         for p in params:
             p.requires_grad_(True)
-        value = loss(w, s, tokens, prec)
+        value = loss(w, s, tokens, prec, routing)
         grads = torch.autograd.grad(value, params)
         out["losses"].append(float(value.detach()))
         del value
@@ -181,6 +203,8 @@ def train(w: dict, s, batches: list, opt: dict, start, prec: str = "float32") ->
     with torch.no_grad():
         for path, p in zip(paths, params):
             out["change_norms"][path] = float(torch.linalg.vector_norm(p - start(path)))
+    if s.experts:
+        out["route"] = routing.summary()
     return out
 
 

@@ -112,6 +112,9 @@ def main(argv=None) -> int:
     if found:
         _fail(f"the run loaded {', '.join(found)}: neither JAX nor the JAX package may load", 5)
     line["checks"] = checks
+    for name, value in out["numbers"].items():
+        if name not in checks and not name.startswith("_"):
+            print(f"reported {name} {value!r}", file=sys.stderr)
     print(f"timing setup_s {out['setup_s']:.3f} window_s {out['record']['window_s']:.3f} "
           f"reference_s {out['reference_s']:.3f} total_s {time.perf_counter() - T_START:.3f}",
           file=sys.stderr)

@@ -1,5 +1,5 @@
 """Small cells for the CPU: the real traffic files at small sizes, and
-small dense configurations."""
+small dense and mixture-of-experts configurations."""
 import copy
 
 from portbench.harness.spec import BENCH, Cell, Shape, load_json
@@ -9,6 +9,10 @@ DENSE = {"name": "dense-small", "num_hidden_layers": 2, "hidden_size": 64,
          "vocab_size": 256, "rope_theta": 10000.0, "rms_norm_eps": 1e-6}
 WIDER = dict(DENSE, name="dense-wider", num_hidden_layers=8, hidden_size=256,
              intermediate_size=704, num_attention_heads=8, vocab_size=4096)
+# granite's shape at a small size: 8 experts of width 32, 2 a token, a tied
+# head; B=4 x S=32 gives each expert 40 slots for its 32 assignments on average
+MOE = dict(DENSE, name="moe-small", intermediate_size=32, num_local_experts=8,
+           num_experts_per_tok=2, tie_word_embeddings=True)
 
 
 def cell(config: dict, mix: str, checks: str, dtype: str = "float32", **sizes) -> Cell:
@@ -20,8 +24,12 @@ def cell(config: dict, mix: str, checks: str, dtype: str = "float32", **sizes) -
                 load_json(BENCH / "checks" / f"{checks}.json"), [], [])
 
 
-def train_cell(config=DENSE, checks="train.yi-6b.s2048", **kw):
-    return cell(config, "train-b4-s2048", checks, **(dict(batch=4, seq=32, pool=6) | kw))
+def train_cell(config=DENSE, checks="train.yi-6b.s2048", mix="train-b4-s2048", **kw):
+    return cell(config, mix, checks, **(dict(batch=4, seq=32, pool=6) | kw))
+
+
+def moe_train_cell(**kw):
+    return train_cell(MOE, "train.granite-moe-3b-a800m.s2048", "train-b8-s2048", **kw)
 
 
 def serve_cell(config=DENSE, **kw):

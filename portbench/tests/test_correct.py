@@ -10,32 +10,43 @@ from portbench.harness import faults, runtime as rt
 from portbench.harness.compare import train_numbers, verdict
 from portbench.harness.traffic import sample, serve_prompts, train_pool
 from portbench.harness.weights import make_weights
-from portbench.tests.cells import DENSE, WIDER, serve_cell, train_cell
+from portbench.tests.cells import DENSE, MOE, WIDER, serve_cell, train_cell
 
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 101
-TRAIN = [(DENSE, "train.yi-6b.s2048")]
+TRAIN = {"dense": (DENSE, "train.yi-6b.s2048", "train-b4-s2048"),
+         "moe": (MOE, "train.granite-moe-3b-a800m.s2048", "train-b8-s2048")}
+RUNS = [(fault, kind) for kind in TRAIN
+        for fault in [None, *faults.train_faults(train_cell(TRAIN[kind][0]).shape)]]
 
 
-@pytest.mark.parametrize("config,cell", TRAIN, ids=["dense"])
-@pytest.mark.parametrize("fault", [None, *faults.TRAIN])
-def test_train_run(config, cell, fault):
-    c = train_cell(config, checks=cell)
+def _cell(kind):
+    config, checks, mix = TRAIN[kind]
+    return train_cell(config, checks=checks, mix=mix)
+
+
+@pytest.mark.parametrize("fault,kind", RUNS)
+def test_train_run(fault, kind):
+    c = _cell(kind)
     if fault is None:
         out = train.run(c, SEED, 0.2, False, CPU, rt.now())
     else:
-        with faults.TRAIN[fault]():
+        with faults.train_faults(c.shape)[fault]():
             out = train.run(c, SEED, 0.2, False, CPU, rt.now())
     ok, checks = verdict(out["numbers"], c.checks)
     assert ok == (fault is None), checks
+    if fault == "router_reversed":  # its products are sound: the routing's number fails
+        assert checks["route_gap"]["value"] > checks["route_gap"]["limit"], checks
 
 
-@pytest.mark.parametrize("config,cell", TRAIN, ids=["dense"])
-def test_train_control(config, cell):
-    c = train_cell(config, checks=cell)
-    tokens = [b["tokens"] for b in train_pool(c.mix, c.shape.vocab, SEED, CPU)[:3]]
-    want = train.reference(c, SEED, tokens, CPU)
-    got = train.reference(c, SEED, tokens, CPU, prec="fp8")
+@pytest.mark.parametrize("kind", TRAIN)
+def test_train_control(kind):
+    c = _cell(kind)
+    batches = train_pool(c.mix, c.shape.vocab, SEED, CPU)[:3]
+    routes = train.first_steps(c, train.program(c), SEED, batches, CPU)[2]["routes"]
+    tokens = [b["tokens"] for b in batches]
+    want = train.reference(c, SEED, tokens, CPU, routes)
+    got = train.reference(c, SEED, tokens, CPU, routes, prec="fp8")
     ok, checks = verdict(train_numbers(got, want), c.checks)
     assert not ok, checks
 

@@ -148,3 +148,10 @@ def test_nothing_without_spans(recorded, monkeypatch, metric):
     monkeypatch.delattr(repro_torch, "spans")
     monkeypatch.setitem(sys.modules, "repro_torch.spans", None)
     assert read_metric(metric, rec) is None
+
+
+def test_the_moe_cell_reads_as_the_train_readers(recorded):
+    _train_spans(recorded)
+    rec = {"trace": _trace([(0, 1200)], [("ProfilerStep#1", 0, 1200)])}
+    for m in TRAIN:
+        assert read_metric(m.replace(".train", ".moe"), rec) == read_metric(m, rec), m

@@ -1,6 +1,6 @@
 """The port against the plain reference at small sizes on the CPU, both in
 float32: the train step's first steps (forward through the norms and
-attention, the backward, AdamW) and
+attention, the backward, AdamW), the MoE layer on the port's routing, and
 the served path (prefill, then decode through the KV cache, against the
 reference's full forward)."""
 import numpy as np
@@ -9,6 +9,7 @@ import torch
 
 from portbench.drivers import serve, train
 from portbench.harness import runtime as rt
+from portbench.harness.spec import Shape
 from portbench.harness.traffic import serve_prompts, train_pool
 from portbench.harness.weights import make_weights
 from portbench.refs import lm as ref
@@ -52,3 +53,48 @@ def test_served_logits_match_the_full_forward():
     run = serve.run(c, 11, 0.2, False, CPU, rt.now())
     assert run["numbers"]["logit_gap"] == pytest.approx(0.0, abs=1e-4)
     assert run["attempted"] % mix["batch"] == 0 and run["failed"] == 0
+
+
+def test_moe_layer_matches_the_port_on_its_routing():
+    """The reference's MoE layer against the port's ``moe_block`` at a small
+    granite-shaped size, both in float32, the reference taking the port's
+    experts: the output, the gradients of the input and of each weight, and
+    the same assignments kept (some dropped past their capacity)."""
+    from repro_torch.models import moe as port
+
+    from portbench.refs import moe as ref_moe
+    from portbench.tests.cells import MOE
+
+    s = Shape.from_config(MOE)
+    T, k, cf = 4 * 32, s.top_k, 1.0  # C = 32, the mean load: some experts overflow
+    w = make_weights(s, 2 ** 31 + 7, torch.float32, CPU)["layers"]["moe"]
+    x = torch.randn(4, 32, s.hidden, generator=torch.Generator().manual_seed(3))
+
+    def grads(fn, **kw):
+        p = {n: t[0].clone().requires_grad_(True) for n, t in w.items()}
+        xi = x.clone().requires_grad_(True)
+        y = fn(p, xi, **kw)
+        y = y[0] if isinstance(y, tuple) else y
+        (y * torch.linspace(-1, 1, y.numel()).reshape(y.shape)).sum().backward()
+        return y.detach(), xi.grad, {n: t.grad for n, t in p.items()}
+
+    with train.recorded_routes(s) as routes:
+        y_port, gx_port, gw_port = grads(lambda p, xi: port.moe_block(p, xi, top_k=k,
+                                                                      capacity_factor=cf))
+    y_ref, gx_ref, gw_ref = grads(lambda p, xi: ref_moe.layer(xi, p, s, lambda t: t, cf,
+                                                              routes[0]))
+    torch.testing.assert_close(y_ref, y_port, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gx_ref, gx_port, rtol=1e-5, atol=1e-6)
+    for n in w:
+        torch.testing.assert_close(gw_ref[n], gw_port[n], rtol=1e-5, atol=1e-6, msg=n)
+
+    xt = x.reshape(T, s.hidden)
+    _, e_sorted, _, pos, t_sorted, _, C = port.global_route(w["router"][0], xt, k, cf, T)
+    port_kept = {(int(t), int(e)) for t, e, p in zip(t_sorted, e_sorted, pos) if p < C}
+    chosen = routes[0].long()
+    slot = ref_moe.slots(chosen, s.experts)
+    ref_kept = {(t, int(chosen[t, j])) for t in range(T) for j in range(k) if slot[t, j] < C}
+    assert ref_kept == port_kept and 0 < len(ref_kept) < T * k
+    _, read = ref_moe.layer(x, {n: t[0] for n, t in w.items()}, s, lambda t: t, cf, routes[0])
+    assert float(read["gap"]) == 0 and int(read["differed"]) == 0
+    assert int(read["dropped"]) == T * k - len(ref_kept)

@@ -7,7 +7,8 @@ import pytest
 from portbench.harness.spec import ROOT
 
 
-@pytest.mark.parametrize("workload", ["train.yi-6b.s2048", "serve.yi-6b.doc4k"])
+@pytest.mark.parametrize("workload", ["train.yi-6b.s2048", "serve.yi-6b.doc4k",
+                                      "train.granite-moe-3b-a800m.s2048"])
 def test_no_card_no_result(workload):
     import torch
 

@@ -8,7 +8,7 @@ from portbench.harness import peaks, traffic
 from portbench.harness.spec import BENCH, Shape, load_json
 from portbench.harness.trace import (Trace, TraceError, breakdown, fold, gaps, idle_share,
                                      union_s)
-from portbench.harness.weights import make_weights
+from portbench.harness.weights import leaf_seed, leaf_specs, make_weights
 from portbench.run import read_metric
 
 
@@ -26,6 +26,62 @@ def test_yi_train_flops_by_hand():
     flops = peaks.train_flops(shape("yi-6b-l8"), 4, 2048)
     assert flops == 6 * params * tokens + attn
     assert f"{flops:.3g}" == "8.42e+13"
+
+
+YI_SHAPES = {  # the values of the harness before it read the moe family
+    "yi-6b-l8": dict(layers=8, matmul_params=1646264320.0, train_flops=84217329352704.0,
+                     serve_flops=233314367569920.0, norm_launches=17, attn_launches=8,
+                     wo_scale=0.00390625, mlp_wo_scale=0.002382790161446948),
+    "yi-6b": dict(layers=32, matmul_params=5798625280.0, train_flops=298214611746816.0,
+                  serve_flops=830203420999680.0, norm_launches=65, attn_launches=32,
+                  wo_scale=0.001953125, mlp_wo_scale=0.001191395080723474),
+}
+
+
+@pytest.mark.parametrize("name", YI_SHAPES)
+def test_dense_readings_stay_as_they_were(name):
+    want, s = YI_SHAPES[name], shape(name)
+    assert s == Shape(name, layers=want["layers"], hidden=4096, heads=32, kv_heads=4,
+                      ffn=11008, vocab=64000, tie=False, rope_theta=10000.0, norm_eps=1e-6)
+    L = want["layers"]
+    assert leaf_specs(s) == [
+        ("embed", (64000, 4096), 0.015625, False), ("final_norm", (4096,), 0.1, True),
+        ("layers.ln1", (L, 4096), 0.1, True), ("layers.ln2", (L, 4096), 0.1, True),
+        ("layers.attn.wqkv", (L, 4096, 5120), 0.015625, False),
+        ("layers.attn.wo", (L, 4096, 4096), want["wo_scale"], False),
+        ("layers.mlp.wi", (L, 4096, 22016), 0.015625, False),
+        ("layers.mlp.wo", (L, 11008, 4096), want["mlp_wo_scale"], False),
+        ("lm_head", (4096, 64000), 0.015625, False)]
+    assert [leaf_seed(2 ** 31 + 977, i) for i in (0, 8)] == [2147491067461794,
+                                                              2147491067525146]
+    assert peaks.matmul_params(s) == want["matmul_params"]
+    assert peaks.train_flops(s, 4, 2048) == want["train_flops"]
+    assert peaks.serve_batch_flops(s, 16, 4080, 16) == want["serve_flops"]
+    assert peaks.train_norm_launches(s) == want["norm_launches"]
+    assert peaks.train_attn_launches(s) == want["attn_launches"]
+
+
+def test_granite_train_flops_by_hand():
+    # d 1536, 24 q and 8 kv heads of 64, 40 experts of 512, top 8, V 49155 tied,
+    # 16 layers: a token runs the router and 8 experts, not the 40
+    s = shape("granite-moe-3b-a800m-l16")
+    assert (s.experts, s.top_k, s.expert_ffn, s.ffn, s.head_dim) == (40, 8, 512, 0, 64)
+    layer = 1536 * 40 * 64 + 1536 * 1536 + 1536 * 40 + 8 * 3 * 1536 * 512
+    params = 16 * layer + 1536 * 49155
+    assert peaks.matmul_params(s) == params == 479_138_304
+    attn = 3 * 4 * 24 * 64 * (2048 * 2049 // 2) * 8 * 16
+    assert peaks.train_flops(s, 8, 2048) == 6 * params * 8 * 2048 + attn
+    assert (peaks.train_norm_launches(s), peaks.train_attn_launches(s)) == (33, 16)
+    assert [p for p, *_ in leaf_specs(s)][6:] == ["layers.moe.router", "layers.moe.wi",
+                                                  "layers.moe.wo"]  # tied: no lm_head
+
+
+def test_keys_the_port_does_not_run_are_refused_by_name():
+    cfg = load_json(BENCH / "configs" / "granite-moe-3b-a800m-l16.json")
+    for key, value in (("residual_multiplier", 0.22), ("logits_scaling", 6.0),
+                       ("embedding_multiplier", 12.0), ("shared_intermediate_size", 1024)):
+        with pytest.raises(ValueError, match=key):
+            Shape.from_config(dict(cfg, **{key: value}))
 
 
 def test_serve_flops_prefill_then_served_decode_steps():
@@ -78,7 +134,7 @@ def test_fold_names():
                 "(long const*)") == "at::native::indexing_backward_kernel"
 
 
-@pytest.mark.parametrize("mix", ["train-b4-s2048", "serve-doc4k"])
+@pytest.mark.parametrize("mix", ["train-b4-s2048", "train-b8-s2048", "serve-doc4k"])
 def test_traffic_is_the_seeds(mix):
     m = load_json(BENCH / "traffic" / f"{mix}.json")
     make = traffic.train_batch if m["driver"] == "train" else traffic.serve_prompts
@@ -122,6 +178,16 @@ def test_roofline_readers(metric, counter, kernel, per_step):
         read_metric(metric, _train_record({counter: 2 * per_step + 2}, events))
     with pytest.raises(TraceError, match="no device event"):  # names changed or lost
         read_metric(metric, _train_record({counter: 2 * per_step}, []))
+
+
+@pytest.mark.parametrize("metric", ["rmsnorm_roofline", "attn_fwd_roofline", "train_mfu",
+                                    "idle_share"])
+def test_the_moe_cell_reads_as_the_train_readers(metric):
+    events = [(K1, 0, 500_000), (K2, 600_000, 1_100_000)]
+    rec = dict(_train_record({"rmsnorm": 34, "flash_attention": 16}, events), steps=3,
+               window_s=2.0)
+    train = metric if metric == "train_mfu" else f"{metric}.train"
+    assert read_metric(f"{metric}.moe", rec) == read_metric(train, rec) is not None
 
 
 def test_queries_near_keys_make_attention_rest_on_each_token():
