@@ -9,8 +9,10 @@ at the cell's own size, in one process:
     half of each batch left out (the loss a mean over the rest) and the state
     returned unchanged, and for a mixture of experts each assignment
     computed by the next expert, gates of 1 / k and the router's top k
-    reversed; for a serve cell, a decode step's token altered, the KV cache
-    left unwritten by decode, and decode's attention left out.
+    reversed, and for a layer whose window is shorter than the sequence its
+    attention over every earlier key; for a serve cell, a decode step's
+    token altered, the KV cache left unwritten by decode, and decode's
+    attention left out.
 
     python3 portbench/calibrate.py --workload <name> --seeds 11 12 ... [--control 3]
 
@@ -46,7 +48,7 @@ def train_seed(cell, step, seed: int, device, control: bool) -> dict:
     runs = {"program": train.first_steps(cell, step, seed, batches, device)[2]}
     rt.free(device)
     if control:
-        for name, fault in faults.train_faults(cell.shape).items():
+        for name, fault in faults.train_faults(cell.shape, cell.mix["seq"]).items():
             with fault():
                 runs[name] = train.first_steps(cell, step, seed, batches, device)[2]
             rt.free(device)

@@ -127,6 +127,18 @@ def attention_dropped():
         yield
 
 
+def window_ignored():
+    """The sliding-window layers' attention over every earlier key: the
+    port's banded attention replaced by full causal attention."""
+    from repro_torch.kernels import ops
+
+    def make(real):
+        def banded_attention(q, k, v, *, window):
+            return ops.flash_attention(q, k, v, causal=True)
+        return banded_attention
+    return _patched(ops, "banded_attention", make)
+
+
 TRAIN = {"half_batch": half_batch, "frozen_state": frozen_state}
 MOE_TRAIN = {"experts_shifted": experts_shifted, "gates_uniform": gates_uniform,
              "router_reversed": router_reversed}
@@ -134,7 +146,11 @@ SERVE = {"token_altered": token_altered, "cache_unwritten": cache_unwritten,
          "attention_dropped": attention_dropped}
 
 
-def train_faults(s) -> dict:
-    """The faults a train cell of the configuration ``s`` (a ``Shape``) can
-    have: a mixture of experts adds its routing's and its experts'."""
-    return TRAIN | (MOE_TRAIN if s.experts else {})
+def train_faults(s, seq: int) -> dict:
+    """The faults a train cell of the configuration ``s`` (a ``Shape``) at
+    the sequence length ``seq`` can have: a mixture of experts adds its
+    routing's and its experts', a layer whose window is shorter than the
+    sequence ``window_ignored``."""
+    windowed = any(0 < W < seq for W in s.windows)
+    return (TRAIN | (MOE_TRAIN if s.experts else {})
+            | ({"window_ignored": window_ignored} if windowed else {}))

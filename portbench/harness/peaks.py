@@ -6,6 +6,8 @@ Peaks: NVIDIA's H100 SXM data sheet, dense rates at the 700 W limit.
 """
 from __future__ import annotations
 
+import collections
+
 from portbench.harness.spec import Shape
 
 BF16_FLOPS = 989e12  # tensor cores, bf16 / fp16
@@ -36,12 +38,27 @@ def causal_pairs(S: int, T: int) -> int:
     return sum(min(T - S + i + 1, T) for i in range(S))
 
 
+def window_pairs(S: int, T: int, W: int) -> int:
+    """The pairs a causal mask with the window W leaves (query i sees keys
+    i - W < j <= i), the S queries being the last S of the T keys; W = 0 is
+    the causal mask."""
+    if not W:
+        return causal_pairs(S, T)
+    return sum(min(T - S + i + 1, W) for i in range(S))
+
+
+def attn_pairs(s: Shape, S: int, T: int) -> int:
+    """The pairs of every layer together, each under its own window."""
+    return sum(n * window_pairs(S, T, W) for W, n in collections.Counter(s.windows).items())
+
+
 def train_flops(s: Shape, batch: int, seq: int) -> float:
-    """Model FLOPs of one train step: 6 x matmul params x tokens, plus causal
-    attention's QK^T and PV (2 x 2 x head_dim FLOPs a pair and head), x3 for
-    the forward and the backward. Recompute is not model FLOPs."""
+    """Model FLOPs of one train step: 6 x matmul params x tokens, plus
+    attention's QK^T and PV (2 x 2 x head_dim FLOPs a pair and head, over the
+    pairs each layer's mask leaves), x3 for the forward and the backward.
+    Recompute is not model FLOPs."""
     tokens = batch * seq
-    attn = 4.0 * s.heads * s.head_dim * causal_pairs(seq, seq) * batch * s.layers
+    attn = 4.0 * s.heads * s.head_dim * attn_pairs(s, seq, seq) * batch
     return 6.0 * matmul_params(s) * tokens + 3.0 * attn
 
 
@@ -49,12 +66,13 @@ def serve_batch_flops(s: Shape, batch: int, prompt: int, new_tokens: int) -> flo
     """Model FLOPs of one served batch: the prefill of ``prompt`` tokens a
     request, then the ``new_tokens - 1`` decode steps whose logits give the
     2nd to last served token (the first comes from the prefill), each at its
-    position in the cache."""
+    position p in the cache, reading p + 1 keys a layer, or min(p + 1, W)
+    under a window W."""
     per_token = 2.0 * matmul_params(s)
-    attn_pair = 4.0 * s.heads * s.head_dim * s.layers
-    flops = batch * (prompt * per_token + attn_pair * causal_pairs(prompt, prompt))
+    attn_pair = 4.0 * s.heads * s.head_dim
+    flops = batch * (prompt * per_token + attn_pair * attn_pairs(s, prompt, prompt))
     for i in range(new_tokens - 1):
-        flops += batch * (per_token + attn_pair * (prompt + i + 1))
+        flops += batch * (per_token + attn_pair * attn_pairs(s, 1, prompt + i + 1))
     return flops
 
 
@@ -79,5 +97,8 @@ def train_norm_launches(s: Shape) -> int:
     return 2 * s.layers + 1
 
 
-def train_attn_launches(s: Shape) -> int:
-    return s.layers
+def train_attn_launches(s: Shape, seq: int) -> int:
+    """K2 launches a train step's forward makes: one a layer that the port
+    sends to it at S = ``seq``, every layer but those whose window is
+    shorter than S (``banded_flash_xla``'s, ``lm._attn_sublayer``)."""
+    return sum(not W or W >= seq for W in s.windows)

@@ -4,6 +4,7 @@ functions that hand it its inputs.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import time
 
@@ -37,17 +38,34 @@ def memory_peak(device) -> int:
 
 def port_arch(s: Shape):
     """The port's ``ModelArch`` of a configuration: the dense family, or the
-    moe family where it has sparse experts."""
+    moe family where it has sparse experts, with the configuration's head
+    size. Its attention windows, by this contract:
+
+      * every layer full: no window;
+      * every layer under one window W: ``sliding_window=W``;
+      * full and windowed layers mixed: ``sliding_window=W`` and
+        ``layer_types``, the tuple of each layer's published kind
+        (``full_attention`` or ``sliding_attention``), which only a
+        ``ModelArch`` with a ``layer_types`` field takes; without one, a
+        ``ValueError`` that names the field.
+    """
     from repro_torch.core.arch import ModelArch
 
+    sizes = dict(name=s.name, num_layers=s.layers, hidden=s.hidden, heads=s.heads,
+                 kv_heads=s.kv_heads, vocab=s.vocab, tie_embeddings=s.tie,
+                 head_dim=s.head_dim)
+    if max(s.windows):
+        sizes["sliding_window"] = max(s.windows)
+    if len(set(s.windows)) > 1:
+        if "layer_types" not in {f.name for f in dataclasses.fields(ModelArch)}:
+            raise ValueError(f"{s.name}: full and sliding-window layers mixed "
+                             f"({', '.join(s.layer_types)}); the port's ModelArch has no "
+                             f"layer_types field to take them")
+        sizes["layer_types"] = s.layer_types
     if s.experts:
-        return ModelArch(
-            name=s.name, family="moe", num_layers=s.layers, hidden=s.hidden, heads=s.heads,
-            kv_heads=s.kv_heads, ffn=s.expert_ffn, vocab=s.vocab, tie_embeddings=s.tie,
-            num_experts=s.experts, top_k=s.top_k, moe_ffn=s.expert_ffn)
-    return ModelArch(
-        name=s.name, family="dense", num_layers=s.layers, hidden=s.hidden, heads=s.heads,
-        kv_heads=s.kv_heads, ffn=s.ffn, vocab=s.vocab, tie_embeddings=s.tie)
+        return ModelArch(family="moe", ffn=s.expert_ffn, num_experts=s.experts,
+                         top_k=s.top_k, moe_ffn=s.expert_ffn, **sizes)
+    return ModelArch(family="dense", ffn=s.ffn, **sizes)
 
 
 def moe_options(s: Shape, mix: dict) -> dict:

@@ -1,5 +1,6 @@
 """The plain reference of the LMs the benchmark runs: of the llama
 architecture (RMSNorm, rotary embedding, grouped-query causal attention,
+under each layer's sliding window where the configuration gives one,
 SwiGLU), dense or with a mixture of experts in the MLP's place
 (``refs/moe.py``), their next-token loss (with the mixture's load-balancing
 term), AdamW with global norm clipping and a warm-up + cosine schedule, and
@@ -62,20 +63,26 @@ def rope(x, positions, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def attention(q, k, v, scale: float, q_ops, block: int = 512):
+def attention(q, k, v, scale: float, q_ops, window: int = 0, block: int = 512):
     """Causal GQA attention, q (B, H, S, D) and k, v (B, Hkv, S, D), the
-    queries in blocks of ``block`` rows (each against the keys it sees)."""
+    queries in blocks of ``block`` rows, each against the keys it sees:
+    query i sees the keys i - ``window`` < j <= i, or every j <= i where
+    ``window`` is 0."""
     B, H, S, D = q.shape
     g = H // k.shape[1]
     k, v = q_ops(k), q_ops(v)
     outs = []
     for a in range(0, S, block):
         b = min(a + block, S)
+        lo = max(a - window + 1, 0) if window else 0
         qb = q_ops(q[:, :, a:b]).reshape(B, k.shape[1], g, b - a, D)
-        s = torch.einsum("bhgsd,bhtd->bhgst", qb, k[:, :, :b]) * scale
-        keys, queries = (torch.arange(n, b, device=q.device) for n in (0, a))
-        p = torch.softmax(s.masked_fill(keys[None, :] > queries[:, None], float("-inf")), dim=-1)
-        out = torch.einsum("bhgst,bhtd->bhgsd", q_ops(p), v[:, :, :b])
+        s = torch.einsum("bhgsd,bhtd->bhgst", qb, k[:, :, lo:b]) * scale
+        keys, queries = torch.arange(lo, b, device=q.device), torch.arange(a, b, device=q.device)
+        masked = keys[None, :] > queries[:, None]
+        if window:
+            masked |= keys[None, :] <= queries[:, None] - window
+        p = torch.softmax(s.masked_fill(masked, float("-inf")), dim=-1)
+        out = torch.einsum("bhgst,bhtd->bhgsd", q_ops(p), v[:, :, lo:b])
         outs.append(out.reshape(B, H, b - a, D))
     return torch.cat(outs, dim=2)
 
@@ -85,9 +92,10 @@ def mlp(x, wi, wo, q_ops):
     return q_ops(F.silu(gate) * up) @ q_ops(wo)
 
 
-def layer(h, lw: dict, s, positions, q_ops, routed=None):
-    """A layer on h (B, S, d). A mixture of experts takes ``routed``
-    (capacity factor, given experts or None) and returns ``(h, read)``."""
+def layer(h, lw: dict, s, positions, q_ops, window: int = 0, routed=None):
+    """A layer on h (B, S, d), its attention under ``window`` (0: full). A
+    mixture of experts takes ``routed`` (capacity factor, given experts or
+    None) and returns ``(h, read)``."""
     B, S, _ = h.shape
     H, Hkv, D = s.heads, s.kv_heads, s.head_dim
     x = rmsnorm(h, lw["ln1"], s.norm_eps)
@@ -95,7 +103,7 @@ def layer(h, lw: dict, s, positions, q_ops, routed=None):
     q = rope(q.reshape(B, S, H, D).transpose(1, 2), positions, s.rope_theta)
     k = rope(k.reshape(B, S, Hkv, D).transpose(1, 2), positions, s.rope_theta)
     v = v.reshape(B, S, Hkv, D).transpose(1, 2)
-    a = attention(q, k, v, s.scale, q_ops).transpose(1, 2).reshape(B, S, H * D)
+    a = attention(q, k, v, s.scale, q_ops, window).transpose(1, 2).reshape(B, S, H * D)
     h = h + q_ops(a) @ q_ops(lw["attn"]["wo"])
     x = rmsnorm(h, lw["ln2"], s.norm_eps)
     if s.experts:
@@ -118,7 +126,7 @@ def hidden(w: dict, s, tokens, q_ops, remat: bool, routing: moe.Routing | None =
     if s.experts:
         routing.start_step()
     for i in range(s.layers):
-        args = (h, _layer_weights(w, i), s, positions, q_ops)
+        args = (h, _layer_weights(w, i), s, positions, q_ops, s.windows[i])
         if s.experts:
             args += ((routing.capacity_factor, routing.choices(i)),)
         h = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)

@@ -1,5 +1,5 @@
 """Small cells for the CPU: the real traffic files at small sizes, and
-small dense and mixture-of-experts configurations."""
+small dense, sliding-window and mixture-of-experts configurations."""
 import copy
 
 from portbench.harness.spec import BENCH, Cell, Shape, load_json
@@ -9,6 +9,10 @@ DENSE = {"name": "dense-small", "num_hidden_layers": 2, "hidden_size": 64,
          "vocab_size": 256, "rope_theta": 10000.0, "rms_norm_eps": 1e-6}
 WIDER = dict(DENSE, name="dense-wider", num_hidden_layers=8, hidden_size=256,
              intermediate_size=704, num_attention_heads=8, vocab_size=4096)
+# a head size of its own (derived: 64 / 4 = 16) and a 12-key window on every
+# layer: shorter than the train cell's S=32 and the serve cell's 24-token
+# prompt, whose KV cache is then a 12-slot ring
+WINDOWED = dict(DENSE, name="dense-windowed", head_dim=24, sliding_window=12)
 # granite's shape at a small size: 8 experts of width 32, 2 a token, a tied
 # head; B=4 x S=32 gives each expert 40 slots for its 32 assignments on average
 MOE = dict(DENSE, name="moe-small", intermediate_size=32, num_local_experts=8,

@@ -1,7 +1,8 @@
 """``correct`` comes out false for the control and for each fault the cells
 can have, under the cells' own limits, while a sound run at the same small
 size passes them: whole runs on the CPU (the look for a card skipped), with
-the timed path broken underneath."""
+the timed path broken underneath, at full attention and under a sliding
+window shorter than the sequence (the serve cell's KV cache a ring)."""
 import pytest
 import torch
 
@@ -10,14 +11,16 @@ from portbench.harness import faults, runtime as rt
 from portbench.harness.compare import train_numbers, verdict
 from portbench.harness.traffic import sample, serve_prompts, train_pool
 from portbench.harness.weights import make_weights
-from portbench.tests.cells import DENSE, MOE, WIDER, serve_cell, train_cell
+from portbench.tests.cells import DENSE, MOE, WIDER, WINDOWED, serve_cell, train_cell
 
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 101
 TRAIN = {"dense": (DENSE, "train.yi-6b.s2048", "train-b4-s2048"),
-         "moe": (MOE, "train.granite-moe-3b-a800m.s2048", "train-b8-s2048")}
+         "moe": (MOE, "train.granite-moe-3b-a800m.s2048", "train-b8-s2048"),
+         "windowed": (WINDOWED, "train.yi-6b.s2048", "train-b4-s2048")}
 RUNS = [(fault, kind) for kind in TRAIN
-        for fault in [None, *faults.train_faults(train_cell(TRAIN[kind][0]).shape)]]
+        for fault in [None, *faults.train_faults(train_cell(TRAIN[kind][0]).shape, 32)]]
+SERVE = {"dense": DENSE, "windowed": WINDOWED}
 
 
 def _cell(kind):
@@ -31,7 +34,7 @@ def test_train_run(fault, kind):
     if fault is None:
         out = train.run(c, SEED, 0.2, False, CPU, rt.now())
     else:
-        with faults.train_faults(c.shape)[fault]():
+        with faults.train_faults(c.shape, c.mix["seq"])[fault]():
             out = train.run(c, SEED, 0.2, False, CPU, rt.now())
     ok, checks = verdict(out["numbers"], c.checks)
     assert ok == (fault is None), checks
@@ -51,9 +54,10 @@ def test_train_control(kind):
     assert not ok, checks
 
 
+@pytest.mark.parametrize("kind", SERVE)
 @pytest.mark.parametrize("fault", [None, *faults.SERVE])
-def test_serve_run(fault):
-    c = serve_cell()
+def test_serve_run(fault, kind):
+    c = serve_cell(SERVE[kind])
     if fault is None:
         out = serve.run(c, SEED, 0.2, False, CPU, rt.now())
     else:
@@ -76,3 +80,19 @@ def test_serve_control():
     assert verdict({"logit_gap": got}, c.checks)[0]
     ok, checks = verdict({"logit_gap": ctl}, c.checks)
     assert not ok, checks
+
+
+def test_windows_only_some_layers_have_are_refused_while_the_port_lacks_layer_types():
+    import dataclasses
+
+    from repro_torch.core.arch import ModelArch
+
+    if "layer_types" in {f.name for f in dataclasses.fields(ModelArch)}:
+        pytest.skip("the port's ModelArch takes layer_types")
+    mixed = dict(WINDOWED, layer_types=["sliding_attention", "full_attention"])
+    with pytest.raises(ValueError, match="layer_types"):
+        train.program(train_cell(mixed))
+    with pytest.raises(ValueError, match="layer_types"):
+        serve.engine(serve_cell(mixed), None, CPU)
+    # one window on every layer is what the port runs today
+    assert rt.port_arch(train_cell(WINDOWED).shape).sliding_window == 12

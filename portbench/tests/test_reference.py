@@ -2,7 +2,9 @@
 float32: the train step's first steps (forward through the norms and
 attention, the backward, AdamW), the MoE layer on the port's routing, and
 the served path (prefill, then decode through the KV cache, against the
-reference's full forward)."""
+reference's full forward), with full attention and with a head size and a
+sliding window of the configuration's own; and the reference's windowed
+attention against one masked product."""
 import numpy as np
 import pytest
 import torch
@@ -13,13 +15,59 @@ from portbench.harness.spec import Shape
 from portbench.harness.traffic import serve_prompts, train_pool
 from portbench.harness.weights import make_weights
 from portbench.refs import lm as ref
-from portbench.tests.cells import DENSE, serve_cell, train_cell
+from portbench.tests.cells import DENSE, WINDOWED, serve_cell, train_cell
 
 CPU = torch.device("cpu")
 
 
-def test_first_train_steps_match_the_reference():
-    c = train_cell(DENSE)
+def _causal_as_before(q, k, v, scale, q_ops, block=512):
+    """``ref.attention`` as it was before it took a window."""
+    B, H, S, D = q.shape
+    g = H // k.shape[1]
+    k, v = q_ops(k), q_ops(v)
+    outs = []
+    for a in range(0, S, block):
+        b = min(a + block, S)
+        qb = q_ops(q[:, :, a:b]).reshape(B, k.shape[1], g, b - a, D)
+        s = torch.einsum("bhgsd,bhtd->bhgst", qb, k[:, :, :b]) * scale
+        keys, queries = (torch.arange(n, b, device=q.device) for n in (0, a))
+        p = torch.softmax(s.masked_fill(keys[None, :] > queries[:, None], float("-inf")), dim=-1)
+        out = torch.einsum("bhgst,bhtd->bhgsd", q_ops(p), v[:, :, :b])
+        outs.append(out.reshape(B, H, b - a, D))
+    return torch.cat(outs, dim=2)
+
+
+def _qkv(S, D=24):
+    g = torch.Generator().manual_seed(5)
+    return (torch.randn(2, 4, S, D, generator=g), torch.randn(2, 2, S, D, generator=g),
+            torch.randn(2, 2, S, D, generator=g))
+
+
+@pytest.mark.parametrize("window,block", [(12, 8), (5, 8), (1, 8), (8, 8), (9, 16), (30, 8)])
+def test_windowed_attention_is_one_masked_product(window, block):
+    # S = 40 in blocks of 8 or 16: most blocks begin inside the window of the
+    # block before them
+    q, k, v = _qkv(40)
+    got = ref.attention(q, k, v, 0.2, lambda t: t, window, block=block)
+    i, j = torch.arange(40)[:, None], torch.arange(40)[None, :]
+    s = torch.einsum("bhgsd,bhtd->bhgst", q.reshape(2, 2, 2, 40, 24), k) * 0.2
+    p = torch.softmax(s.masked_fill((j > i) | (j <= i - window), float("-inf")), dim=-1)
+    want = torch.einsum("bhgst,bhtd->bhgsd", p, v).reshape(2, 4, 40, 24)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("window", [0, 40, 41, 1000])
+@pytest.mark.parametrize("prec", ["float32", "fp8"])
+def test_attention_without_a_shorter_window_is_the_causal_path_bit_for_bit(window, prec):
+    q, k, v = _qkv(40)
+    q_ops = ref._ops(prec)
+    assert torch.equal(ref.attention(q, k, v, 0.2, q_ops, window, block=16),
+                       _causal_as_before(q, k, v, 0.2, q_ops, block=16))
+
+
+@pytest.mark.parametrize("config", [DENSE, WINDOWED], ids=lambda c: c["name"])
+def test_first_train_steps_match_the_reference(config):
+    c = train_cell(config)
     batches = train_pool(c.mix, c.shape.vocab, 2 ** 31 + 5, CPU)[:3]
     *_, prog = train.first_steps(c, train.program(c), 2 ** 31 + 5, batches, CPU)
     want = train.reference(c, 2 ** 31 + 5, [b["tokens"] for b in batches], CPU)
@@ -31,10 +79,11 @@ def test_first_train_steps_match_the_reference():
             assert prog[key][leaf] == pytest.approx(v, rel=2e-4, abs=1e-9), (key, leaf)
 
 
-def test_served_logits_match_the_full_forward():
+@pytest.mark.parametrize("config", [DENSE, WINDOWED], ids=lambda c: c["name"])
+def test_served_logits_match_the_full_forward(config):
     from repro_torch.models import lm
 
-    c = serve_cell()
+    c = serve_cell(config)
     s, mix = c.shape, c.mix
     P, N = mix["prompt_len"], mix["new_tokens"]
     w = make_weights(s, 11, torch.float32, CPU, mix.get("query_key_noise"))
