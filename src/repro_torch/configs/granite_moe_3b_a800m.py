@@ -1,5 +1,5 @@
 """granite-moe-3b-a800m [moe]: 32L d=1536 24H (GQA kv=8) d_ff=512/expert,
-vocab 49155, 40 experts top-8. [hf:ibm-granite/granite-3.0-1b-a400m-base]"""
+vocab 49155, 40 experts top-8. [hf:ibm-granite/granite-3.0-3b-a800m-base]"""
 from repro_torch.core.arch import ModelArch
 
 ARCH = ModelArch(

@@ -14,6 +14,11 @@
 Plain PyTorch, as the JAX package computes it outside any Pallas kernel. The
 assignments to each expert are counted with a static shape
 (``expert_counts``), so nothing on the path reads a value back to the host.
+Steps 3 and 5 run through two integer maps (``_maps``): each assignment's
+slot and each slot's assignment. Every kept slot holds one assignment and
+every assignment one slot at most, so the backward of each step is a gather
+through the other map (``_Dispatch``, ``_Combine``): no index backward, no
+accumulation, and no cost that grows with the drops.
 
 Sharded (params and x as DTensors, placed by ``repro_torch.parallel``), the
 block is still the global program: C comes from the global token count, and
@@ -48,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch import spans
 from repro_torch.parallel.sharding import (BATCH_AXES, MODEL_AXIS, batch_groups,
                                            constrain_batch_sharding, gather_over, gather_rows,
                                            local_apply, row_block, sum_over, sum_scatter_over)
@@ -100,7 +106,8 @@ def global_route(router: torch.Tensor, xt: torch.Tensor, top_k: int,
     among the rank's own and among all assignments to their expert, tokens
     and gates; C from ``tokens``, whatever share of them this rank holds (a
     batch the ranks do not divide leaves them blocks of unequal size). An
-    assignment is kept where ``pos < C``.
+    assignment is kept where ``pos < C``. The tuple's ``gates`` holds the
+    gates token-major (T_r, k).
 
     ``model`` (m, tp, group): the ranks of "model" hold the same tokens;
     where tp divides T_r, rank m routes the m-th T_r / tp of them and the
@@ -124,35 +131,89 @@ def global_route(router: torch.Tensor, xt: torch.Tensor, top_k: int,
     C = capacity(tokens, top_k, capacity_factor, E)
     order, e_sorted, local, pos = sorted_slots(experts, counts, before)
     t_sorted = torch.arange(T_r, device=xt.device).repeat_interleave(top_k)[order]
-    return order, e_sorted, local, pos, t_sorted, gates.reshape(-1)[order], C
+    return _Route((order, e_sorted, local, pos, t_sorted, gates.reshape(-1)[order], C), gates)
 
 
-def _scatter(xt, dest, order, top_k: int, rows: int) -> torch.Tensor:
-    """The sorted assignments' token rows at their slots ``dest`` of a
-    (rows, d) buffer, zeros elsewhere. Each token's row is repeated top_k
-    times and permuted by ``order``, so that the backward gathers by a
-    permutation and sums over k in a fixed order: no atomic adds, whose
-    order on a card would change the last bits from run to run."""
-    d = xt.shape[-1]
-    src = xt.unsqueeze(1).expand(xt.shape[0], top_k, d).reshape(-1, d)[order]
-    # row `rows` is the drop slot: several assignments may write it, and it is
-    # cut off before the product, so which write lands there does not matter
-    buf = torch.zeros((rows + 1, d), dtype=xt.dtype, device=xt.device)
-    return buf.index_put((dest,), src)[:rows]
+class _Route(tuple):
+    """``global_route``'s 7-tuple with the gates token-major beside it: the
+    dispatch takes them so, which leaves the sorted gates, and the index
+    backward of their permutation, off its graph."""
+
+    def __new__(cls, fields, gates):
+        out = super().__new__(cls, fields)
+        out.gates = gates
+        return out
 
 
-def _combine(out_flat, dest, order, g_sorted, top_k: int) -> torch.Tensor:
-    """Each sorted assignment's product row (the zero row where dropped)
-    times its gate, put back in token order and summed over each token's k
-    assignments: (T, d). The JAX package scatter-adds them; the sum here runs
-    in a fixed order (no atomic adds)."""
-    d = out_flat.shape[-1]
-    out_flat = torch.cat([out_flat, torch.zeros((1, d), dtype=out_flat.dtype,
-                                                device=out_flat.device)])
-    per_assignment = out_flat[dest] * g_sorted[:, None]
-    inverse = torch.empty_like(order).scatter_(
-        0, order, torch.arange(order.shape[0], device=order.device))
-    return per_assignment[inverse].reshape(-1, top_k, d).sum(dim=1)
+def _maps(order, dest, top_k: int, rows: int):
+    """The dispatch's two maps, from the sorted assignments' permutation
+    ``order`` and their slots ``dest`` (``rows`` where dropped): ``slot``
+    (T, top_k), each token-major assignment's slot, ``rows`` where dropped;
+    ``assign`` (rows,), the token-major assignment t * top_k + j in each
+    slot, T * top_k where the slot is empty. Static shapes, no read back to
+    the host. Row ``rows`` of ``assign``'s buffer is the drop slot: every
+    dropped assignment writes it, and it is cut off, so which write lands
+    there does not matter."""
+    with torch.no_grad():
+        n = order.shape[0]
+        slot = torch.empty_like(dest).scatter_(0, order, dest).view(-1, top_k)
+        assign = torch.full((rows + 1,), n, dtype=order.dtype, device=order.device)
+        return slot, assign.scatter_(0, dest, order)[:rows]
+
+
+def _rows_at(src, index):
+    """src's rows (n, d) at ``index`` (any shape), zero rows where the index
+    is a map's sentinel (n or past it): ``index.shape + (d,)``. A gather,
+    whatever the index holds; no sum, so no order to keep."""
+    n, d = src.shape
+    flat = index.reshape(-1)
+    rows = src.index_select(0, flat.clamp(max=n - 1))
+    return rows.masked_fill_(flat.ge(n).unsqueeze(1), 0).view(*index.shape, d)
+
+
+class _Dispatch(torch.autograd.Function):
+    """The tokens' rows ``xt`` (T, d) at their slots: (rows, d), the row of
+    token ``assign[s] // top_k`` in slot s, zeros in the empty ones. The
+    backward gathers each token's k slots through ``slot`` (T, top_k) and
+    sums them in a fixed order; a dropped assignment adds nothing. No
+    atomic adds, whose order on a card would change the last bits from run
+    to run, and no sort of the indices."""
+
+    @staticmethod
+    def forward(ctx, xt, slot, assign):
+        ctx.save_for_backward(slot)
+        return _rows_at(xt, assign // slot.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        with spans.span("moe.dispatch_backward", device=g.is_cuda):
+            return _rows_at(g, slot).sum(dim=1), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """Each token's k product rows ``out_flat[slot[t, j]]`` times their
+    gates (T, top_k), summed over k in a fixed order: (T, d); a dropped
+    assignment adds nothing. The JAX package scatter-adds them. The
+    backward gathers too: a slot's grad is its token's grad times its
+    assignment's gate (through ``assign``), a gate's grad its row's product
+    with its token's grad, summed over d."""
+
+    @staticmethod
+    def forward(ctx, out_flat, gates, slot, assign):
+        rows = _rows_at(out_flat, slot)  # (T, k, d)
+        ctx.save_for_backward(rows, gates, assign)
+        return (rows * gates.unsqueeze(-1)).sum(dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, gates, assign = ctx.saved_tensors
+        with spans.span("moe.dispatch_backward", device=g.is_cuda):
+            flat = gates.reshape(-1)
+            gate = flat.index_select(0, assign.clamp(max=flat.shape[0] - 1))
+            grad_out = _rows_at(g, assign // gates.shape[1]) * gate.unsqueeze(1)
+            grad_gates = (rows * g.unsqueeze(1)).sum(dim=-1)
+        return grad_out, grad_gates, None, None
 
 
 def _experts(grouped, wi, wo, part=(0, 1), model_group=None):
@@ -206,21 +267,22 @@ def _dispatch(xt, router, wi, wo, shared, *, top_k: int, capacity_factor: float,
     T_r, d = xt.shape
     E = router.shape[-1]
     m, tp = ranks.part
-    order, e_sorted, local_pos, pos, _, g_sorted, C = global_route(
-        router, xt, top_k, capacity_factor, tokens, ranks.groups, (m, tp, ranks.model_group))
-    kept = pos < C
-    if ranks.split:  # global slots; the owners multiply
-        dest = torch.where(kept, e_sorted * C + pos, E * C)
-        grouped = _scatter(xt, dest, order, top_k, E * C).reshape(E, C, d)
+    route = global_route(router, xt, top_k, capacity_factor, tokens, ranks.groups,
+                         (m, tp, ranks.model_group))
+    order, e_sorted, local_pos, pos, _, _, C = route
+    # experts over "data": the global slots, which their owners multiply;
+    # else this rank's own kept rows, at most min(C, T_r) an expert
+    cap, at = (C, pos) if ranks.split else (min(C, T_r), local_pos)
+    rows = E * cap
+    slot, assign = _maps(order, torch.where(pos < C, e_sorted * cap + at, rows), top_k, rows)
+    grouped = _Dispatch.apply(xt, slot, assign).reshape(E, cap, d)
+    if ranks.split:
         grouped = sum_over(sum_scatter_over(grouped, 0, ranks.data_group), ranks.pod_group)
         out = gather_over(_experts(grouped, wi, wo, ranks.part, ranks.model_group), 0,
                           ranks.data_group)
-    else:  # this rank's own kept rows, at most min(C, T_r) an expert
-        Cr = min(C, T_r)
-        dest = torch.where(kept, e_sorted * Cr + local_pos, E * Cr)
-        grouped = _scatter(xt, dest, order, top_k, E * Cr).reshape(E, Cr, d)
+    else:
         out = _experts(grouped, wi, wo, ranks.part, ranks.model_group)
-    y = _combine(out.reshape(-1, d), dest, order, g_sorted, top_k)
+    y = _Combine.apply(out.reshape(-1, d), route.gates, slot, assign)
     if shared:
         y = y + _shared(xt, *shared, ranks.part)
     return y

@@ -201,6 +201,118 @@ def test_moe_routing_is_sparse_and_weighted():
     assert float((y - y2).abs().max()) == 0.0
 
 
+def _sorted_scatter(xt, dest, order, top_k: int, rows: int):
+    """The dispatch as the port wrote it before its slot and token maps: the
+    sorted assignments' token rows put at ``dest`` in a zeroed (rows + 1, d)
+    buffer whose last row, the drop slot, is cut off."""
+    d = xt.shape[-1]
+    src = xt.unsqueeze(1).expand(xt.shape[0], top_k, d).reshape(-1, d)[order]
+    buf = torch.zeros((rows + 1, d), dtype=xt.dtype, device=xt.device)
+    return buf.index_put((dest,), src)[:rows]
+
+
+def _sorted_combine(out_flat, dest, order, g_sorted, top_k: int):
+    """The combine as the port wrote it before its maps: a zero row appended
+    for the dropped, each sorted assignment's row times its gate, put back
+    in token order and summed over k."""
+    d = out_flat.shape[-1]
+    out_flat = torch.cat([out_flat, torch.zeros((1, d), dtype=out_flat.dtype)])
+    per_assignment = out_flat[dest] * g_sorted[:, None]
+    inverse = torch.empty_like(order).scatter_(0, order, torch.arange(order.shape[0]))
+    return per_assignment[inverse].reshape(-1, top_k, d).sum(dim=1)
+
+
+def _sorted_block(p, x, top_k: int, capacity_factor: float):
+    """``moe_block`` on one rank through the formulation above: the
+    reference the maps must equal bit for bit."""
+    B, S, d = x.shape
+    xt = x.reshape(-1, d)
+    E = p["router"].shape[-1]
+    order, e_sorted, _, pos, _, g_sorted, C = moe.global_route(p["router"], xt, top_k,
+                                                               capacity_factor, B * S)
+    dest = torch.where(pos < C, e_sorted * C + pos, E * C)
+    grouped = _sorted_scatter(xt, dest, order, top_k, E * C).reshape(E, C, d)
+    out = moe._experts(grouped, p["wi"], p["wo"]).reshape(-1, d)
+    y = _sorted_combine(out, dest, order, g_sorted, top_k)
+    if "shared_wi" in p:
+        y = y + moe._shared(xt, p["shared_wi"], p["shared_wo"])
+    return y.reshape(B, S, d)
+
+
+def _crowded(name, dtype, T=64, copies=24):
+    """Layer 0's moe params in ``dtype`` and an input (1, T, d) whose last
+    ``copies`` tokens repeat its first: they choose the same experts, so at
+    1.25 the last copies lose every one of their k assignments, while the
+    spare slots leave some expert partly empty."""
+    _, _, p, x = _block(name, T=(1, T))
+    x[0, T - copies:] = x[0, 0]
+    return ({k: v.to(dtype) for k, v in p.items()},
+            torch.from_numpy(x).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("capacity_factor", [1.25, 8.0])
+@pytest.mark.parametrize("name,top_k", [(name, None) for name in ARCHS]
+                         + [("granite-moe-3b-a800m", 4)])
+def test_the_maps_equal_the_sorted_scatter_and_combine_bit_for_bit(name, top_k,
+                                                                   capacity_factor, dtype):
+    """The block through its slot and token maps against the sorted scatter
+    and combine it replaced: the output and the grads of x, the router and
+    the experts (the shared expert's too) ``torch.equal``, where the block
+    drops (a token losing all its k assignments, an expert with empty slots)
+    and where nothing drops. The same products and the same sums over k in
+    the same layout; the zeros of dropped rows were copies, 0 + v = v.
+    Granite also at k = 4, where a sum over k in another order would show
+    (two terms add alike either way)."""
+    arch = dataclasses.replace(get_reduced(name), top_k=top_k or get_reduced(name).top_k)
+    p, x = _crowded(name, getattr(torch, dtype))
+    xt = x.reshape(-1, arch.hidden)
+    _, e_sorted, _, pos, t_sorted, _, C = moe.global_route(p["router"], xt, arch.top_k,
+                                                           capacity_factor, xt.shape[0])
+    dropped = torch.bincount(t_sorted[pos >= C], minlength=xt.shape[0])
+    counts = moe.expert_counts(e_sorted, arch.num_experts)
+    if capacity_factor == 8.0:
+        assert int(dropped.sum()) == 0
+    else:
+        assert int(dropped.max()) == arch.top_k  # a token keeps none of its k
+        assert bool(((counts > 0) & (counts < C)).any())  # an expert partly empty
+    cot = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).to(x.dtype)
+    got, want = [], []
+    for block, out in ((moe.moe_block, got), (_sorted_block, want)):
+        leaves = {"x": x.clone().requires_grad_(),
+                  **{k: v.clone().requires_grad_() for k, v in p.items()}}
+        y = block({k: v for k, v in leaves.items() if k != "x"}, leaves["x"],
+                  top_k=arch.top_k, capacity_factor=capacity_factor)
+        out.append(y.detach())
+        out += torch.autograd.grad((y * cot).sum(), list(leaves.values()))
+    names = ["y", "x", *p]
+    assert ("shared_wi" in names) == arch.shared_expert
+    for k, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), k
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_the_dispatch_backward_holds_no_index_backward(name):
+    """The block's backward graph, walked from its output: the dispatch and
+    the combine are one gather each way, so no ``IndexBackward0`` (whose
+    backward sorts its indices and accumulates, serially where many repeat)
+    and no ``IndexPutBackward0`` is left on it."""
+    arch = get_reduced(name)
+    p, x = _crowded(name, torch.float32)
+    p = {k: v.requires_grad_() for k, v in p.items()}
+    y = moe.moe_block(p, x.requires_grad_(), top_k=arch.top_k)
+    seen, todo = set(), [y.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        todo += [n for n, _ in node.next_functions]
+    names = {type(n).__name__ for n in seen}
+    assert {"_DispatchBackward", "_CombineBackward"} <= names, names
+    assert not names & {"IndexBackward0", "IndexPutBackward0"}, names
+
+
 @pytest.mark.parametrize("name", ARCHS)
 def test_aux_load_balance_loss_matches_jax(name):
     jarch, jp, p, x = _block(name, seed=2)

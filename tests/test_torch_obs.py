@@ -186,6 +186,27 @@ def test_train_step_spans(microbatches):
     assert all(s.parent in backward for s in got["attn.backward"])
 
 
+def test_moe_train_step_records_two_dispatch_backward_spans_a_moe_layer():
+    """A reduced granite step (two MoE layers): the backward of the MoE
+    dispatch and of its combine record ``moe.dispatch_backward`` once each a
+    layer, under the step's ``train.backward``; the benchmark's
+    ``dispatch_bwd_ms.moe`` reads their device time."""
+    arch = get_reduced("granite-moe-3b-a800m")
+    step = make_train_step(arch, CFG, TrainStepCfg())
+    params = lm.init_params(arch, torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": torch.randint(0, arch.vocab, (4, 16),
+                                     generator=torch.Generator().manual_seed(1))}
+    step(params, adamw_init(params), batch)
+    assert spans.recorded() == []
+    with _profiling():
+        step(params, adamw_init(params), batch)
+    got = _by_name(spans.recorded())
+    assert len(got["moe.dispatch_backward"]) == 2 * arch.num_layers
+    backward = {s.id for s in got["train.backward"]}
+    assert all(s.parent in backward and s.device_ms is None
+               for s in got["moe.dispatch_backward"])
+
+
 def _mask_pairs(B, Hq, S, T, q_start, valid, ring, causal):
     """A brute-force count of flash_xla's mask: (scored, live)."""
     wrapped = ring and q_start + S - 1 >= T

@@ -681,3 +681,39 @@ def test_make_mesh_takes_the_backend_of_its_device_and_no_other(one_rank_group):
         mesh.make_mesh((1,), ("data", "model"), "cpu")
     with pytest.raises(ValueError, match="no process-group backend"):
         mesh.backend_for("xpu")
+
+
+@pytest.mark.parametrize("fsdp", [True, False], ids=["experts-over-data", "whole-over-data"])
+def test_a_one_rank_moe_block_is_the_plain_block_bit_for_bit(one_rank_group, fsdp):
+    """Reduced granite's layer-0 MoE block on DTensors on a one-rank (1, 1)
+    mesh, in both layouts of its dispatch (the experts over "data" with
+    FSDP, whole over it without), where the block drops: the output and the
+    grads of x and of every weight ``torch.equal`` to the plain block's, as
+    chip_smoke's phase 9 requires of a whole step on the card."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+
+    jparams, x, cot = _uneven_case()
+    arch = get_reduced("granite-moe-3b-a800m")
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    plan = sharding.make_plan(mesh, fsdp=fsdp)
+    placed = torch_ranks._placed_params(arch, plan, jparams)["layers"]
+    p = {k: v.detach().requires_grad_() for k, v in lm._layer(placed, 0)["moe"].items()}
+    assert p["wi"].placements[0].is_shard() == fsdp  # the layout the dispatch takes
+    rows = (Shard(0), Replicate())
+    xs = distribute_tensor(torch.from_numpy(x), mesh, rows).requires_grad_()
+    with torch_ranks._Drops() as drops:
+        y = moe.moe_block(p, xs, top_k=arch.top_k, capacity_factor=1.25)
+    assert drops.n > 0
+    got = [y.full_tensor().detach(), *(g.full_tensor() for g in torch.autograd.grad(
+        (y * distribute_tensor(torch.from_numpy(cot), mesh, rows)).sum(), [xs, *p.values()]))]
+    plain = {k: v[0].requires_grad_()
+             for k, v in params_from_numpy(jparams, device="cpu")["layers"]["moe"].items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    y = moe.moe_block(plain, xt, top_k=arch.top_k, capacity_factor=1.25)
+    want = [y.detach(), *torch.autograd.grad((y * torch.from_numpy(cot)).sum(),
+                                             [xt, *plain.values()])]
+    for k, g, w in zip(["y", "x", *p], got, want):
+        assert torch.equal(g, w), k
