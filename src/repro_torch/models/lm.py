@@ -342,14 +342,6 @@ def _write_cache(cfg: ModelCfg, cache: dict, k: torch.Tensor, v: torch.Tensor,
         cache[name][:, :, slots] = x.to(cache[name].dtype)
 
 
-def _takes_flash_kernel(cfg: ModelCfg, window: int) -> bool:
-    """Whether a cached call attends through the flash kernel: the ``"cuda"``
-    impl over a cache that is neither a ring (``window``) nor int8. The
-    kernel's wrapper refuses operands it lacks, as on the full-sequence
-    path."""
-    return cfg.attn_impl == "cuda" and not window and not cfg.kv_cache_quant
-
-
 def _flash_cached_attention(q, k, v, start: int) -> torch.Tensor:
     """q ``(B, H, S, D)`` at positions ``start .. start + S - 1`` over the
     cache's written slots ``0 .. start + S - 1`` through the flash kernel,
@@ -371,21 +363,7 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
     """Self-attention. cache: None (full sequence) or the layer's cache views
     ``{"k", "v"[, "k_scale", "v_scale"], "start"}``, written in place.
     ``causal=False``: the encoder's bidirectional attention (full sequence
-    only, no window).
-
-    With a sliding window the cache is a ring of T slots in which slot j
-    holds the position p with ``p % T == j``. A prefill of S >= T tokens
-    attends through ``banded_flash_xla`` and keeps the last T positions;
-    shorter chunks are written at ``start % T`` and must not cross the end of
-    the ring (the JAX package clamps such a slice, or drops the rows of such
-    a scatter: a different answer, refused here).
-
-    A cached call attends after its rows are written: through the flash
-    kernel over the written slots where ``_takes_flash_kernel`` holds, the
-    prefill, a chunk and a decode step alike; ``decode_dense_attn`` at S <= 16
-    through one masked product; every other cache through ``flash_xla`` (a
-    ring, an int8 cache, the ``"xla"`` and ``"torch"`` impls). A sharded
-    cache takes the same routes in ``_sharded_cached_attention``."""
+    only, no window). A cached call attends through ``_cached_attention``."""
     B, S, _ = h.shape
     H, Hkv, D = arch.heads, arch.kv_heads, arch.head_dim
     window = arch.sliding_window or 0
@@ -407,45 +385,122 @@ def _attn_sublayer(p: dict, h: torch.Tensor, positions: torch.Tensor,
             out = ops.banded_attention(q, k, v, window=window)
         else:
             out = ops.flash_attention(q, k, v, causal=causal, impl=cfg.attn_impl)
-    elif isinstance(q, DTensor):
-        out = _sharded_cached_attention(cfg, cache, q, k, v, window)
     else:
-        if cfg.kv_cache_repeat > 1:
-            k = k.repeat_interleave(cfg.kv_cache_repeat, dim=1)
-            v = v.repeat_interleave(cfg.kv_cache_repeat, dim=1)
-        start, T = cache["start"], cache["k"].shape[2]
-        if window and S >= T:
-            if start:
-                raise ValueError(f"a ring-cache prefill of {S} >= {T} tokens starts at "
-                                 f"position 0, not {start}")
-            out = banded_flash_xla(q, k, v, window=window)
-            # ring invariant: slot j holds position p with p % T == j
-            shift = (S - T) % T
-            _write_cache(cfg, cache, torch.roll(k[:, :, -T:], shift, dims=2),
-                         torch.roll(v[:, :, -T:], shift, dims=2), 0)
-        else:
-            idx = start % T if window else start
-            if idx + S > T:
-                raise ValueError(f"positions {start}..{start + S - 1} cross the end of the "
-                                 f"{T}-slot KV cache at slot {idx}")
-            _write_cache(cfg, cache, k, v, idx)
-            if cfg.kv_cache_quant:
-                k_read = _kv_dequantize(cache["k"], cache["k_scale"], cfg.dtype)
-                v_read = _kv_dequantize(cache["v"], cache["v_scale"], cfg.dtype)
-            else:
-                k_read, v_read = cache["k"], cache["v"]
-            if cfg.decode_dense_attn and S <= 16:
-                out = _dense_cached_attention(q, k_read, v_read, start, ring=bool(window))
-            elif _takes_flash_kernel(cfg, window):
-                out = _flash_cached_attention(q, k_read, v_read, start)
-            else:
-                out = flash_xla(q, k_read, v_read, q_start=start, kv_valid_len=start + S,
-                                ring=bool(window), causal=True)
+        out = _cached_attention(cfg, cache, q, k, v, window)
     # split over "model" before the row-sharded wo: where the heads do not
     # split (hymba's 25 at 16-way), its backward then hands the reshape a
     # whole grad, not one cut inside a head; where they do, out is so already
     out = split_over_model(out.transpose(1, 2).reshape(B, S, H * D), -1)
     return out @ gather_fsdp(p["wo"])
+
+
+def _cached_attention(cfg: ModelCfg, cache: dict, q, k, v, window: int):
+    """The layer's attention over its KV cache: q ``(B, H, S, D)`` at
+    positions ``start .. start + S - 1`` and the chunk's k/v ``(B, Hkv, S,
+    D)``, written into the cache first. With a sliding ``window`` the cache
+    is a ring of T slots in which slot j holds the position p with ``p % T
+    == j``: a prefill of S >= T tokens starts at position 0, and a shorter
+    chunk is written at ``start % T``. No chunk may cross the end of the
+    cache (the JAX package clamps such a slice, or drops the rows of such a
+    scatter: a different answer, refused here). A plain cache is the one
+    part of ``_attend_part``; a DTensor cache is cut into parts over "model"
+    by ``_sharded_cached_attention``."""
+    start, T, S = cache["start"], cache["k"].shape[2], q.shape[2]
+    idx = start % T if window else start
+    if window and S >= T:
+        if start:
+            raise ValueError(f"a ring-cache prefill of {S} >= {T} tokens starts at "
+                             f"position 0, not {start}")
+    elif idx + S > T:
+        raise ValueError(f"positions {start}..{start + S - 1} cross the end of the "
+                         f"{T}-slot KV cache at slot {idx}")
+    if isinstance(q, DTensor):
+        return _sharded_cached_attention(cfg, cache, q, k, v, window)
+    return _attend_part(cfg, cache, q, k, v, window)
+
+
+def _attend_part(cfg: ModelCfg, cache: dict, q, k, v, window: int, layout: str = "whole",
+                 tp: int = 1, rank: int = 0, split_q: bool = False, group=None):
+    """One part of ``_cached_attention``: ``cache`` holds ``"start"`` and the
+    part's views of the layer's cache (a plain cache whole, or one rank's
+    shards), q the part's query heads, k/v the chunk's rows of every kv head.
+    ``layout``, ``tp`` and ``rank`` place the part over "model" as
+    ``_cache_layout`` says (the defaults: a plain cache); ``split_q``: q's
+    heads are split over "model"; ``group``: "model"'s group, across which
+    the parts of a cache over its sequence merge.
+
+    The part writes its slots of the chunk (none, a part of it, or all of
+    it; each kv head ``kv_cache_repeat`` times; int8 with scales under
+    ``kv_cache_quant``) and attends after the write:
+
+      * a ring prefill through ``banded_flash_xla`` on the part's q heads,
+        the part's slots of the last T positions written rolled into place;
+      * over its heads or whole (reading the kv heads of its q heads): one
+        masked product under ``decode_dense_attn`` at S <= 16; the flash
+        kernel (``_flash_cached_attention``) under the ``"cuda"`` impl over a
+        cache that is neither a ring nor int8, the prefill, a chunk and a
+        decode step alike (its wrapper refuses operands it lacks, as on the
+        full-sequence path); else ``flash_xla`` (a ring, an int8 cache, the
+        ``"xla"`` and ``"torch"`` impls);
+      * over its part of T: ``flash_xla_lse`` at its own positions, the parts
+        merged across "model" as an exact rescale, the max of their
+        log-sum-exps first (one all-reduce), then the weighted sums of
+        outputs and weights (a second); once a ring has wrapped every slot
+        is live and no mask applies. Under ``decode_dense_attn`` at S <= 16,
+        ``_dense_cached_attention_over_t``."""
+    start, Hc_l, T_l = cache["start"], cache["k"].shape[1], cache["k"].shape[2]
+    T, t0 = (T_l * tp, rank * T_l) if layout == "seq" else (T_l, 0)
+    n_q, S, D = q.shape[1], q.shape[2], q.shape[3]
+    if cfg.kv_cache_repeat > 1:
+        k = k.repeat_interleave(cfg.kv_cache_repeat, dim=1)
+        v = v.repeat_interleave(cfg.kv_cache_repeat, dim=1)
+    # q heads per cache head, of the global heads: q holds n_q of them
+    group_size = (n_q * tp if split_q else n_q) // k.shape[1]
+    if layout == "heads":
+        k, v = k[:, rank * Hc_l:(rank + 1) * Hc_l], v[:, rank * Hc_l:(rank + 1) * Hc_l]
+    if window and S >= T:
+        kq, vq = ((k, v) if layout == "heads" or not split_q
+                  else ops._kv_heads_of(k, v, rank * n_q, n_q, group_size))
+        out = banded_flash_xla(q, kq, vq, window=window)
+        # ring invariant: slot j holds position p with p % T == j
+        shift = (S - T) % T
+        _write_cache(cfg, cache, torch.roll(k[:, :, -T:], shift, dims=2)[:, :, t0:t0 + T_l],
+                     torch.roll(v[:, :, -T:], shift, dims=2)[:, :, t0:t0 + T_l], 0)
+        return out
+    idx = start % T if window else start
+    lo, hi = max(idx, t0), min(idx + S, t0 + T_l)
+    if lo < hi:
+        _write_cache(cfg, cache, k[:, :, lo - idx:hi - idx], v[:, :, lo - idx:hi - idx],
+                     lo - t0)
+    if cfg.kv_cache_quant:
+        k_read = _kv_dequantize(cache["k"], cache["k_scale"], cfg.dtype)
+        v_read = _kv_dequantize(cache["v"], cache["v_scale"], cfg.dtype)
+    else:
+        k_read, v_read = cache["k"], cache["v"]
+    if layout == "whole" and split_q:
+        k_read, v_read = ops._kv_heads_of(k_read, v_read, rank * n_q, n_q, group_size)
+    dense = cfg.decode_dense_attn and S <= 16
+    if layout != "seq":
+        if dense:
+            return _dense_cached_attention(q, k_read, v_read, start, ring=bool(window))
+        if cfg.attn_impl == "cuda" and not window and not cfg.kv_cache_quant:
+            return _flash_cached_attention(q, k_read, v_read, start)
+        return flash_xla(q, k_read, v_read, q_start=start, kv_valid_len=start + S,
+                         ring=bool(window), causal=True)
+    if dense:
+        return _dense_cached_attention_over_t(q, k_read, v_read, start, t0, T, group,
+                                              ring=bool(window))
+    import torch.distributed._functional_collectives as funcol
+
+    if window and start + S - 1 >= T:  # the ring has wrapped
+        out, lse = flash_xla_lse(q, k_read, v_read, q_start=0, kv_valid_len=T_l, causal=False)
+    else:
+        out, lse = flash_xla_lse(q, k_read, v_read, q_start=start - t0,
+                                 kv_valid_len=min(max(start + S - t0, 0), T_l))
+    w = torch.exp(lse - funcol.all_reduce(lse, "max", group))
+    both = funcol.all_reduce(torch.cat([out * w[..., None], w[..., None]], dim=-1),
+                             "sum", group)
+    return (both[..., :D] / both[..., D:]).to(q.dtype)
 
 
 def _cache_layout(cache_k) -> tuple[str, int, int]:
@@ -466,62 +521,20 @@ def _cache_layout(cache_k) -> tuple[str, int, int]:
 
 
 def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v, window: int = 0):
-    """The cached attention on DTensors: q ``(B, H, S, D)`` and the new k/v
-    ``(B, Hkv, S, D)`` against the layer's cache DTensors, placed by
-    ``cache_specs``: B over the batch axes where they divide it, and over
-    "model" the kv heads where "model" divides them, else the sequence T
-    where it divides that, else nothing. Each rank runs on its own shards
-    through ``local_apply``, with q and the new k/v over the batch axes as
-    the cache is:
-
-      * heads: q's heads over "model"; each rank writes and reads its kv heads;
-      * seq: q whole over "model"; each rank writes the new slots that fall in
-        its part of T (none, or a part of the chunk, or all of it) and runs
-        ``flash_xla_lse`` over its part at its own positions; the parts merge
-        across "model" as an exact rescale, the max of their log-sum-exps
-        first (one all-reduce), then the weighted sums of outputs and weights
-        (a second);
-      * whole: every rank writes the whole cache and reads the kv heads of
-        its q heads (q's heads over "model" where it divides them).
-
-    With a sliding ``window`` the cache is a ring of T slots, slot j holding
-    the position p with ``p % T == j``, as on a plain cache: a chunk is
-    written at slot ``start % T`` (each rank its own slots of it, and none
-    may cross the end of the ring); once the ring has wrapped every slot is
-    live and no mask applies, so each rank's part of T merges unmasked; a
-    prefill of S >= T tokens attends through ``banded_flash_xla`` on q's
-    heads over "model" (where "model" divides them, whatever the layout)
-    and each rank writes its slots of the last T positions, rolled into
-    place.
-
-    Over its heads or whole, each rank attends as on a plain cache: through
-    the flash kernel where ``_takes_flash_kernel`` holds, else through
-    ``flash_xla``. Split over T, each part goes through ``flash_xla_lse``.
-    The KV-cache options run on each rank's shards as on a plain cache;
-    ``decode_dense_attn`` over a cache split over T runs the masked product
-    on each rank's part of T at its global slots, and one softmax over the
-    parts (``_dense_cached_attention_over_t``)."""
-    import torch.distributed._functional_collectives as funcol
-
-    from repro_torch.kernels.ops import _kv_heads_of
-
+    """``_cached_attention`` on DTensors: ``_attend_part`` on each rank's
+    shards through ``local_apply``. The cache lies as ``cache_specs`` places
+    it: B over the batch axes where they divide it, and over "model" the kv
+    heads where "model" divides them, else the sequence T where it divides
+    that, else nothing. q and the new k/v lie over the batch axes as the
+    cache does and k/v whole over "model"; q's heads lie over "model" with
+    the cache's heads, or where "model" divides them and the cache is whole
+    or the call is a ring prefill; q is whole over "model" otherwise."""
     kc = cache["k"]
     mesh = kc.device_mesh
-    start, T, Hc = cache["start"], kc.shape[2], kc.shape[1]
-    B, H, S, D = q.shape
+    H, S, T = q.shape[1], q.shape[2], kc.shape[2]
     layout, tp, rank = _cache_layout(kc)
-    ring_prefill = bool(window) and S >= T
-    if ring_prefill and start:
-        raise ValueError(f"a ring-cache prefill of {S} >= {T} tokens starts at position 0, "
-                         f"not {start}")
-    idx = start % T if window else start
-    if not ring_prefill and idx + S > T:
-        raise ValueError(f"positions {start}..{start + S - 1} cross the end of the "
-                         f"{T}-slot KV cache at slot {idx}")
-    wrapped = bool(window) and start + S - 1 >= T
-    dense = cfg.decode_dense_attn and S <= 16 and not ring_prefill
-    split_q = layout == "heads" or ((layout == "whole" or ring_prefill) and tp > 1
-                                    and H % tp == 0)
+    split_q = layout == "heads" or ((layout == "whole" or (bool(window) and S >= T))
+                                    and tp > 1 and H % tp == 0)
     q_pl, kv_pl = [], []
     for name, place in zip(mesh.mesh_dim_names, kc.placements):
         if name == MODEL_AXIS:
@@ -530,60 +543,12 @@ def _sharded_cached_attention(cfg: ModelCfg, cache: dict, q, k, v, window: int =
         else:
             q_pl.append(place)
             kv_pl.append(place)
-    names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
-    local_cache = {n: cache[n].to_local() for n in names}
-    T_l = T // tp if layout == "seq" else T
-    t0 = rank * T_l if layout == "seq" else 0
-    Hc_l = Hc // tp if layout == "heads" else Hc
-    n_q = H // tp if split_q else H
+    part = {n: cache[n].to_local() for n in ("k", "v", "k_scale", "v_scale") if n in cache}
+    part["start"] = cache["start"]
+    group = mesh.get_group(MODEL_AXIS) if layout == "seq" else None
 
     def local(q, k, v):
-        if cfg.kv_cache_repeat > 1:
-            k = k.repeat_interleave(cfg.kv_cache_repeat, dim=1)
-            v = v.repeat_interleave(cfg.kv_cache_repeat, dim=1)
-        if layout == "heads":
-            k, v = k[:, rank * Hc_l:(rank + 1) * Hc_l], v[:, rank * Hc_l:(rank + 1) * Hc_l]
-        if ring_prefill:
-            kq, vq = ((k, v) if layout == "heads" or not split_q
-                      else _kv_heads_of(k, v, rank * n_q, n_q, H // Hc))
-            out = banded_flash_xla(q, kq, vq, window=window)
-            shift = (S - T) % T
-            k_last = torch.roll(k[:, :, -T:], shift, dims=2)[:, :, t0:t0 + T_l]
-            v_last = torch.roll(v[:, :, -T:], shift, dims=2)[:, :, t0:t0 + T_l]
-            _write_cache(cfg, local_cache, k_last, v_last, 0)
-            return out
-        lo, hi = max(idx, t0), min(idx + S, t0 + T_l)
-        if lo < hi:
-            _write_cache(cfg, local_cache, k[:, :, lo - idx:hi - idx],
-                         v[:, :, lo - idx:hi - idx], lo - t0)
-        if cfg.kv_cache_quant:
-            k_read = _kv_dequantize(local_cache["k"], local_cache["k_scale"], cfg.dtype)
-            v_read = _kv_dequantize(local_cache["v"], local_cache["v_scale"], cfg.dtype)
-        else:
-            k_read, v_read = local_cache["k"], local_cache["v"]
-        if layout == "whole" and split_q:
-            k_read, v_read = _kv_heads_of(k_read, v_read, rank * n_q, n_q, H // Hc)
-        if layout != "seq":
-            if dense:
-                return _dense_cached_attention(q, k_read, v_read, start, ring=bool(window))
-            if _takes_flash_kernel(cfg, window):
-                return _flash_cached_attention(q, k_read, v_read, start)
-            return flash_xla(q, k_read, v_read, q_start=start, kv_valid_len=start + S,
-                             ring=bool(window), causal=True)
-        group = mesh.get_group(MODEL_AXIS)
-        if dense:
-            return _dense_cached_attention_over_t(q, k_read, v_read, start, t0, T, group,
-                                                  ring=bool(window))
-        if wrapped:  # every slot of the ring is live
-            out, lse = flash_xla_lse(q, k_read, v_read, q_start=0, kv_valid_len=T_l,
-                                     causal=False)
-        else:
-            out, lse = flash_xla_lse(q, k_read, v_read, q_start=start - t0,
-                                     kv_valid_len=min(max(start + S - t0, 0), T_l))
-        w = torch.exp(lse - funcol.all_reduce(lse, "max", group))
-        both = funcol.all_reduce(torch.cat([out * w[..., None], w[..., None]], dim=-1),
-                                 "sum", group)
-        return (both[..., :D] / both[..., D:]).to(q.dtype)
+        return _attend_part(cfg, part, q, k, v, window, layout, tp, rank, split_q, group)
 
     return local_apply(local, (q, k, v), (tuple(q_pl), tuple(kv_pl), tuple(kv_pl)), q_pl)
 

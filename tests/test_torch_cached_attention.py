@@ -1,7 +1,8 @@
 """The cached path's attention over a plain KV cache (``models/lm.py``
-``_attn_sublayer``) on the CPU: which route each cached call takes, the
-flash kernel's route against ``flash_xla`` on the same inputs, and the pairs
-the route counts.
+``_cached_attention``, the one route a sharded cache takes too, one part
+per rank) on the CPU: which route each cached call takes, the flash
+kernel's route against ``flash_xla`` on the same inputs, and the pairs the
+route counts.
 
 On the CPU the flash kernel's wrapper runs its plain version, so the route
 and its arguments are what these tests hold; chip_smoke.py holds the kernel
@@ -48,8 +49,9 @@ def _tokens(n, seed=1):
 
 
 class _Spy:
-    """Wraps the attention routes ``_attn_sublayer`` can call, recording
-    each call's query length, q_offset (or start) and key count."""
+    """Wraps the attention routes ``_attend_part`` chooses among (through
+    ``_cached_attention``), recording each call's query length, q_offset (or
+    start) and key count."""
 
     def __init__(self, monkeypatch):
         self.calls = {"kernel": [], "flash_xla": [], "dense": []}
@@ -77,6 +79,10 @@ KERNEL_CASES = {
     # a head size the kernel lacks: its plain version on the CPU, a refusal
     # on the card, as on the full-sequence path
     "head_dim_48": ({"head_dim": 48}, _DECODE),
+    # each kv head kept twice (8 q heads over 4 cache heads), and the rows
+    # written by index
+    "kv_cache_repeat_2": ({"kv_cache_repeat": 2}, _DECODE),
+    "kv_scatter_write": ({"kv_scatter_write": True}, _CHUNK),
 }
 FLASH_XLA_CASES = {
     "ring": ({"window": 16}, _DECODE),

@@ -249,10 +249,11 @@ def _run_of(label, ranks, ranks_1x4):
 
 @pytest.mark.parametrize("label", list(CASES) + list(SSM_CASES) + list(STUB_CASES))
 def test_each_rank_attends_as_a_plain_cache_would(label, ranks, ranks_1x4):
-    """A KV cache over its heads or whole takes the flash kernel once a
-    layer in every cached forward, as a plain cache does (the prefill alone
-    under dense decode); a ring, an int8 cache and a cache over its
-    sequence never reach it."""
+    """Each rank's part goes through the one cached route a plain cache
+    takes (``lm._cached_attention``, one ``_attend_part`` per rank): a KV
+    cache over its heads or whole takes the flash kernel once a layer in
+    every cached forward (the prefill alone under dense decode); a ring, an
+    int8 cache and a cache over its sequence never reach it."""
     from torch.distributed.tensor import Shard
 
     name, n, opts, run = _run_of(label, ranks, ranks_1x4)
