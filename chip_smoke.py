@@ -23,7 +23,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
                prefill of 16 x 4080 tokens, decode steps at q_offset 4080
                and 4095, a chunk whose T is off the 64-key grid, on a
                4096-slot cache), timed beside its plain version,
-               its bound and a library call where one exists. Each time is
+               its bound and a library call where one exists; then K2's
+               bf16 backward against the f32 plain VJP at the train cells'
+               shapes, at every head size, not causal and S != T (repeated
+               bit for bit, one launch a call, no forward launch), timed
+               beside its bound, the plain VJP and SDPA's backward. Each time is
                given twice: `ms`, the device time per call (the durations of
                the CUDA kernels that torch.profiler records over N calls,
                over N), and `call_ms`, CUDA events around the loop of N
@@ -56,7 +60,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
   6. train   - qwen3-8b at full width and 8 of its 36 layers (f32 AdamW at
                full depth needs 131 GB): five make_train_step steps through
                the kernels (wall, forward + backward and optimizer ms, peak
-               memory, launches per step, busy share, train_mfu); one step
+               memory, launches per step, K2's backward one a layer, busy
+               share, train_mfu), then one step with the plain VJP in the
+               backward kernel's place (its peak memory and times); one step
                under each remat policy from the same params (losses, peak
                memory, launches, recomputed weight products); loss and every
                grad through the kernels against the plain versions and the
@@ -147,8 +153,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
                elementwise op), at D = 128 also on k head views; then the
                order of the kernel redesigns, each kernel's launches on the
                main paths x (device ms - bound ms), RMSNorm summed over its
-               shapes; a JSON line with one entry per kernel, and a last JSON
-               line with the device.
+               shapes; a JSON line with one entry per kernel, one with K2's
+               backward (phase 3's errors and times), and a last JSON line
+               with the device.
 It imports nothing of the JAX package and never falls back to the CPU.
 One card is one rank: what needs more than one, such as dense decode
 attention over a KV cache split over T on "model" and a microbatch the batch
@@ -160,6 +167,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import itertools
@@ -812,6 +820,139 @@ def flash_phase(dev) -> dict:
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:108",
             "max_abs_err": worst, **t}
+
+
+# K2's backward against the f32 plain VJP (autograd of ref.attention on the
+# same bf16 operands widened to f32): each gradient's max |error| over its
+# max |value|. An H100 (700 W) read 2.0e-3 to 4.1e-3 at the train cells'
+# shapes and 8.8e-3 at worst over flash_bwd_phase's cases (small ones, where
+# a few entries set the max); the CPU emulation of its rounding reads 3e-3
+# to 5e-3. The mildest fault of the plain formulas tried on the CPU, a
+# softmax scale 5% high, reads 0.08 (a causal mask one key late 1.5, dk
+# and dv from one head of each group 0.86, delta left out 1.3).
+FLASH_BWD_REL = 2e-2
+# the train cells' attention: yi-6b-l8 (B=4, 32 q and 4 kv heads of 128) and
+# granite-moe-3b-a800m-l16 (B=8, 24 q and 8 kv heads of 64), S = T = 2048,
+# causal, q/k/v head views of one projection and dout a head view of the
+# output's gradient, as the model hands them over
+FLASH_BWD_CELLS = {"yi": (4, 32, 4, 2048, 2048, 128, True),
+                   "granite": (8, 24, 8, 2048, 2048, 64, True)}
+
+
+def _bwd_operands(B, Hq, Hkv, S, T, D, causal, g, dev):
+    """q, k, v, out, lse, dout: K2's forward of _qkv_views, and a dout laid
+    out as the gradient of the model's (B, S, Hq, D) attention output."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    q, k, v = _qkv_views(B, Hq, Hkv, S, T, D, torch.bfloat16, g, dev)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    dout = torch.randn(B, S, Hq, D, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    return q, k, v, out, lse, dout
+
+
+def _plain_attention_bwd(q, k, v, out, lse, dout, *, causal, sm_scale=None, q_offset=None):
+    """The plain VJP, as the port ran the attention backward before its
+    kernel: autograd of ref.attention (f32 math) at q, k, v."""
+    from repro_torch.kernels import ref
+
+    with torch.enable_grad():
+        x = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(ref.attention(*x, causal=causal, sm_scale=sm_scale), x, dout)
+
+
+def flash_bwd_phase(dev) -> dict:
+    """K2's backward (bf16, the tensor cores) against the f32 plain VJP at the
+    train cells' shapes, at every head size, not causal and S != T: each
+    gradient within FLASH_BWD_REL of its max |value|, finite, the same bits
+    when run again, one launch a call and no forward launch. Then timed at
+    the train cells' shapes beside its bound (five products), the plain VJP
+    (the port's backward before it) and SDPA's backward."""
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention_bwd,
+                                                     flash_attention_fwd)
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = [*FLASH_BWD_CELLS.values(),
+             *FLASH_MODEL_SHAPES.values(),        # hymba, granite, whisper's encoder, pixtral
+             (2, 32, 8, 512, 512, 128, False),
+             (1, 8, 1, 512, 512, 64, True),       # MQA
+             (1, 8, 2, 64, 300, 128, True),       # S < T: q_offset = 236
+             (1, 8, 2, 300, 100, 64, False)]      # S > T
+    for D in HEAD_DIMS:
+        cases += [(1, 16, 2, 200, 200, D, True),  # groups of 8, T % 64 != 0
+                  (2, 9, 3, 70, 130, D, True),    # groups of 3, S < T
+                  (1, 4, 4, 1, 77, D, True),      # S = 1
+                  (1, 8, 2, 100, 100, D, False),
+                  (1, 3, 1, 65, 1500, D, True)]   # ragged S and T
+    worst = 0.0
+    for B, Hq, Hkv, S, T, D, causal in cases:
+        q, k, v, out, lse, dout = _bwd_operands(B, Hq, Hkv, S, T, D, causal, g, dev)
+        fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+        got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+        again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+        torch.cuda.synchronize()
+        check(flash_attention_fwd.launches == fwd and flash_attention_bwd.launches == bwd + 2,
+              "the backward must launch once a call and never the forward")
+        want = _plain_attention_bwd(*(t.float() for t in (q, k, v, out, lse, dout)),
+                                    causal=causal)
+        rel = [float((a.float() - b).abs().max() / b.abs().max()) for a, b in zip(got, want)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        worst = max(worst, *rel)
+        log("kernels", f"flash bwd bf16 B={B} Hq={Hq} Hkv={Hkv} S={S} T={T} D={D} "
+            f"causal={causal}: dq/dk/dv max err / max value {rel[0]:.3e} {rel[1]:.3e} "
+            f"{rel[2]:.3e} (bound {FLASH_BWD_REL}); repeat bit for bit {same}")
+        check(max(rel) <= FLASH_BWD_REL and same and finite,
+              f"flash bwd {(B, Hq, Hkv, S, T, D, causal)}: {rel}, repeat {same}, "
+              f"finite {finite}")
+        del q, k, v, out, lse, dout, got, again, want
+    # f32 operands on the card take the plain VJP in ops; the wrapper refuses them
+    q = torch.zeros(1, 2, 64, 64, device=dev)
+    before = flash_attention_bwd.launches
+    try:
+        flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 64, device=dev), q)
+    except TypeError as exc:
+        log("kernels", f"flash bwd f32 refused: {exc}")
+    else:
+        raise SmokeFailure("the backward kernel took f32 operands")
+    check(flash_attention_bwd.launches == before, "a refused backward was counted")
+
+    t = {}
+    library = torch.nn.functional.scaled_dot_product_attention
+    for name, (B, Hq, Hkv, S, T, D, causal) in FLASH_BWD_CELLS.items():
+        def make():
+            return _bwd_operands(B, Hq, Hkv, S, T, D, causal, g, dev)
+
+        nbytes = (4 * B * Hq * S * D + 4 * B * Hkv * T * D) * 2 + B * Hq * S * 4
+        pairs = sum(min(T - S + i + 1, T) for i in range(S)) if causal else S * T
+        ops = 10.0 * B * Hq * D * pairs  # S, dP, dV, dK, dQ: five products
+        sets = copies(make, nbytes)
+        bwd = functools.partial(flash_attention_bwd, causal=causal)
+        t |= _times(f"{name}_", bwd, sets)
+        t |= _times(f"{name}_plain_", functools.partial(_plain_attention_bwd, causal=causal),
+                    sets)
+
+        def sdpa_graph(q, k, v, out, lse, dout):
+            with torch.enable_grad():
+                x = [a.detach().requires_grad_() for a in (q, k, v)]
+                return x, library(*x, is_causal=causal, enable_gqa=True), dout
+
+        graphs = [sdpa_graph(*a) for a in sets]
+        t |= _times(f"{name}_library_", lambda x, o, dout: torch.autograd.grad(
+            o, x, dout, retain_graph=True), graphs)
+        del sets, graphs
+        bms, by = bound_ms(nbytes, ops, torch.bfloat16)
+        t |= {f"{name}_bound_ms": bms, f"{name}_bound_by": by}
+        ms, lib = t[f"{name}_ms"], t[f"{name}_library_ms"]
+        log("kernels", f"flash bwd timing bf16 {name} {(B, Hq, Hkv, S, T, D)} causal={causal}: "
+            f"kernel {ms:.4f} ms (call {t[f'{name}_call_ms']:.4f}), plain VJP "
+            f"{t[f'{name}_plain_ms']:.4f} ({t[f'{name}_plain_call_ms']:.4f}), sdpa backward "
+            f"{lib:.4f} ({t[f'{name}_library_call_ms']:.4f}), bound {bms:.4f} ms ({by}); "
+            f"kernel {ops / ms / 1e9:.2f} TFLOP/s on five products, sdpa "
+            f"{ops / lib / 1e9:.2f}, kernel / sdpa {ms / lib:.3f}, bound / kernel {bms / ms:.3f}")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "none: the JAX package's backward is the plain VJP",
+            "max_rel_err": worst, **t}
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, seed, dev):
@@ -1615,10 +1756,12 @@ TRAIN_F32_REL = 1e-4
 # H100 read 1.0e-4; 5e-5 at B=2). 1e-3 is ten times that reading. The
 # wrong kernels of tools/train_parity_control.py moved it by 1.6e-3 to 0.34.
 TRAIN_BF16_LOSS_TOL = 1e-3
-# Each grad leaf by max |diff| over the leaf's max |value|: the backward runs
-# the plain VJPs at activations the kernels rounded differently, so the grads
-# differ by bf16 roundings carried through two layers. An H100 read 2.1e-2 at
-# worst (q_norm; the other leaves 0.9-1.3e-2); the wrong kernels of
+# Each grad leaf by max |diff| over the leaf's max |value|: the kernel path's
+# backward runs K2's bf16 backward kernel and the plain VJPs of the other
+# ops at activations the kernels rounded differently, so the grads differ by
+# bf16 roundings carried through two layers. An H100 read 2.1e-2 at worst
+# (q_norm; the other leaves 0.9-1.3e-2) with the plain VJP in the attention
+# backward, and 1.9e-2 (q_norm) with the kernel; the wrong kernels of
 # tools/train_parity_control.py read 0.105 (softmax scale 5% high) and up.
 TRAIN_BF16_GRAD_REL = 5e-2
 H100_BF16_FLOPS = PEAK_OPS_PER_S[torch.bfloat16]
@@ -1713,6 +1856,23 @@ def _leaf_rel(got, want) -> tuple[float, int]:
     return rel[i], i
 
 
+def _plain_bwd_step(step, params, opt, batch) -> tuple[int, dict]:
+    """One train step with ops' attention backward swapped for the plain VJP:
+    (its peak memory, timed_step's row with the new state under "state")."""
+    from repro_torch.kernels import ops
+
+    real = ops.flash_attention_bwd
+    ops.flash_attention_bwd = _plain_attention_bwd
+    try:
+        with OptimizerTimer() as timer:
+            _free()
+            params, opt, row = timed_step(step, params, opt, batch, timer)
+    finally:
+        ops.flash_attention_bwd = real
+    row["state"] = (params, opt)
+    return torch.cuda.max_memory_allocated(), row
+
+
 def train_steps_phase(dev, counters, card: str) -> tuple[tuple[dict, dict], list[dict]]:
     """Five steps at TRAIN_BS through the kernels, a profiled step, then one
     step under each remat policy. Returns read_counts of the five steps, and
@@ -1720,6 +1880,7 @@ def train_steps_phase(dev, counters, card: str) -> tuple[tuple[dict, dict], list
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.models import lm
     from repro_torch.train import TrainStepCfg, adamw_init, make_train_step
 
@@ -1744,6 +1905,7 @@ def train_steps_phase(dev, counters, card: str) -> tuple[tuple[dict, dict], list
         f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB, init {time.perf_counter() - t0:.1f} s")
 
     reset_counts(counters)
+    bwd0 = flash_attention_bwd.launches
     rows, peak = [], 0
     with OptimizerTimer() as timer:
         for i in range(TRAIN_STEPS):
@@ -1764,9 +1926,19 @@ def train_steps_phase(dev, counters, card: str) -> tuple[tuple[dict, dict], list
         f"backward {max(timer.fwd_bwd_peak) / 1e9:.2f} GB); launches {counts} over "
         f"{TRAIN_STEPS} steps, per step {per_step} expected; rmsnorm launches by kernel "
         f"{norm_paths}")
-    check(counts == expect, "train launch counts")
+    bwd = flash_attention_bwd.launches - bwd0
+    log("train", f"attention backward launches {bwd} over {TRAIN_STEPS} steps, {L} a step "
+        f"expected (one a K2 layer)")
+    check(counts == expect and bwd == TRAIN_STEPS * L, "train launch counts")
     check(norm_paths == {"vector": expect["rmsnorm_fwd"]},
           "the train step's RMSNorm launches took another kernel")
+    # one more step with the attention backward as the plain VJP (the port
+    # before K2's backward): its peak memory and times beside the kernel's
+    plain_peak, plain_row = _plain_bwd_step(step, params, opt, batch)
+    params, opt = plain_row.pop("state")
+    log("train", f"peak memory with the backward kernel {peak / 1e9:.2f} GB, with the plain "
+        f"VJP {plain_peak / 1e9:.2f} GB; the plain VJP's step: wall {plain_row['wall_ms']:.1f} "
+        f"ms, forward + backward {plain_row['fwd_bwd_ms']:.1f} ms")
     check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows),
           "non-finite train loss or grad_norm")
     first_want = math.log(arch.vocab) + 0.5
@@ -1893,6 +2065,7 @@ def train_parity_phase(dev, counters) -> None:
     """Loss and every grad of one f32 step at 2 layers through the kernels,
     against the plain versions and the "xla" path; then the same in bf16 at
     the train path's shapes, against the plain versions."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.models import lm
 
     arch, params = _parity_model(dev, 9)
@@ -1904,9 +2077,11 @@ def train_parity_phase(dev, counters) -> None:
         cfg = lm.ModelCfg(dtype=torch.float32, attn_impl=impl, norm_impl=impl)
         return _loss_and_grads(params, arch, cfg, batch, counters)
 
+    bwd0 = flash_attention_bwd.launches
     loss_k, grads_k, c = loss_and_grads("cuda")
-    check(c == {"rmsnorm_fwd": 4 * 2 + 1, "flash_attention_fwd": 2, "ssd_scan_fwd": 0},
-          f"f32 step launches {c}")
+    check(c == {"rmsnorm_fwd": 4 * 2 + 1, "flash_attention_fwd": 2, "ssd_scan_fwd": 0}
+          and flash_attention_bwd.launches == bwd0,
+          f"f32 step launches {c}, the backward kernel's {flash_attention_bwd.launches - bwd0}")
     for other in ("torch", "xla"):
         loss_o, grads_o, c = loss_and_grads(other)
         check(sum(c.values()) == 0, f"the {other} path launched a kernel: {c}")
@@ -1919,13 +2094,15 @@ def train_parity_phase(dev, counters) -> None:
         del grads_o
     del grads_k, params
     _free()
+    bwd0 = flash_attention_bwd.launches
     r = bf16_step_vs_plain(dev, counters)
+    r["launches"]["flash_attention_bwd"] = flash_attention_bwd.launches - bwd0
     log("train", f"bf16 step at 2 layers, B={TRAIN_BS[0]} S={TRAIN_BS[1]}, kernels vs plain: "
         f"loss {r['loss']:.6f} vs {r['plain_loss']:.6f} (gap {r['d_loss']:.3e}, bound "
         f"{TRAIN_BF16_LOSS_TOL}), worst grad leaf {r['leaf']} rel {r['grad_rel']:.3e} (bound "
         f"{TRAIN_BF16_GRAD_REL}); launches {r['launches']}")
     check(r["launches"] == {"rmsnorm_fwd": 4 * 2 + 1, "flash_attention_fwd": 2,
-                            "ssd_scan_fwd": 0}, "bf16 step launches")
+                            "ssd_scan_fwd": 0, "flash_attention_bwd": 2}, "bf16 step launches")
     check(r["d_loss"] <= TRAIN_BF16_LOSS_TOL, "bf16 loss, kernels vs plain")
     check(r["grad_rel"] <= TRAIN_BF16_GRAD_REL, "bf16 grads, kernels vs plain")
 
@@ -1999,6 +2176,7 @@ def train_granite_phase(dev, counters, card: str) -> tuple[dict, dict]:
     launches); then the loss and every grad of one f32 step at 2 layers,
     kernels against plain versions."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.models import lm
     from repro_torch.train import TrainStepCfg, adamw_init, make_train_step
 
@@ -2020,6 +2198,7 @@ def train_granite_phase(dev, counters, card: str) -> tuple[dict, dict]:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB; f32 master weights, bf16 compute")
     _free()
     reset_counts(counters)
+    bwd0 = flash_attention_bwd.launches
     rows = []
     with OptimizerTimer() as timer:
         for i in range(GRANITE_TRAIN_STEPS):
@@ -2034,10 +2213,12 @@ def train_granite_phase(dev, counters, card: str) -> tuple[dict, dict]:
                 f"{timer.fwd_bwd_peak[-1] / 1e9:.2f}) on {card}")
     counts, shapes = read_counts(counters)
     per_step = {"rmsnorm_fwd": 2 * L + 1, "flash_attention_fwd": L, "ssd_scan_fwd": 0}
+    bwd = flash_attention_bwd.launches - bwd0
     log("train", f"granite launches {counts} over {GRANITE_TRAIN_STEPS} steps, per step "
-        f"{per_step} expected; rmsnorm launches by kernel {_norm_paths(counters)}")
-    check(counts == {k: GRANITE_TRAIN_STEPS * v for k, v in per_step.items()},
-          "granite train launch counts")
+        f"{per_step} expected; rmsnorm launches by kernel {_norm_paths(counters)}; attention "
+        f"backward launches {bwd} ({L} a step expected)")
+    check(counts == {k: GRANITE_TRAIN_STEPS * v for k, v in per_step.items()}
+          and bwd == GRANITE_TRAIN_STEPS * L, "granite train launch counts")
     check(all(math.isfinite(r["loss"]) and math.isfinite(r["aux_loss"]) for r in rows),
           "non-finite granite loss")
     first_want = math.log(arch.vocab) + 0.5
@@ -3493,6 +3674,8 @@ def _main(dev, t_start: float, procs) -> int:
     counters = (rmsnorm_fwd, flash_attention_fwd, ssd_scan_fwd)
     with torch.inference_mode():
         entries = [rmsnorm_phase(dev), flash_phase(dev), ssd_phase(dev)]
+    bwd_entry = flash_bwd_phase(dev)
+    _free()
     log("kernels", f"done at {time.perf_counter() - t_start:.1f} s")
     # each model's cached forwards (prefill, decode steps) attend over a
     # plain cache through K2 once a layer, except a ring's (hymba) and the
@@ -3588,6 +3771,7 @@ def _main(dev, t_start: float, procs) -> int:
     log("order", "launches x (device ms - bound ms) on the main paths: " + ", ".join(
         f"{n} {g:.3f} ms" for n, g in sorted(gaps.items(), key=lambda kv: -kv[1])))
     print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"flash_bwd": bwd_entry}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -61,19 +61,11 @@ void rmsnorm_fwd(const torch::Tensor& x, const torch::Tensor& w, torch::Tensor y
                "rmsnorm");
 }
 
-void flash_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
-                         const torch::Tensor& v, torch::Tensor out,
-                         torch::Tensor lse, bool causal, double sm_scale,
+FlashParams flash_params(const torch::Tensor& q, const torch::Tensor& k,
+                         const torch::Tensor& v, bool causal, double sm_scale,
                          int64_t q_offset) {
-  TORCH_CHECK(q.is_cuda() && out.is_contiguous() && lse.is_contiguous() &&
-                  lse.scalar_type() == torch::kFloat32 &&
-                  q.dim() == 4 && lse.numel() * q.size(3) == q.numel(),
-              "flash_attention: bad output buffers");
-  TORCH_CHECK(k.sizes() == v.sizes() && out.sizes() == q.sizes() &&
-                  q.size(0) == k.size(0) && q.size(3) == k.size(3) &&
-                  k.scalar_type() == q.scalar_type() &&
-                  v.scalar_type() == q.scalar_type() &&
-                  out.scalar_type() == q.scalar_type(),
+  TORCH_CHECK(k.sizes() == v.sizes() && q.size(0) == k.size(0) && q.size(3) == k.size(3) &&
+                  k.scalar_type() == q.scalar_type() && v.scalar_type() == q.scalar_type(),
               "flash_attention: shape or dtype mismatch");
   FlashParams p;
   p.B = static_cast<int>(q.size(0));
@@ -88,12 +80,61 @@ void flash_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
   p.causal = causal ? 1 : 0;
   p.q_offset = static_cast<int>(q_offset);
   p.sm_scale = static_cast<float>(sm_scale);
+  return p;
+}
+
+void flash_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
+                         const torch::Tensor& v, torch::Tensor out,
+                         torch::Tensor lse, bool causal, double sm_scale,
+                         int64_t q_offset) {
+  TORCH_CHECK(q.is_cuda() && out.is_contiguous() && lse.is_contiguous() &&
+                  lse.scalar_type() == torch::kFloat32 &&
+                  q.dim() == 4 && lse.numel() * q.size(3) == q.numel(),
+              "flash_attention: bad output buffers");
+  TORCH_CHECK(out.sizes() == q.sizes() && out.scalar_type() == q.scalar_type(),
+              "flash_attention: shape or dtype mismatch");
+  const FlashParams p = flash_params(q, k, v, causal, sm_scale, q_offset);
   const c10::cuda::CUDAGuard guard(q.device());
   check_launch(repro_flash_attention_fwd(
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    lse.data_ptr<float>(), p, dtype_code(q),
                    c10::cuda::getCurrentCUDAStream().stream()),
                "flash_attention");
+}
+
+// The f32 scratch (lse2 and delta, S_pad rows a head) is allocated here, on
+// the current stream's allocator, and freed when the launches are done.
+void flash_attention_bwd(const torch::Tensor& q, const torch::Tensor& k,
+                         const torch::Tensor& v, const torch::Tensor& out,
+                         const torch::Tensor& lse, const torch::Tensor& dout,
+                         torch::Tensor dq, torch::Tensor dk, torch::Tensor dv, bool causal,
+                         double sm_scale, int64_t q_offset) {
+  TORCH_CHECK(q.is_cuda() && q.dim() == 4 && lse.is_contiguous() &&
+                  lse.scalar_type() == torch::kFloat32 &&
+                  lse.numel() * q.size(3) == q.numel(),
+              "flash_attention_bwd: bad lse");
+  TORCH_CHECK(out.sizes() == q.sizes() && dout.sizes() == q.sizes() &&
+                  dq.sizes() == q.sizes() && dk.sizes() == k.sizes() && dv.sizes() == k.sizes() &&
+                  dq.is_contiguous() && dk.is_contiguous() && dv.is_contiguous(),
+              "flash_attention_bwd: bad out, dout or gradient buffers");
+  for (const torch::Tensor* t :
+       std::initializer_list<const torch::Tensor*>{&out, &dout, &dq, &dk, &dv})
+    TORCH_CHECK(t->scalar_type() == q.scalar_type(), "flash_attention_bwd: dtype mismatch");
+  FlashBwdParams p;
+  p.f = flash_params(q, k, v, causal, sm_scale, q_offset);
+  p.o = strides_of(out);
+  p.dout = strides_of(dout);
+  p.S_pad = (p.f.S + REPRO_FLASH_BWD_ROW_PAD - 1) / REPRO_FLASH_BWD_ROW_PAD *
+            REPRO_FLASH_BWD_ROW_PAD;
+  const c10::cuda::CUDAGuard guard(q.device());
+  torch::Tensor scratch = torch::empty({2 * q.size(0) * q.size(1) * int64_t{p.S_pad}},
+                                       q.options().dtype(torch::kFloat32));
+  check_launch(repro_flash_attention_bwd(
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   lse.data_ptr<float>(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                   dv.data_ptr(), scratch.data_ptr<float>(), p, dtype_code(q),
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "flash_attention_bwd");
 }
 
 void ssd_scan_fwd(const torch::Tensor& x, const torch::Tensor& dt,
@@ -161,5 +202,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("rmsnorm_fwd", &rmsnorm_fwd, "RMSNorm forward (sm_90a)");
   m.def("flash_attention_fwd", &flash_attention_fwd,
         "GQA flash-attention forward (sm_90a)");
+  m.def("flash_attention_bwd", &flash_attention_bwd,
+        "GQA flash-attention backward from out and lse, bf16 (sm_90a)");
   m.def("ssd_scan_fwd", &ssd_scan_fwd, "Mamba-2 SSD chunked scan forward (sm_90a)");
 }

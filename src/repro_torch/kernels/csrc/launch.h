@@ -52,6 +52,29 @@ cudaError_t repro_flash_attention_fwd(const void* q, const void* k,
                                       const FlashParams& p, int dtype,
                                       cudaStream_t stream);
 
+// The backward's operands beyond the forward's: the strides of out and dout
+// (laid out as q), and the rows a head of its f32 scratch, S rounded up to a
+// multiple of REPRO_FLASH_BWD_ROW_PAD.
+struct FlashBwdParams {
+  FlashParams f;
+  AttnStrides o, dout;
+  int S_pad;
+};
+
+constexpr int REPRO_FLASH_BWD_ROW_PAD = 128;
+
+// Gradients of the forward above from its out and lse, bf16 only (the
+// tensor cores; cudaErrorInvalidValue for another dtype or D), with every
+// operand 16-byte aligned as the bf16 forward's (cudaErrorMisalignedAddress
+// otherwise). dq: contiguous (B, Hq, S, D); dk, dv: contiguous
+// (B, Hkv, T, D); scratch: 2 * B * Hq * S_pad floats. Three launches on
+// `stream`; the result does not depend on their timing.
+cudaError_t repro_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                      const void* out, const float* lse, const void* dout,
+                                      void* dq, void* dk, void* dv, float* scratch,
+                                      const FlashBwdParams& p, int dtype,
+                                      cudaStream_t stream);
+
 // Mamba-2 SSD scan shapes and the element strides of its operands, each with
 // a contiguous last dim: x (B, S, H, P), dt (B, S, H), Bm and C (B, S, N).
 struct SsdParams {

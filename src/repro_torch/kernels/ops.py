@@ -12,10 +12,15 @@ Each op takes ``impl``:
                   blockwise-recompute backward), the norm and the SSD scan
                   through their plain versions.
 
-The kernel path is a ``torch.autograd.Function``. Its backward is the JAX
-package's: the VJP of the plain version, recomputed from the saved inputs
-(``repro/kernels/ops.py`` ``_fa_bwd``, ``_rn_bwd``, ``_ssd_bwd``). The JAX
-package has no backward kernel, so neither has the port.
+The kernel path is a ``torch.autograd.Function``. The norm's and the SSD
+scan's backward is the JAX package's: the VJP of the plain version,
+recomputed from the saved inputs (``repro/kernels/ops.py`` ``_rn_bwd``,
+``_ssd_bwd``). Attention saves the forward's ``out`` and ``lse`` beside q, k
+and v: bf16 on the card takes the hand-written backward
+(``flash_attention_bwd``, bf16 products on the tensor cores, no score in
+device memory), which the JAX package lacks (its ``_fa_bwd`` is the plain
+VJP). f32, the parity type the JAX tests hold at 2e-5, and CPU tensors keep
+the plain VJP, whose f32 products a bf16 kernel would not match there.
 
 A DTensor operand (a sharded model, ``repro_torch.parallel``) reaches every
 op through ``sharding.local_apply``, the counterpart of ``shard_map``: its
@@ -40,7 +45,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import spans
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch.kernels.ssd import ssd_scan_fwd
 from repro_torch.kernels.xla_flash import banded_flash_xla, flash_xla_train
@@ -54,10 +59,11 @@ def _check_impl(impl: str) -> None:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
 
-def _plain_vjp(ctx, plain, grad_out):
-    """Gradients of ``plain`` at the saved inputs against ``grad_out``, for
-    the inputs that need one (None for the rest)."""
-    saved = ctx.saved_tensors
+def _plain_vjp(ctx, plain, grad_out, saved=None):
+    """Gradients of ``plain`` at the saved inputs (``saved``, by default all
+    of ``ctx.saved_tensors``, the op's leading inputs) against ``grad_out``,
+    for the inputs that need one (None for the rest)."""
+    saved = ctx.saved_tensors if saved is None else saved
     wanted = ctx.needs_input_grad[:len(saved)]
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_(w) for t, w in zip(saved, wanted)]
@@ -71,18 +77,25 @@ def _plain_vjp(ctx, plain, grad_out):
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        ctx.save_for_backward(q, k, v)
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
-        out, _ = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        def plain(q, k, v):
-            return ref.attention(q, k, v, causal=ctx.causal, sm_scale=ctx.sm_scale)
-
+        q, k, v, out, lse = ctx.saved_tensors
         with spans.span("attn.backward", device=g.is_cuda):
-            return (*_plain_vjp(ctx, plain, g), None, None)
+            if g.is_cuda and q.dtype == torch.bfloat16:
+                grads = flash_attention_bwd(q, k, v, out, lse, g, causal=ctx.causal,
+                                            sm_scale=ctx.sm_scale)
+                return (*(d if w else None for d, w in zip(grads, ctx.needs_input_grad)),
+                        None, None)
+
+            def plain(q, k, v):
+                return ref.attention(q, k, v, causal=ctx.causal, sm_scale=ctx.sm_scale)
+
+            return (*_plain_vjp(ctx, plain, g, (q, k, v)), None, None)
 
 
 class _RMSNorm(torch.autograd.Function):

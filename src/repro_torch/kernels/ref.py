@@ -67,6 +67,39 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
     return out.reshape(B, Hq, S, D).to(q.dtype), lse.reshape(B, Hq, S)
 
 
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            sm_scale: Optional[float] = None,
+                            q_offset: Optional[int] = None):
+    """What the flash-attention backward kernel returns: ``(dq, dk, dv)`` of
+    ``flash_attention_fwd_ref``'s out against ``dout``, in the operands'
+    dtypes, by the flash formulas in f32: P = exp(S - lse) from the saved
+    ``lse``, delta = rowsum(dout * out) from the saved ``out``,
+    dS = P (dP - delta), and dk, dv summed over each kv head's group of q
+    heads."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    if q_offset is None:
+        q_offset = T - S
+    qf = q.float().reshape(B, Hkv, G, S, D)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(B, Hkv, G, S, D)
+    logits = _gqa_logits(q, k, scale)
+    if causal:
+        if q_offset < 0:
+            raise ValueError(f"causal attention needs q_offset >= 0, got {q_offset}")
+        logits = logits.masked_fill(~_causal_mask(S, T, q_offset, q.device), float("-inf"))
+    p = torch.exp(logits - lse.float().reshape(B, Hkv, G, S)[..., None])
+    delta = (do * out.float().reshape(B, Hkv, G, S, D)).sum(-1)
+    dv = torch.einsum("bhgst,bhgsd->bhtd", p, do)
+    dp = torch.einsum("bhgsd,bhtd->bhgst", do, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhgst,bhtd->bhgsd", ds, kf) * scale
+    dk = torch.einsum("bhgst,bhgsd->bhtd", ds, qf) * scale
+    return dq.reshape(B, Hq, S, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Reference RMSNorm over the last dim."""
     xf = x.float()

@@ -24,7 +24,8 @@ from repro.kernels.ssd import ssd_scan_fwd as jax_ssd  # noqa: E402
 from repro.kernels.xla_flash import flash_xla as jax_flash_xla  # noqa: E402
 from repro.kernels.xla_flash import flash_xla_train as jax_flash_xla_train  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import HEAD_DIMS, _plan  # noqa: E402
+from repro_torch.kernels.flash_attention import HEAD_DIMS, _plan, _plan_bwd  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd  # noqa: E402
 from repro_torch.kernels.ssd import DEFAULT_CHUNK, ssd_scan_fwd  # noqa: E402
@@ -314,6 +315,181 @@ def test_kernel_wrappers_reject_bad_operands():
     with pytest.raises(ValueError):
         ops.ssd(torch.ones(1, 4, 2, 8), torch.ones(1, 4, 2), torch.ones(2),
                 torch.ones(1, 4, 4), torch.ones(1, 4, 4), impl="naive")
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward: the plain version of the bf16 kernel
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, S, T, D, causal): groups of 1, 3 and 8, S = T and S < T,
+# ragged S and T, and every head size
+_BWD_CASES = [
+    (1, 4, 4, 64, 64, 64, True),
+    (2, 6, 2, 96, 96, 32, True),
+    (1, 8, 1, 80, 80, 128, False),
+    (1, 3, 1, 65, 1500, 64, True),
+    (1, 3, 1, 65, 1500, 64, False),
+    (1, 8, 1, 1, 77, 64, True),
+    *((1, 4, 2, 70, 130, D, True) for D in HEAD_DIMS),
+    *((2, 3, 3, 33, 33, D, False) for D in HEAD_DIMS),
+]
+
+
+def _attention_grads(q, k, v, g, causal):
+    """torch.autograd.grad of the plain attention: what the plain VJP gives."""
+    x = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(ref.attention(*x, causal=causal), x, g)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,D,causal", _BWD_CASES)
+def test_flash_bwd_plain_matches_autograd(B, Hq, Hkv, S, T, D, causal):
+    """The flash formulas (P from the saved lse, delta from the saved out, the
+    group's sum for dk and dv) give the plain attention's gradients in f32,
+    within the JAX tests' 2e-5; the wrapper runs them on CPU tensors and
+    counts no launch."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(B, Hq, Hkv, S, T, D, seed=S + D))
+    g = torch.from_numpy(np.random.default_rng(T).standard_normal(q.shape).astype(np.float32))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    assert flash_attention_bwd.launches == before
+    for a, b, t in zip(got, _attention_grads(q, k, v, g, causal), (q, k, v)):
+        assert a.shape == t.shape and a.dtype == t.dtype
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5, rtol=0)
+
+
+def _bwd_kernel_emulation(q, k, v, out, lse, dout, causal):
+    """The bf16 backward kernel's arithmetic in f32 torch: products of bf16
+    operands summed in f32, P = 2^(S scale log2(e) - lse log2(e)), delta
+    from the bf16 out, P and dS rounded to bf16 as the A operands of dV,
+    dK and dQ, each gradient rounded to bf16 once."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G, scale, log2e = Hq // Hkv, 1.0 / np.sqrt(D), float(np.log2(np.e))
+
+    def bf(x):
+        return x.to(torch.bfloat16).float()
+
+    qf, kf, vf = q.float().reshape(B, Hkv, G, S, D), k.float(), v.float()
+    do = dout.float().reshape(B, Hkv, G, S, D)
+    s = torch.einsum("bhgsd,bhtd->bhgst", qf, kf)
+    if causal:
+        s = s.masked_fill(~ref._causal_mask(S, T, T - S, q.device), float("-inf"))
+    p = torch.exp2(s * (scale * log2e) - (lse.reshape(B, Hkv, G, S) * log2e)[..., None])
+    delta = (do * out.float().reshape(B, Hkv, G, S, D)).sum(-1)
+    ds = p * (torch.einsum("bhgsd,bhtd->bhgst", do, vf) - delta[..., None])
+    dq = torch.einsum("bhgst,bhtd->bhgsd", bf(ds), kf) * scale
+    dk = torch.einsum("bhgst,bhgsd->bhtd", bf(ds), qf) * scale
+    dv = torch.einsum("bhgst,bhgsd->bhtd", bf(p), do)
+    return bf(dq.reshape(B, Hq, S, D)), bf(dk), bf(dv)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,D,causal", [
+    (1, 8, 1, 512, 512, 128, True),
+    (1, 6, 2, 512, 512, 64, True),
+    (1, 4, 2, 200, 300, 80, False),
+])
+def test_bwd_tensor_core_rounding_fits_the_smoke_bound(B, Hq, Hkv, S, T, D, causal):
+    """The bf16 backward's design, emulated, against the f32 plain VJP of the
+    same bf16 inputs: each gradient's max |error| over its max |value| within
+    half of chip_smoke.py's FLASH_BWD_REL, 2e-2 (the CPU reads ~3e-3 to
+    5e-3: the bf16 rounding of each gradient, ~2^-9 of a value, plus those
+    of P and dS)."""
+    rng = np.random.default_rng(D)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+                  for shape in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, D), (B, Hq, S, D)))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    got = _bwd_kernel_emulation(q, k, v, out, lse, g, causal)
+    want = _attention_grads(q.float(), k.float(), v.float(), g.float(), causal)
+    for a, b in zip(got, want):
+        assert 0 < float((a - b).abs().max() / b.abs().max()) < 1e-2
+
+
+def _bwd_operands(dtype=torch.bfloat16, D=64, S=8):
+    q = _buf((1, 2, S, D), dtype)
+    k = v = _buf((1, 1, S, D), dtype)
+    return q, k, v, _buf((1, 2, S, D), dtype), torch.zeros(1, 2, S), _buf((1, 2, S, D), dtype)
+
+
+@pytest.mark.parametrize("case", ["f32", "head_dim", "out_dtype", "dout_dtype", "lse_dtype",
+                                  "lse_strided", "out_aligned", "out_last_dim"])
+def test_flash_bwd_plan_rejects(case):
+    """The backward kernel takes bf16 only (f32 operands keep the plain VJP
+    in ops and raise at the wrapper on the card), at the forward's head
+    sizes, out and dout in q's dtype, lse contiguous f32, out aligned."""
+    q, k, v, out, lse, dout = _bwd_operands(torch.float32 if case == "f32" else torch.bfloat16,
+                                            D=48 if case == "head_dim" else 64)
+    if case == "out_dtype":
+        out = out.float()
+    elif case == "dout_dtype":
+        dout = dout.float()
+    elif case == "lse_dtype":
+        lse = lse.bfloat16()
+    elif case == "lse_strided":
+        lse = torch.zeros(1, 2, 16)[..., ::2]
+    elif case == "out_aligned":
+        out = _buf((1, 2, 8, 64), offset=1)
+    elif case == "out_last_dim":
+        out = _buf((1, 2, 64, 8)).transpose(2, 3)
+    err = ValueError if case in ("head_dim", "out_aligned", "out_last_dim") else TypeError
+    with pytest.raises(err):
+        _plan_bwd(q, k, v, out, lse, dout)
+
+
+def test_flash_bwd_plan_makes_dout_readable():
+    """An aligned dout view (the head-transposed gradient of the model's
+    output) is read in place; one off the 16-byte grid, or with a strided
+    last dim, is copied contiguous."""
+    q, k, v, out, lse, _ = _bwd_operands()
+    view = _buf((1, 8, 2, 64)).transpose(1, 2)
+    assert _plan_bwd(q, k, v, out, lse, view) is view
+    for dout in (_buf((1, 2, 8, 64), offset=1), _buf((1, 2, 64, 8)).transpose(2, 3)):
+        got = _plan_bwd(q, k, v, out, lse, dout)
+        assert got.is_contiguous() and torch.equal(got, dout)
+
+
+@pytest.mark.parametrize("case", ["out", "dout", "lse", "kv"])
+def test_flash_bwd_rejects_mismatched_shapes(case):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 16, 16, 16))
+    out, lse = flash_attention_fwd(q, k, v)
+    dout = torch.ones_like(q)
+    if case == "out":
+        out = out[:, :, :8]
+    elif case == "dout":
+        dout = dout[:, :2]
+    elif case == "lse":
+        lse = lse[..., None]
+    else:
+        v = v[:, :, :8]
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, out, lse, dout)
+
+
+def test_flash_attention_saves_out_and_lse():
+    """The kernel op keeps the forward's out and lse for its backward beside
+    q, k and v: the lse of the forward it ran, the very out it returned."""
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(1, 4, 2, 32, 32, 32))
+    y = ops.flash_attention(q, k, v, causal=True, impl="cuda")
+    saved = y.grad_fn.saved_tensors
+    assert len(saved) == 5
+    assert all(a is b for a, b in zip(saved[:3], (q, k, v)))
+    assert torch.equal(saved[3], y)
+    _, lse = flash_attention_fwd(q.detach(), k.detach(), v.detach(), causal=True)
+    assert torch.equal(saved[4], lse)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_cpu_backward_is_the_plain_vjp(dtype):
+    """On CPU tensors, bf16 too, the kernel op's backward is the plain
+    VJP, bit for bit: autograd of the plain attention at the same inputs."""
+    arrays = _qkv(2, 6, 2, 40, 40, 64, seed=4)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 6, 40, 64))
+                         .astype(np.float32)).to(_TORCH[dtype])
+    q, k, v = (torch.from_numpy(a).to(_TORCH[dtype]).requires_grad_() for a in arrays)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, causal=True, impl="cuda"),
+                              (q, k, v), g)
+    for a, b in zip(got, _attention_grads(q, k, v, g, True)):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

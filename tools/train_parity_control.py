@@ -52,6 +52,26 @@ def _flash_scale_off(real):
     return fn
 
 
+def _flash_bwd_scale_off(real):
+    """The backward's softmax scale 5% high (the forward's is right)."""
+    def fn(q, k, v, out, lse, dout, *, causal=True, sm_scale=None, **kw):
+        scale = (sm_scale or q.shape[-1] ** -0.5) * 1.05
+        return real(q, k, v, out, lse, dout, causal=causal, sm_scale=scale, **kw)
+    return fn
+
+
+def _flash_bwd_group_head_dropped(real):
+    """dk and dv leave out the last q head of each kv head's group."""
+    def fn(q, k, v, out, lse, dout, **kw):
+        group = q.shape[1] // k.shape[1]
+        dq, _, _ = real(q, k, v, out, lse, dout, **kw)
+        kept = dout.clone()
+        kept[:, group - 1::group] = 0
+        _, dk, dv = real(q, k, v, out, lse, kept, **kw)
+        return dq, dk, dv
+    return fn
+
+
 def _rmsnorm_tail_rows_raw(real):
     """The last 64 rows of each call are copied through unnormalised."""
     def fn(x, weight, eps=1e-6):
@@ -73,6 +93,9 @@ MUTANTS = {
     "flash: kv heads shifted by one": ("flash_attention_fwd", _flash_kv_heads_shifted),
     "flash: last query tile dropped": ("flash_attention_fwd", _flash_tail_tile_dropped),
     "flash: softmax scale 5% high": ("flash_attention_fwd", _flash_scale_off),
+    "flash backward: softmax scale 5% high": ("flash_attention_bwd", _flash_bwd_scale_off),
+    "flash backward: one q head of each group left out of dk, dv":
+        ("flash_attention_bwd", _flash_bwd_group_head_dropped),
     "rmsnorm: last 64 rows unnormalised": ("rmsnorm_fwd", _rmsnorm_tail_rows_raw),
     "rmsnorm: eps 1e-2": ("rmsnorm_fwd", _rmsnorm_eps_off),
 }
